@@ -5,17 +5,32 @@ Run from the root of a checkout, on a host with one CUDA GPU::
     python3 chip_smoke.py [--gb 4.0] [--seed 0]
 
 Phase 0 builds the CUDA kernels from ``torchsnapshot_tpu_torch/csrc``.
-Phase 1 holds each kernel (K1 pack_slab, K2 fork_copy) byte-exactly
-against its plain PyTorch version on the card, over every packable dtype,
-empty, one-element, odd-sized and misaligned members, a transposed view
-and a ~100 MB member; then times kernel, plain version and one library call
-at the main path's shapes, beside the copy's bound (2 x bytes / 3.35 TB/s).
+Phase 1 holds each kernel (K1 pack_slab, K2 fork_copy, K3 copy_blocks)
+byte-exactly against its plain PyTorch version on the card, over every
+packable dtype, empty, one-element, odd-sized and misaligned members, a
+transposed view and a ~100 MB member (K3: 0-d, empty, odd widths at odd
+addresses, 3-D blocks, strided last dims); then times kernel, plain version
+and one library call at the main path's shapes, beside the copy's bound
+(2 x bytes / 3.35 TB/s).
 Phase 2 drives the main path on a transformer-shaped bf16 state
 (d_model 4096, d_ff 16384, ~``--gb`` GB): a sync take with batching on,
 verify, restore into zeroed CUDA tensors, read_object, then async_take
 followed at once by an in-place ``add_(1)`` of every tensor, wait, and a
-restore that must give the values from before the mutation. The launch
-counts are set to 0 just before each drive and read just after.
+restore that must give the values from before the mutation.
+Phase 3 drives the multi-rank path: two ranks, two processes on the one
+card (gloo process group, ``DeviceMesh("cuda", (2,))``), holding the same
+model state sharded tensor-parallel style as DTensors (``attn`` and ``up``
+``Shard(1)``, ``down`` ``Shard(0)``, column biases ``Shard(0)``, LayerNorm
+weights and the other biases ``Replicate()``), a per-rank step tensor,
+primitives and a pickled object: a sync take, a restore in place with the
+same placements, a restore with swapped placements (``Shard(1)`` <->
+``Shard(0)``: every target shard overlaps both saved shards through strided
+rectangles, scattered by K3), ``read_object`` of one sharded entry, and an
+async take followed at once by ``add_(1)`` on every local shard, then a
+restore that must give the values from before the mutation; all
+bit-exact. The numbers are of two ranks sharing one card, its PCIe link
+and one disk, not of two cards. The launch counts are set to 0 just before
+each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
 It exits non-zero too on a host without CUDA. The last line of its output
@@ -30,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -112,10 +128,48 @@ def phase1(device, gen):
             if c.stride() != t.stride() and t.numel() > 1:
                 raise AssertionError("fork_copy changed a tensor's layout")
             errs["fork_copy"] = max(errs["fork_copy"], _max_abs_err(_bytes(c), _bytes(t)))
+    pairs = k3_pairs(device, gen)
+    want = [dst.clone() for _, dst in pairs]
+    kernels.copy_blocks_plain([(src, w) for (src, _), w in zip(pairs, want)])
+    kernels.copy_blocks(pairs)
+    torch.cuda.synchronize()
+    errs["copy_blocks"] = max(_max_abs_err(_bytes(dst), _bytes(w)) for (_, dst), w in zip(pairs, want))
     if any(errs.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {errs}")
-    log(f"phase1 kernels byte-exact on {len(members) + len(big_group)} members: {errs}")
+    log(f"phase1 kernels byte-exact on {len(members) + len(big_group)} members and {len(pairs)} K3 views: {errs}")
     return errs
+
+
+def k3_pairs(device, gen):
+    """K3 (source view, destination view) pairs of every packable dtype:
+    0-d, empty, odd widths at odd addresses, 3-D blocks, a transposed
+    source, strided last dims, and one main-path reshard rectangle."""
+    from torchsnapshot_tpu_torch import kernels
+
+    pairs = []
+    for dtype in sorted(kernels.PACKABLE_DTYPES, key=str):
+        def rand(*shape):
+            if dtype == torch.bool:
+                return torch.randint(0, 2, shape, generator=gen, device=device).bool()
+            if dtype.is_floating_point:
+                return torch.randn(shape, generator=gen, device=device).to(dtype)
+            return torch.randint(0, 100, shape, generator=gen, device=device).to(dtype)
+
+        def zeros(*shape):
+            return torch.zeros(shape, device=device).to(dtype)
+
+        a = rand(9, 12, 5)
+        pairs += [
+            (rand(), zeros()),
+            (a[0:0, :9], zeros(12, 9, 5)[0:0]),
+            (rand(37)[1:34], zeros(40)[5:38]),
+            (a[2:7, 3:11, 1:4], zeros(12, 9, 5)[4:9, 0:8, 2:5]),
+            (a[1:3].transpose(0, 1), zeros(12, 9, 5)[0:12, 4:6, :]),
+            (a[1:3, :, 2], zeros(12, 9, 5)[:, 2:4, 1].t()),
+        ]
+    src = torch.randn(2048, 8192, generator=gen, device=device).to(torch.bfloat16)
+    pairs.append((src, torch.zeros(2048, 16384, device=device, dtype=torch.bfloat16)[:, 8192:]))
+    return pairs
 
 
 def time_kernels(device, slab_members, state_tensors):
@@ -338,6 +392,278 @@ def phase2(gb, device, gen, root, card):
     return launches, rates, {k: v for k, v in params["layer_0"].items() if k not in ("up", "down")}, list(_tensors(params))
 
 
+def reshard_rectangles(device, gb, gen):
+    """K3's work in one rank's swapped-placement restore of the phase-3
+    state: for each tensor, the overlap of each saved shard with rank 0's
+    target shard, as (staging view, target view) pairs on the card."""
+    from torchsnapshot_tpu_torch.io_preparers.sharded_array import overlap, placement_offsets_sizes
+
+    pairs = []
+    keep = []
+    for name, shape, save, restore in tp_layout(gb):
+        if save == restore:
+            continue
+        t_off, t_sz = placement_offsets_sizes(shape, (2,), [restore], (0,))
+        target = torch.empty(t_sz, dtype=torch.bfloat16, device=device)
+        keep.append(target)
+        for coord in range(2):
+            s_off, s_sz = placement_offsets_sizes(shape, (2,), [save], (coord,))
+            ov = overlap(s_off, s_sz, t_off, t_sz)
+            if ov is None:
+                continue
+            rows = ov[0][0]
+            piece_sz = [rows.stop - rows.start] + list(s_sz[1:])
+            staging = torch.randn(piece_sz, generator=gen, device=device).to(torch.bfloat16)
+            keep.append(staging)
+            src_sl = (slice(0, piece_sz[0]),) + ov[0][1:]
+            pairs.append((staging[src_sl], target[ov[1]]))
+    return pairs, keep
+
+
+def time_k3(device, gb, gen):
+    """K3 at one main-path rectangle (2048x8192 bf16 into rows of 32 KiB
+    pitch) and over all rectangles of one rank's reshard restore."""
+    from torchsnapshot_tpu_torch import kernels
+
+    stream = torch.cuda.current_stream(device)
+    out = {}
+    src = torch.randn(2048, 8192, generator=gen, device=device).to(torch.bfloat16)
+    dst = torch.zeros(2048, 16384, device=device, dtype=torch.bfloat16)[:, 8192:]
+    whole, keep = reshard_rectangles(device, gb, gen)
+    for label, pairs in (("rectangle", [(src, dst)]), ("reshard_restore", whole)):
+        table, total = kernels.rect_table(pairs)
+        dev_table = kernels.upload_rect_table(table, device)
+        nbytes = sum(s.numel() * s.element_size() for s, _ in pairs)
+        reps = 50 if label == "rectangle" else 5
+        out[label] = {
+            "bytes": nbytes,
+            "rectangles": len(table),
+            "ms": _time_ms(lambda: kernels.launch_raw("copy_blocks", dev_table, len(table), total, stream), reps),
+            "wrapper_ms": _time_ms(lambda: kernels.copy_blocks(pairs), reps),
+            "plain_ms": _time_ms(lambda: kernels.copy_blocks_plain(pairs), reps),
+            "library_ms": _time_ms(lambda: [d.copy_(s) for s, d in pairs], reps),
+            "bound_ms": _bound_ms(nbytes),
+        }
+    del src, dst, whole, keep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: two ranks on the card, DTensor state sharded tensor-parallel style
+# ---------------------------------------------------------------------------
+
+
+def tp_layout(gb):
+    """(name, global shape, saved placement, swapped placement) of every
+    bf16 tensor of the TP-sharded state; LayerNorm weights are handled
+    apart (fp32, Replicate)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d_model, d_ff = 4096, 16384
+    out = []
+    for i in range(n_layers_for(gb)):
+        out += [
+            (f"layer_{i}/attn", (d_model, 3 * d_model), Shard(1), Shard(0)),
+            (f"layer_{i}/up", (d_model, d_ff), Shard(1), Shard(0)),
+            (f"layer_{i}/down", (d_ff, d_model), Shard(0), Shard(1)),
+            (f"layer_{i}/b_attn", (3 * d_model,), Shard(0), Shard(0)),
+            (f"layer_{i}/b_up", (d_ff,), Shard(0), Shard(0)),
+            (f"layer_{i}/b_down", (d_model,), Replicate(), Replicate()),
+        ]
+    return out
+
+
+def n_layers_for(gb):
+    d_model, d_ff = 4096, 16384
+    return max(1, round(gb * 1e9 / ((3 * d_model * d_model + 2 * d_model * d_ff) * 2)))
+
+
+def _global(name, shape, dtype, seed, device):
+    """The global value of one tensor: random, from the seed and its name."""
+    g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + sum(map(ord, name)) * 7919 + len(name))
+    return torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+
+
+def _local(full, placement):
+    from torchsnapshot_tpu_torch.io_preparers.sharded_array import placement_offsets_sizes
+
+    import torch.distributed as dist
+
+    off, sz = placement_offsets_sizes(full.shape, (2,), [placement], (dist.get_rank(),))
+    return full[tuple(slice(o, o + n) for o, n in zip(off, sz))]
+
+
+def tp_state(gb, seed, device, mesh, kind, zeros=False):
+    """This rank's DTensor state (``kind``: "save" or "swap" placements)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from torchsnapshot_tpu_torch.io_preparers.sharded_array import contiguous_stride
+
+    params = {}
+    entries = [(n, s, p if kind == "save" else q, torch.bfloat16) for n, s, p, q in tp_layout(gb)]
+    for i in range(n_layers_for(gb)):
+        for ln in ("ln1_w", "ln1_b", "ln2_w", "ln2_b"):
+            entries.append((f"layer_{i}/{ln}", (4096,), Replicate(), torch.float32))
+    for name, shape, placement, dtype in entries:
+        full = _global(name, shape, dtype, seed, device)
+        local = torch.zeros_like(_local(full, placement)) if zeros else _local(full, placement).clone()
+        del full
+        layer, leaf = name.split("/")
+        params.setdefault(layer, {})[leaf] = DTensor.from_local(
+            local, mesh, [placement], run_check=False, shape=torch.Size(shape), stride=contiguous_stride(shape)
+        )
+    return params
+
+
+def check_tp_state(params, gb, seed, device, kind, what, delta=0):
+    """Every local shard equals the seeded global value's slice (+ delta)."""
+    layouts = {n: (p if kind == "save" else q) for n, _, p, q in tp_layout(gb)}
+    for layer, leaves in params.items():
+        for leaf, dt in leaves.items():
+            name = f"{layer}/{leaf}"
+            local = dt.to_local()
+            full = _global(name, tuple(dt.shape), local.dtype, seed, device)
+            want = _local(full, layouts.get(name, dt.placements[0]))
+            if delta:
+                want = want + delta
+            if local.device.type != "cuda" or not torch.equal(_bytes(local), _bytes(want)):
+                raise AssertionError(f"{what}: {name} differs")
+
+
+def _tensor_bytes(params):
+    return sum(dt.to_local().numel() * dt.to_local().element_size() for v in params.values() for dt in v.values())
+
+
+def phase3_worker(rank, world_size, gb, seed, root, out_dir):
+    """One rank of phase 3; writes its numbers to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import io_preparer, kernels
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = DeviceMesh("cuda", list(range(world_size)))
+    result = {"rank": rank, "mesh_warnings": [str(w.message)[:300] for w in caught], "launches": {}, "rates": {}}
+
+    def barrier():
+        dist.barrier()
+
+    def drive(label, fn):
+        barrier()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        result["launches"][label] = dict(kernels.LAUNCHES)
+        return out, wall
+
+    params = tp_state(gb, seed, device, mesh, "save")
+    progress = {"step": torch.tensor(1000 + rank, dtype=torch.int64, device=device), "epoch": 3,
+                "lr": 3e-4, "meta": ("transformer-tp", 4096, 16384, world_size)}
+    app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+    nbytes = _tensor_bytes(params)
+    result["local_bytes"] = nbytes
+    torch.cuda.synchronize()
+
+    path = os.path.join(root, "tp_sync")
+    _, take_s = drive("sync_take", lambda: tts.Snapshot.take(path, app))
+    result["rates"]["take_gbps"] = nbytes / take_s / 1e9
+    result["rates"]["take_s"] = take_s
+    result["take_phases"] = dict(snapshot_mod.LAST_TAKE_PHASES)
+    if rank == 0 and tts.Snapshot(path).verify():
+        raise AssertionError("phase3 verify")
+
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "save", zeros=True)),
+              "progress": tts.StateDict(step=torch.zeros((), dtype=torch.int64, device=device))}
+    ptrs = {(l, k): dt.to_local().data_ptr() for l, v in target["model"].items() for k, dt in v.items()}
+    _, restore_s = drive("restore", lambda: tts.Snapshot(path).restore(target))
+    check_tp_state(dict(target["model"]), gb, seed, device, "save", "same-placement restore")
+    if any(dt.to_local().data_ptr() != ptrs[(l, k)] for l, v in target["model"].items() for k, dt in v.items()):
+        raise AssertionError("restore did not fill the local shards in place")
+    if int(target["progress"]["step"]) != 1000 + rank:
+        raise AssertionError("per-rank step")
+    result["rates"]["restore_gbps"] = nbytes / restore_s / 1e9
+    del target
+
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "swap", zeros=True))}
+    _, reshard_s = drive("reshard_restore", lambda: tts.Snapshot(path).restore(target))
+    check_tp_state(dict(target["model"]), gb, seed, device, "swap", "swapped-placement restore")
+    if result["launches"]["reshard_restore"]["copy_blocks"] < 1:
+        raise AssertionError("K3 was not launched in the reshard restore")
+    result["rates"]["reshard_restore_gbps"] = _tensor_bytes(dict(target["model"])) / reshard_s / 1e9
+    del target
+
+    up, _ = drive("read_object", lambda: tts.Snapshot(path).read_object("0/model/layer_0/up"))
+    if not torch.equal(_bytes(up), _bytes(_global("layer_0/up", (4096, 16384), torch.bfloat16, seed, device))):
+        raise AssertionError("read_object of a sharded entry")
+    del up
+    barrier()
+    if rank == 0:
+        shutil.rmtree(path)
+
+    path = os.path.join(root, "tp_async")
+    captured0 = io_preparer.HOST_CAPTURED["leaves"]
+    barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    pending = tts.Snapshot.async_take(path, app)
+    stall_s = time.monotonic() - t0
+    for leaves in params.values():
+        for dt in leaves.values():
+            dt.to_local().add_(1)
+    progress["step"].add_(1)
+    pending.wait()
+    drain_s = time.monotonic() - t0 - stall_s
+    result["launches"]["async_take"] = dict(kernels.LAUNCHES)
+    if result["launches"]["async_take"]["fork_copy"] < 1:
+        raise AssertionError("K2 not launched in the async take")
+    if io_preparer.HOST_CAPTURED["leaves"] != captured0:
+        raise AssertionError("a leaf was captured through host RAM")
+    result["rates"]["async_stall_s"] = stall_s
+    result["rates"]["async_drain_s"] = drain_s
+    result["drain_stats"] = pending.drain_stats
+    check_tp_state(params, gb, seed, device, "save", "mutated state", delta=1)
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "save", zeros=True)),
+              "progress": tts.StateDict(step=torch.zeros((), dtype=torch.int64, device=device))}
+    drive("async_restore", lambda: tts.Snapshot(path).restore(target))
+    check_tp_state(dict(target["model"]), gb, seed, device, "save", "async restore")
+    if int(target["progress"]["step"]) != 1000 + rank:
+        raise AssertionError("async restore: step")
+    barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase3(gb, seed, root, card):
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    with open("/proc/meminfo") as f:
+        avail = next(line for line in f if line.startswith("MemAvailable")).split()[1]
+    log(f"phase3 host MemAvailable before: {int(avail) / 1024**2:.1f} GiB")
+    out_dir = os.path.join(root, "phase3_out")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    run_with_processes(phase3_worker, 2, args=(gb, seed, root, out_dir), timeout_s=600, process_group=True)
+    log(f"phase3 two ranks done in {time.monotonic() - t0:.1f} s")
+    results = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            r = json.load(f)
+        results.append(r)
+        log(f"phase3 rank {rank} on {card} (two ranks sharing one card): {json.dumps(r)}")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -371,29 +697,51 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="tss_chip_smoke_")
     try:
         launches, rates, slab_layer, state_tensors = phase2(args.gb, device, gen, root, card)
+        # The main path's K1 slab is one layer's attn plus its small tensors.
+        slab_members = [slab_layer[k] for k in sorted(slab_layer)]
+        times = time_kernels(device, slab_members, state_tensors)
+        del slab_layer, slab_members, state_tensors
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        k3_times = time_k3(device, args.gb, gen)
+        ranks = phase3(args.gb, args.seed, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # The main path's K1 slab is one layer's attn plus its small tensors.
-    slab_members = [slab_layer[k] for k in sorted(slab_layer)]
-    times = time_kernels(device, slab_members, state_tensors)
     for name, t in times.items():
         log(f"{name} timing on {card}: {json.dumps(t)}")
+    for label, t in k3_times.items():
+        log(f"copy_blocks timing ({label}) on {card}: {json.dumps(t)}")
     log(f"main path on {card}: {json.dumps(rates)}")
+    for r in ranks:
+        log(
+            f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "
+            f"restore {r['rates']['restore_gbps']:.3f} GB/s, reshard restore {r['rates']['reshard_restore_gbps']:.3f} GB/s, "
+            f"async stall {r['rates']['async_stall_s']:.4f} s, drain {r['rates']['async_drain_s']:.3f} s, "
+            f"launches {json.dumps(r['launches'])}"
+        )
+    times["copy_blocks"] = k3_times["rectangle"]
+    for r in ranks:
+        for label, counts in r["launches"].items():
+            launches[f"rank{r['rank']}_{label}"] = counts
 
     sources = {
         "pack_slab": ("torchsnapshot_tpu_torch/csrc/tss_kernels.cu", "torchsnapshot_tpu/batcher.py:408"),
         "fork_copy": ("torchsnapshot_tpu_torch/csrc/tss_kernels.cu", "torchsnapshot_tpu/io_preparer.py:348"),
+        "copy_blocks": ("torchsnapshot_tpu_torch/csrc/tss_kernels.cu", "torchsnapshot_tpu/io_preparers/sharded_array.py:266"),
     }
     record = {"kernels": []}
     for name, (source, replaces) in sources.items():
         t = times[name]
+        total = sum(d.get(name, 0) for d in launches.values())
+        if total < 1:
+            raise AssertionError(f"{name} was not launched on the main path: {launches}")
         record["kernels"].append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": sum(d[name] for d in launches.values()),
+            "launches": total,
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

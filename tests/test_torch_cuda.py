@@ -7,6 +7,8 @@ skip the JAX-importing ``tests/conftest.py``::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import pytest
 import torch
 
@@ -117,3 +119,105 @@ def test_cuda_take_restore_and_async_mutation(device, tmp_path, batching):
         tts.Snapshot(str(tmp_path / "a")).restore({"m": target})
         for k, v in before.items():
             assert torch.equal(_bytes(target[k].cpu()), _bytes(v.cpu())), k
+
+
+def _view_pairs(dtype, device, seed):
+    """Strided (source, destination) views: 0-d, empty, odd widths at odd
+    addresses, 3-D blocks, a transposed source, a strided last dim and a
+    column block of a wide matrix (the reshard restore's rectangle)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        if dtype == torch.bool:
+            return torch.randint(0, 2, shape, generator=g, device=device).bool()
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=device).to(dtype)
+        return torch.randint(0, 100, shape, generator=g, device=device).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device).to(dtype)
+
+    a = rand(9, 12, 5)
+    wide = rand(64, 96)
+    return [
+        (rand(), zeros()),
+        (a[0:0, :9], zeros(12, 9, 5)[0:0]),
+        (rand(37)[1:34], zeros(40)[5:38]),
+        (a[2:7, 3:11, 1:4], zeros(12, 9, 5)[4:9, 0:8, 2:5]),
+        (a[1:3].transpose(0, 1), zeros(12, 9, 5)[0:12, 4:6, :]),
+        (a[1:3, :, 2], zeros(12, 9, 5)[:, 2:4, 1].t()),
+        (wide[:, 48:], zeros(64, 96)[:, :48]),
+    ]
+
+
+@pytest.mark.parametrize("dtype", sorted(kernels.PACKABLE_DTYPES, key=str), ids=str)
+def test_copy_blocks_kernel_matches_plain(device, dtype):
+    pairs = _view_pairs(dtype, device, 3)
+    want = [dst.clone() for _, dst in pairs]
+    kernels.copy_blocks_plain([(s, w) for (s, _), w in zip(pairs, want)])
+    before = kernels.LAUNCHES["copy_blocks"]
+    kernels.copy_blocks(pairs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["copy_blocks"] == before + 1
+    for (_, dst), w in zip(pairs, want):
+        assert torch.equal(_bytes(dst), _bytes(w))
+
+
+def test_copy_blocks_main_path_rectangle(device):
+    """One reshard rectangle of the main path: 2048x8192 bf16 into the
+    right half of 2048x16384 rows (32 KiB destination pitch)."""
+    src = torch.randn(2048, 8192, device=device).to(torch.bfloat16)
+    dst = torch.zeros(2048, 16384, device=device, dtype=torch.bfloat16)
+    kernels.copy_blocks([(src, dst[:, 8192:])])
+    torch.cuda.synchronize()
+    assert torch.equal(dst[:, 8192:], src) and not dst[:, :8192].any()
+
+
+def test_gather_makes_strided_views_contiguous(device):
+    a = torch.randn(40, 30, device=device)
+    g = kernels.gather(a[3:37, 5:21])
+    assert g.is_contiguous() and torch.equal(g, a[3:37, 5:21])
+
+
+def _two_rank_reshard(rank, world_size, root):
+    import numpy as np
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from torchsnapshot_tpu_torch.convert import dtensor_from_numpy
+
+    torch.cuda.set_device(0)
+    mesh = DeviceMesh("cuda", list(range(world_size)))
+    rng = np.random.default_rng(0)
+    g = {"a": rng.standard_normal((16, 96)).astype(np.float32),
+         "b": rng.integers(0, 100, (7, 5)).astype(np.int16),
+         "r": rng.standard_normal((16,)).astype(np.float32)}
+    before = {"a": [Shard(1)], "b": [Shard(0)], "r": [Replicate()]}
+    after = {"a": [Shard(0)], "b": [Shard(1)], "r": [Replicate()]}
+    state = {k: dtensor_from_numpy(v, mesh, before[k]) for k, v in g.items()}
+    state["mine"] = torch.full((3,), float(rank), device="cuda")
+    with knobs.override_max_shard_size_bytes(1024):  # pieces cut on dim 1: K3 gathers
+        kernels.reset_launch_counts()
+        tts.Snapshot.take(os.path.join(root, "s"), {"m": tts.StateDict(state)})
+        assert kernels.LAUNCHES["copy_blocks"] >= 1
+    assert tts.Snapshot(os.path.join(root, "s")).verify() == {}
+    target = {k: dtensor_from_numpy(np.zeros_like(v), mesh, after[k]) for k, v in g.items()}
+    ptrs = {k: t.to_local().data_ptr() for k, t in target.items()}
+    target["mine"] = torch.zeros(3, device="cuda")
+    sd = tts.StateDict(target)
+    kernels.reset_launch_counts()
+    tts.Snapshot(os.path.join(root, "s")).restore({"m": sd})
+    assert kernels.LAUNCHES["copy_blocks"] >= 1
+    for k in g:
+        want = dtensor_from_numpy(g[k], mesh, after[k]).to_local()
+        assert sd[k].to_local().data_ptr() == ptrs[k]
+        assert torch.equal(_bytes(sd[k].to_local()), _bytes(want)), k
+    assert torch.equal(sd["mine"], torch.full((3,), float(rank), device="cuda"))
+    full = tts.Snapshot(os.path.join(root, "s")).read_object("0/m/a")
+    assert full.is_cuda and torch.equal(full.cpu(), torch.from_numpy(g["a"]))
+
+
+def test_two_ranks_on_one_card_reshard(device, tmp_path):
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_two_rank_reshard, 2, args=(str(tmp_path),), process_group=True)

@@ -87,3 +87,48 @@ def test_cuda_default_raises_without_cuda(tmp_path):
         tts.Snapshot(path).read_object("0/m/x")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tts.Snapshot(path).restore({"m": tts.StateDict()})
+
+
+_MULTI_RANK_MODULES = [
+    "torchsnapshot_tpu_torch/parallel/store.py",
+    "torchsnapshot_tpu_torch/parallel/coordinator.py",
+    "torchsnapshot_tpu_torch/collective_tracer.py",
+    "torchsnapshot_tpu_torch/partitioner.py",
+    "torchsnapshot_tpu_torch/io_preparers/sharded_array.py",
+    "torchsnapshot_tpu_torch/test_utils.py",
+]
+
+
+def test_multi_rank_modules_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(_MULTI_RANK_MODULES) <= checked
+
+
+def test_a_single_process_take_stays_light():
+    """Resolving the coordinator of a single process and taking a snapshot
+    load neither JAX nor DTensor (whose import pulls in sympy)."""
+    code = (
+        "import sys, tempfile, os, torch\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "from torchsnapshot_tpu_torch.parallel.coordinator import get_coordinator\n"
+        "c = get_coordinator()\n"
+        "assert (c.get_rank(), c.get_world_size()) == (0, 1)\n"
+        "tts.Snapshot.take(os.path.join(tempfile.mkdtemp(), 's'), {'m': tts.StateDict(x=torch.ones(2))})\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'torchsnapshot_tpu', 'torch.distributed.tensor'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_unsupported_placements_raise():
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    from torchsnapshot_tpu_torch.io_preparers.sharded_array import placement_offsets_sizes
+
+    for placement in (Partial(), _StridedShard(0, split_factor=2)):
+        with pytest.raises(NotImplementedError, match="not supported"):
+            placement_offsets_sizes((4, 4), (2,), [placement], (0,))

@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 from . import d2h, kernels
 from .io_preparers.array import ArrayBufferStager
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
-from .manifest import ArrayEntry, ChunkedArrayEntry, Entry
+from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .serialization import Serializer, array_nbytes
 
 # Slabs close at this size; smaller tensors join them (the JAX package's
@@ -37,7 +37,8 @@ SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
 
 
 def _collect_array_entries(entries: List[Entry]) -> Dict[str, ArrayEntry]:
-    """location -> ArrayEntry for every array entry, chunks included."""
+    """location -> ArrayEntry for every array entry, chunks and shards
+    included."""
     out: Dict[str, ArrayEntry] = {}
     for entry in entries:
         if isinstance(entry, ArrayEntry):
@@ -45,6 +46,9 @@ def _collect_array_entries(entries: List[Entry]) -> Dict[str, ArrayEntry]:
         elif isinstance(entry, ChunkedArrayEntry):
             for chunk in entry.chunks:
                 out[chunk.tensor.location] = chunk.tensor
+        elif isinstance(entry, ShardedArrayEntry):
+            for shard in entry.shards:
+                out[shard.tensor.location] = shard.tensor
     return out
 
 

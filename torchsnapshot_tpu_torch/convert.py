@@ -7,14 +7,21 @@ them, so both directions go through integer views of the same width:
 bf16 through ``uint16``, fp8 through ``uint8``. Values never pass through a
 wider float. Containers (dict, list, tuple) are rebuilt; other leaves pass
 through unchanged.
+
+Sharded state crosses as a global array: :func:`dtensor_from_numpy` cuts a
+rank's local shard out of a global numpy array by the placements' own
+geometry (``torch.chunk`` sizes) and wraps it as that rank's DTensor. A
+sharded ``jax.Array``, gathered to the host, is such a global array.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from .io_preparers.sharded_array import contiguous_stride, placement_offsets_sizes
 
 # Extension dtypes by name -> (torch dtype, same-width integer view).
 _EXT = {
@@ -71,3 +78,36 @@ def from_numpy_tree(tree: Any, device: Any = "cpu") -> Any:
 def to_numpy_tree(tree: Any) -> Any:
     """torch tensors -> numpy arrays (ml_dtypes for bf16 and fp8)."""
     return _map(tree, _tensor_to_array)
+
+
+def local_shard_of(
+    global_array: np.ndarray,
+    mesh_shape: Sequence[int],
+    placements: Sequence[Any],
+    coordinate: Sequence[int],
+) -> np.ndarray:
+    """The block of ``global_array`` that mesh ``coordinate`` holds."""
+    offsets, sizes = placement_offsets_sizes(global_array.shape, mesh_shape, placements, coordinate)
+    index = tuple(slice(o, o + n) for o, n in zip(offsets, sizes))
+    return global_array[index] if index else global_array
+
+
+def dtensor_from_numpy(global_array: np.ndarray, device_mesh: Any, placements: Sequence[Any]) -> Any:
+    """This rank's DTensor of ``global_array`` over ``device_mesh`` with
+    ``placements``: its local shard (bit-exact, on the mesh's device type)
+    wrapped by ``DTensor.from_local`` without a collective."""
+    from torch.distributed.tensor import DTensor
+
+    coordinate = device_mesh.get_coordinate()
+    local = local_shard_of(global_array, device_mesh.shape, placements, coordinate)
+    device = torch.device(device_mesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return DTensor.from_local(
+        _array_to_tensor(local, device),
+        device_mesh,
+        list(placements),
+        run_check=False,
+        shape=torch.Size(global_array.shape),
+        stride=contiguous_stride(global_array.shape),
+    )

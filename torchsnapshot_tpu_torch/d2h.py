@@ -12,9 +12,17 @@ which pools them across transfers. A byte window bounds the transfers in
 flight; every byte of it belongs to a staging reservation already debited
 against the pipeline's memory budget.
 
-T2 (host to device): :func:`host_to_device` copies a filled pinned host
-tensor into the live tensor in place (or into a fresh tensor) on a copy
-stream; the caller's stream then waits for that stream.
+A strided CUDA source (a piece of a shard cut along an inner dim) is first
+gathered into a contiguous device buffer by kernel K3 on the lane's
+stream, so the D2H copy itself is always one dense transfer.
+
+T2 (host to device), per restore (:class:`HostToDevice`): one copy stream
+per device that first waits for the caller's stream. A whole tensor is
+copied from a filled pinned host tensor into the live tensor in place (or
+into a fresh tensor); a saved shard piece is copied into a device staging
+buffer (:meth:`HostToDevice.stage`), from which K3 scatters its overlaps
+into the targets on the same stream. At the end the caller's stream waits
+for the copy stream.
 
 The side streams (fork, D2H, H2D) are one per device and role for the
 process (:func:`side_stream`).
@@ -30,9 +38,11 @@ import asyncio
 import contextvars
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from . import kernels
 
 _LANES = 4
 # Device-to-host bytes in flight at once on the lanes.
@@ -131,8 +141,9 @@ class TransferLanes:
         """A pinned, C-contiguous host copy of CUDA tensor ``src``."""
 
         def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
+            dense = src if src.is_contiguous() else kernels.gather(src, stream)
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            host.copy_(src, non_blocking=True)
+            host.copy_(dense, non_blocking=True)
             return host
 
         nbytes = src.numel() * src.element_size()
@@ -217,3 +228,47 @@ def host_to_device(
         out.copy_(host, non_blocking=True)
     out.record_stream(stream)
     return out
+
+
+class HostToDevice:
+    """T2 for one restore: per device, one copy stream that first waits for
+    the caller's stream (the live tensors may still be in use) and that the
+    caller's stream waits for at :meth:`finish`. :meth:`stream` must first
+    be called for a device on the caller's thread (planning does), since the
+    caller's current stream is per thread."""
+
+    def __init__(self) -> None:
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._lock = threading.Lock()
+
+    def stream(self, device: torch.device) -> torch.cuda.Stream:
+        with self._lock:
+            stream = self._streams.get(device)
+            if stream is None:
+                stream = side_stream(device, "h2d")
+                stream.wait_stream(torch.cuda.current_stream(device))
+                self._streams[device] = stream
+            return stream
+
+    def copy(self, host: torch.Tensor, live: Any, device: torch.device) -> torch.Tensor:
+        """Whole-tensor T2: into ``live`` in place when it can take it."""
+        live = live if isinstance(live, torch.Tensor) else None
+        return host_to_device(host, live, device, self.stream(device))
+
+    def stage(self, host: torch.Tensor, device: torch.device) -> Tuple[torch.Tensor, torch.cuda.Event]:
+        """Enqueue the copy of pinned uint8 ``host`` into a device staging
+        buffer, allocated on the copy stream. Returns the buffer and the
+        event that marks the copy done; ``host`` must live until it is."""
+        stream = self.stream(device)
+        with torch.cuda.stream(stream):
+            staging = torch.empty(host.shape, dtype=host.dtype, device=device)
+            staging.copy_(host, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return staging, copied
+
+    def finish(self) -> None:
+        for device, stream in self._streams.items():
+            torch.cuda.current_stream(device).wait_stream(stream)
+            # The pinned sources are released once the copies have run.
+            stream.synchronize()

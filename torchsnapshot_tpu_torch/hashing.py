@@ -132,6 +132,36 @@ def is_v2_record(rec: Any) -> bool:
     return isinstance(rec, dict) and rec.get("v") == 2
 
 
+def chunk_extents(size: int, grain: int) -> List[Tuple[int, int]]:
+    """The fixed chunk grid of an object: [k*grain, min((k+1)*grain, size))."""
+    if grain <= 0:
+        return [(0, size)] if size else []
+    return [(b, min(b + grain, size)) for b in range(0, size, grain)]
+
+
+def record_chunk_info(
+    rec: Any,
+) -> Optional[Tuple[int, Optional[List[str]], Optional[List[int]]]]:
+    """``(grain, chunk_shas | None, chunk_crcs | None)`` for v2 records with
+    a usable chunk grid; None for v1/legacy records (not chunk-verifiable)."""
+    if not is_v2_record(rec):
+        return None
+    grain = rec.get("grain")
+    size = rec.get("size")
+    if not isinstance(grain, int) or grain <= 0 or not isinstance(size, int):
+        return None
+    n = len(chunk_extents(size, grain))
+    shas = rec.get("chunks")
+    if not (isinstance(shas, list) and len(shas) == n):
+        shas = None
+    crcs = rec.get("crcs")
+    if not (isinstance(crcs, list) and len(crcs) == n):
+        crcs = None
+    if shas is None and crcs is None:
+        return None
+    return grain, shas, crcs
+
+
 def record_crc(rec: Any) -> Optional[int]:
     """Whole-object crc32 (v2 records store the combined value, which is
     bit-identical to the serial fold)."""

@@ -1,14 +1,18 @@
 """Value -> (Entry, WriteReqs) dispatch, and the async-take capture.
 
-Routing (single process):
+Routing (``classify``, after ``torchsnapshot_tpu/io_preparer.py``):
 
 - primitives -> inline :class:`PrimitiveEntry`;
+- a DTensor with only ``Replicate`` placements over a mesh of every rank
+  -> the replicated array path (saved once, the write load split by the
+  partitioner); a DTensor with any ``Shard`` placement (or over a mesh of
+  some ranks only) -> the sharded path (``io_preparers/sharded_array.py``);
+  a DTensor arrives here as a :class:`DTensorLeaf` (:func:`as_leaves`);
 - ``torch.Tensor`` (CPU or CUDA; an ``nn.Parameter`` is detached) and
-  numpy arrays of a plain dtype -> the array path, chunked along dim 0
-  above ``MAX_CHUNK_SIZE_BYTES``;
+  numpy arrays of a plain dtype -> the per-rank array path (``<rank>/``),
+  or the replicated one when a ``replicated=`` glob names it; chunked along
+  dim 0 above ``MAX_CHUNK_SIZE_BYTES``;
 - anything else -> a pickled object.
-
-A DTensor is refused until sharded state is ported.
 
 **The async capture** (:func:`capture_flattened`). Torch tensors are
 mutated in place by the optimizer step, so ``async_take`` must detach the
@@ -32,6 +36,7 @@ with a warning and a count in :data:`HOST_CAPTURED`.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import sys
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
@@ -44,6 +49,7 @@ from .io_types import WriteReq
 from .io_preparers.array import ArrayIOPreparer
 from .io_preparers.chunked_array import ChunkedArrayIOPreparer, should_chunk
 from .io_preparers.object import ObjectIOPreparer
+from .io_preparers.sharded_array import DTensorLeaf, ShardedArrayIOPreparer, dtensor_leaf
 from .manifest import PRIMITIVE_TYPES, Manifest, PrimitiveEntry
 from .serialization import numpy_dtype_to_string
 
@@ -62,22 +68,32 @@ def get_storage_path(logical_path: str, rank: int, replicated: bool) -> str:
     return f"replicated/{logical_path}" if replicated else f"{rank}/{logical_path}"
 
 
-def _is_dtensor(value: Any) -> bool:
+def is_dtensor(value: Any) -> bool:
     # No DTensor exists unless its module was imported; importing it here
     # would cost seconds (it pulls in sympy) on every first take.
     module = sys.modules.get("torch.distributed.tensor")
     return module is not None and isinstance(value, module.DTensor)
 
 
-def classify(value: Any) -> str:
-    """One of: primitive | array | object."""
+def as_leaves(flattened: Dict[str, Any]) -> Dict[str, Any]:
+    """``flattened`` with each DTensor replaced by its :class:`DTensorLeaf`
+    (the input is not mutated)."""
+    if not any(is_dtensor(v) for v in flattened.values()):
+        return flattened
+    return {p: dtensor_leaf(v) if is_dtensor(v) else v for p, v in flattened.items()}
+
+
+def classify(value: Any, world_size: int = 1) -> str:
+    """One of: primitive | sharded | replicated_array | array | object."""
     if isinstance(value, PRIMITIVE_TYPES) and not isinstance(value, np.generic):
         return "primitive"
+    if is_dtensor(value):
+        value = dtensor_leaf(value)
+    if isinstance(value, DTensorLeaf):
+        if value.fully_replicated and value.mesh_size == world_size:
+            return "replicated_array"
+        return "sharded"
     if isinstance(value, torch.Tensor):
-        if _is_dtensor(value):
-            raise NotImplementedError(
-                "DTensor state is not supported by this package yet"
-            )
         return "array"
     if isinstance(value, np.ndarray) and numpy_dtype_to_string(value.dtype):
         return "array"
@@ -174,21 +190,29 @@ def _defensive_device_copies(
     return out, events  # type: ignore[return-value]
 
 
+def cuda_source(value: Any) -> Optional[torch.Tensor]:
+    """The CUDA tensor a leaf stages from (a DTensor leaf's local shard)."""
+    t = value.local if isinstance(value, DTensorLeaf) else value
+    return t if isinstance(t, torch.Tensor) and t.device.type == "cuda" else None
+
+
 def capture_flattened(
     flattened: Dict[str, Any],
 ) -> Tuple[Dict[str, Any], Set[str], Dict[torch.device, torch.cuda.Event]]:
-    """Replace CUDA tensor leaves by private captures (their K2 forks).
-    Returns the new dict (the input is not mutated), the captured paths,
-    and the per-device events after which the forks are final."""
-    paths = [
-        p for p, v in flattened.items()
-        if isinstance(v, torch.Tensor) and v.device.type == "cuda"
-    ]
+    """Replace CUDA tensor leaves, and the local shards of DTensor leaves,
+    by private captures (their K2 forks). Returns the new dict (the input
+    is not mutated), the captured paths, and the per-device events after
+    which the forks are final."""
+    paths = [p for p, v in flattened.items() if cuda_source(v) is not None]
     if not paths:
         return flattened, set(), {}
-    copies, events = _defensive_device_copies([flattened[p].detach() for p in paths])
+    copies, events = _defensive_device_copies(
+        [cuda_source(flattened[p]).detach() for p in paths]
+    )
     flattened = dict(flattened)
-    flattened.update(zip(paths, copies))
+    for p, c in zip(paths, copies):
+        v = flattened[p]
+        flattened[p] = dataclasses.replace(v, local=c) if isinstance(v, DTensorLeaf) else c
     return flattened, set(paths), events
 
 
@@ -200,6 +224,7 @@ def capture_flattened(
 def prepare_write(
     flattened: Dict[str, Any],
     rank: int,
+    world_size: int,
     replicated_paths: Set[str],
     is_async_snapshot: bool = False,
     ready: Optional[Dict[torch.device, torch.cuda.Event]] = None,
@@ -216,11 +241,26 @@ def prepare_write(
     write_reqs: List[WriteReq] = []
     ready = ready or {}
     for logical_path, value in flattened.items():
-        kind = classify(value)
-        replicated = logical_path in replicated_paths
+        kind = classify(value, world_size)
+        replicated = logical_path in replicated_paths or kind == "replicated_array"
+        captured = logical_path in captured_paths
         if kind == "primitive":
             manifest[logical_path] = PrimitiveEntry.from_value(value, replicated=replicated)
             continue
+        if kind == "sharded":
+            entry, reqs = ShardedArrayIOPreparer.prepare_write(
+                logical_path,
+                value,
+                is_async_snapshot and not captured,
+                ready.get(value.local.device),
+            )
+            manifest[logical_path] = entry
+            for r in reqs:
+                r.defer_staging = captured
+            write_reqs.extend(reqs)
+            continue
+        if isinstance(value, DTensorLeaf):
+            value = value.local
         storage_path = get_storage_path(logical_path, rank, replicated)
         if kind == "object":
             entry, reqs = ObjectIOPreparer.prepare_write(storage_path, value, replicated)
@@ -228,7 +268,6 @@ def prepare_write(
             write_reqs.extend(reqs)
             continue
         tensor, dtype_str = _as_tensor(value)
-        captured = logical_path in captured_paths
         preparer = ChunkedArrayIOPreparer if should_chunk(tensor) else ArrayIOPreparer
         entry, reqs = preparer.prepare_write(
             storage_path,

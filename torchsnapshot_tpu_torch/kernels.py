@@ -1,4 +1,4 @@
-"""The port's two hand-written CUDA kernels, their plain PyTorch versions,
+"""The port's hand-written CUDA kernels, their plain PyTorch versions,
 and the build that compiles them.
 
 - K1 :func:`pack_slab` replaces ``torchsnapshot_tpu/batcher.py::
@@ -6,8 +6,13 @@ and the build that compiles them.
   members, concatenated into one uint8 tensor.
 - K2 :func:`fork_copy` replaces ``torchsnapshot_tpu/io_preparer.py::
   _batch_copy_fn``: a bitwise copy of every tensor of a group.
+- K3 :func:`copy_blocks` replaces the overlap scatter of
+  ``torchsnapshot_tpu/io_preparers/sharded_array.py``
+  (``ShardedArrayBufferConsumer.consume_buffer``, ``_shard_piece_deliver``):
+  a copy of many strided views into strided views, e.g. a saved shard
+  piece's overlap with a target shard into that target, in place.
 
-Both are one launch of a multi-tensor byte copy over a descriptor table
+Each is one launch of a multi-tensor byte copy over a descriptor table
 (``csrc/tss_kernels.cu`` has the design and the bound). A wrapper runs the
 plain version only for tensors on the CPU. For CUDA tensors it launches
 the kernel or raises; there is no fallback.
@@ -37,7 +42,7 @@ _BUILD_DIR = os.path.join(_HERE, "_build")
 
 # Launch counts: a wrapper adds one where it launches its kernel, nowhere
 # else. Read by callers that must show a run went through the kernels.
-LAUNCHES: Dict[str, int] = {"pack_slab": 0, "fork_copy": 0}
+LAUNCHES: Dict[str, int] = {"pack_slab": 0, "fork_copy": 0, "copy_blocks": 0}
 _COUNT_LOCK = threading.Lock()
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -72,6 +77,16 @@ PACKABLE_DTYPES = frozenset(
 
 _DESC_DTYPE = np.dtype(
     [("src", "<u8"), ("dst", "<u8"), ("begin", "<u8"), ("nbytes", "<u8")]
+)
+# K3's rectangle (csrc/tss_kernels.cu: TssRectDesc).
+_RECT_DTYPE = np.dtype(
+    [
+        (name, "<u8")
+        for name in (
+            "src", "dst", "begin", "nbytes", "row_bytes", "rows",
+            "src_pitch", "dst_pitch", "src_opitch", "dst_opitch", "grain",
+        )
+    ]
 )
 
 
@@ -144,7 +159,7 @@ def load_library() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(_build())
-            for name in ("tss_pack_slab", "tss_fork_copy"):
+            for name in ("tss_pack_slab", "tss_fork_copy", "tss_copy_blocks"):
                 fn = getattr(lib, name)
                 fn.argtypes = [
                     ctypes.c_void_p,
@@ -155,7 +170,12 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.tss_desc_size.argtypes = []
             lib.tss_desc_size.restype = ctypes.c_int
-            if lib.tss_desc_size() != _DESC_DTYPE.itemsize:
+            lib.tss_rect_desc_size.argtypes = []
+            lib.tss_rect_desc_size.restype = ctypes.c_int
+            if (
+                lib.tss_desc_size() != _DESC_DTYPE.itemsize
+                or lib.tss_rect_desc_size() != _RECT_DTYPE.itemsize
+            ):
                 raise RuntimeError("descriptor layout mismatch with csrc/")
             _LIB = lib
         return _LIB
@@ -263,8 +283,8 @@ def pack_slab(
     device. CPU members take :func:`pack_slab_plain`; CUDA members launch
     ``tss_pack_slab`` on ``stream`` (default: the current stream).
 
-    Precondition of the kernel: C-contiguous members. The wrapper makes a
-    non-contiguous member contiguous first (on the same stream)."""
+    Precondition of the kernel: C-contiguous members. The wrapper gathers
+    a non-contiguous member with K3 first (on the same stream)."""
     if not members:
         return torch.empty(0, dtype=torch.uint8)
     device = _single_device(members)
@@ -277,7 +297,7 @@ def pack_slab(
         raise ValueError(f"pack_slab: unsupported device {device}")
     stream = stream or torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
-        srcs = [t if t.is_contiguous() else t.contiguous() for t in members]
+        srcs = [t if t.is_contiguous() else gather(t, stream) for t in members]
         total = sum(t.numel() * t.element_size() for t in srcs)
         out = torch.empty(total, dtype=torch.uint8, device=device)
         offsets: List[int] = []
@@ -311,7 +331,7 @@ def fork_copy(
     there is the caller's signal to split the group.
 
     Precondition of the kernel: dense tensors (no gaps, no overlap; any
-    permutation of strides). The wrapper makes a non-dense view contiguous
+    permutation of strides). The wrapper gathers a non-dense view with K3
     first, and its copy is then contiguous."""
     if not tensors:
         return []
@@ -322,10 +342,155 @@ def fork_copy(
         raise ValueError(f"fork_copy: unsupported device {device}")
     stream = stream or torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
-        srcs = [t if _is_dense(t) else t.contiguous() for t in tensors]
+        srcs = [t if _is_dense(t) else gather(t, stream) for t in tensors]
         outs = [
             torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=device)
             for t in srcs
         ]
         _launch("fork_copy", srcs, [o.data_ptr() for o in outs], device, stream)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K3: copy_blocks
+# ---------------------------------------------------------------------------
+
+_RECT_ALIGN = 16  # rectangles start 16-byte aligned in the virtual space
+
+
+def _non_overlapping(t: torch.Tensor) -> bool:
+    """No two elements of ``t`` share memory (gaps allowed)."""
+    dims = sorted(((n, s) for n, s in zip(t.shape, t.stride()) if n > 1), key=lambda d: d[1])
+    extent = 1
+    for n, s in dims:
+        if s < extent:
+            return False
+        extent = s * n
+    return True
+
+
+def _collapse(shape, src_strides, dst_strides, itemsize: int) -> List[Tuple[int, int, int]]:
+    """(size, src byte stride, dst byte stride) per dim, outermost first,
+    without size-1 dims, with each dim merged into the next inner one where
+    both sides are contiguous across the two."""
+    dims: List[Tuple[int, int, int]] = []
+    for n, ss, ds in zip(shape, src_strides, dst_strides):
+        if n == 1:
+            continue
+        dims.append((int(n), int(ss) * itemsize, int(ds) * itemsize))
+    merged: List[Tuple[int, int, int]] = []
+    for n, ss, ds in reversed(dims):
+        if merged:
+            mn, mss, mds = merged[-1]
+            if ss == mn * mss and ds == mn * mds:
+                merged[-1] = (mn * n, mss, mds)
+                continue
+        merged.append((n, ss, ds))
+    return merged[::-1]
+
+
+def _grain(*values: int) -> int:
+    acc = 0
+    for v in values:
+        acc |= int(v)
+    for g in (16, 8, 4, 2):
+        if acc % g == 0:
+            return g
+    return 1
+
+
+def rect_table(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Tuple[np.ndarray, int]:
+    """K3's descriptor table for (source view, destination view) pairs of
+    equal shape and dtype: one row per rectangle of at most three dims,
+    begins 16-byte aligned in the virtual byte space. Returns the table and
+    the end of its last rectangle."""
+    rows: List[tuple] = []
+    begin = 0
+    for src, dst in pairs:
+        if src.numel() == 0:
+            continue
+        itemsize = src.element_size()
+        dims = _collapse(src.shape, src.stride(), dst.stride(), itemsize)
+        if dims and dims[-1][1] == itemsize and dims[-1][2] == itemsize:
+            row_bytes = dims[-1][0] * itemsize
+            dims = dims[:-1]
+        else:
+            row_bytes = itemsize
+        rows_n, sp, dp = dims[-1] if dims else (1, 0, 0)
+        outer, sop, dop = dims[-2] if len(dims) >= 2 else (1, 0, 0)
+        extra = dims[:-2]
+        for idx in np.ndindex(*[n for n, _, _ in extra]):
+            s_off = sum(i * ss for i, (_, ss, _) in zip(idx, extra))
+            d_off = sum(i * ds for i, (_, _, ds) in zip(idx, extra))
+            s_ptr = src.data_ptr() + s_off
+            d_ptr = dst.data_ptr() + d_off
+            nbytes = outer * rows_n * row_bytes
+            grain = _grain(s_ptr, d_ptr, row_bytes, sp, dp, sop, dop)
+            rows.append((s_ptr, d_ptr, begin, nbytes, row_bytes, rows_n, sp, dp, sop, dop, grain))
+            begin += -(-nbytes // _RECT_ALIGN) * _RECT_ALIGN
+    table = np.array(rows, dtype=_RECT_DTYPE)
+    end = int(table["begin"][-1] + table["nbytes"][-1]) if len(rows) else 0
+    return table, end
+
+
+def copy_blocks_plain(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """Plain PyTorch K3: ``dst.copy_(src)`` per pair."""
+    for src, dst in pairs:
+        dst.copy_(src)
+
+
+def _check_pairs(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.device:
+    for src, dst in pairs:
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"copy_blocks: source {src.dtype} {tuple(src.shape)} does not match "
+                f"destination {dst.dtype} {tuple(dst.shape)}"
+            )
+        if not _non_overlapping(dst):
+            raise ValueError("copy_blocks: a destination view overlaps itself")
+    return _single_device([t for pair in pairs for t in pair])
+
+
+def upload_rect_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy K3's table to ``device`` on the current stream."""
+    return torch.from_numpy(table.view(np.uint8)).pin_memory().to(device, non_blocking=True)
+
+
+def copy_blocks(
+    pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    stream: Optional[torch.cuda.Stream] = None,
+) -> None:
+    """K3. Copies each source view into its destination view (equal shape
+    and dtype, any strides, one device). CPU pairs take
+    :func:`copy_blocks_plain`; CUDA pairs are copied by ONE
+    ``tss_copy_blocks`` launch on ``stream`` (default: the current stream).
+    A destination that overlaps itself raises."""
+    if not pairs:
+        return
+    device = _check_pairs(pairs)
+    if device.type == "cpu":
+        copy_blocks_plain(pairs)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"copy_blocks: unsupported device {device}")
+    table, total = rect_table(pairs)
+    if total == 0:
+        return
+    stream = stream or torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        dev_table = upload_rect_table(table, device)
+        launch_raw("copy_blocks", dev_table, len(table), total, stream)
+    _count("copy_blocks")
+
+
+def gather(src: torch.Tensor, stream: Optional[torch.cuda.Stream] = None) -> torch.Tensor:
+    """A C-contiguous copy of view ``src`` by :func:`copy_blocks`, allocated
+    on ``stream``: how a strided CUDA view reaches its D2H copy."""
+    stream = stream or (torch.cuda.current_stream(src.device) if src.is_cuda else None)
+    if stream is None:
+        out = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+    else:
+        with torch.cuda.stream(stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+    copy_blocks([(src, out)], stream)
+    return out

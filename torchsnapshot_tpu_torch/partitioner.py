@@ -1,0 +1,102 @@
+"""Replicated-write load balancing across ranks.
+
+A port of ``torchsnapshot_tpu/partitioner.py``. Every rank runs the same
+deterministic greedy assignment on the same inputs (one ``all_gather`` of
+the per-rank loads of non-replicated writes, integer byte counts), so no
+broadcast is needed. Replicated storage paths carry no rank, so each rank
+keeps exactly the write requests assigned to it. Every rank keeps every
+replicated *entry* in its manifest, whoever writes the bytes.
+
+The JAX package also gathers each rank's compression codec and refuses a
+take whose ranks disagree; the port has no codecs yet, so there is nothing
+to compare.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+from .io_types import WriteReq
+from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, Manifest, is_replicated
+from .parallel.coordinator import Coordinator
+
+
+def _estimate(req: WriteReq) -> int:
+    return req.buffer_stager.get_staging_cost_bytes()
+
+
+def greedy_assignment(
+    loads: List[int], items: List[Tuple[int, str]]
+) -> Dict[str, int]:
+    """Biggest request first onto the least-loaded rank; ties go to the
+    lower rank, and equal sizes are taken in path order, so every rank
+    computes the same assignment. ``loads`` is updated in place."""
+    assignment: Dict[str, int] = {}
+    for size, path in sorted(items, key=lambda t: (-t[0], t[1])):
+        target = min(range(len(loads)), key=lambda r: (loads[r], r))
+        assignment[path] = target
+        loads[target] += size
+    return assignment
+
+
+def partition_write_reqs_with_assignment(
+    manifest: Manifest,
+    write_reqs: List[WriteReq],
+    coordinator: Coordinator,
+) -> Tuple[List[WriteReq], Dict[str, int]]:
+    """The subset of ``write_reqs`` this rank executes, and the replicated
+    ``{storage_path: writer_rank}`` assignment."""
+    world_size = coordinator.get_world_size()
+    rank = coordinator.get_rank()
+    if world_size == 1:
+        return write_reqs, {}
+
+    replicated_locations = set()
+    for entry in manifest.values():
+        if is_replicated(entry):
+            if hasattr(entry, "location"):
+                replicated_locations.add(entry.location)
+            for chunk in getattr(entry, "chunks", None) or []:
+                replicated_locations.add(chunk.tensor.location)
+
+    replicated_reqs = [r for r in write_reqs if r.path in replicated_locations]
+    other_reqs = [r for r in write_reqs if r.path not in replicated_locations]
+    local_load = sum(_estimate(r) for r in other_reqs)
+    loads: List[int] = list(coordinator.all_gather_object(local_load))
+    assignment = greedy_assignment(loads, [(_estimate(r), r.path) for r in replicated_reqs])
+    return other_reqs + [r for r in replicated_reqs if assignment[r.path] == rank], assignment
+
+
+def consolidate_replicated_entries(global_manifest: Manifest) -> None:
+    """Make every rank's copy of a replicated entry reflect the writer's.
+
+    Slab batching relocates an entry to ``batched/<uuid>`` with a
+    ``byte_range`` on the rank that writes its bytes only, so the other
+    ranks' copies go stale. Entries are merged in place per logical path,
+    preferring relocated versions (chunk by chunk for chunked entries)."""
+    by_path: Dict[str, List[Entry]] = {}
+    for key, entry in global_manifest.items():
+        if is_replicated(entry):
+            _, _, path = key.partition("/")
+            by_path.setdefault(path, []).append(entry)
+
+    def relocated(e: ArrayEntry) -> bool:
+        return e.byte_range is not None or e.raw_range is not None
+
+    for entries in by_path.values():
+        if isinstance(entries[0], ArrayEntry):
+            chosen = next((e for e in entries if relocated(e)), entries[0])
+            for e in entries:
+                e.location = chosen.location
+                e.byte_range = chosen.byte_range
+                e.raw_range = chosen.raw_range
+        elif isinstance(entries[0], ChunkedArrayEntry):
+            chosen_chunks: Dict[Tuple[int, ...], object] = {}
+            for e in entries:
+                for chunk in e.chunks:
+                    key = tuple(chunk.offsets)
+                    if key not in chosen_chunks or relocated(chunk.tensor):
+                        chosen_chunks[key] = chunk
+            for e in entries:
+                for i, chunk in enumerate(e.chunks):
+                    e.chunks[i] = chosen_chunks[tuple(chunk.offsets)]

@@ -29,8 +29,21 @@ rectangles, scattered by K3), ``read_object`` of one sharded entry, and an
 async take followed at once by ``add_(1)`` on every local shard, then a
 restore that must give the values from before the mutation; all
 bit-exact. The numbers are of two ranks sharing one card, its PCIe link
-and one disk, not of two cards. The launch counts are set to 0 just before
-each drive and read just after.
+and one disk, not of two cards.
+Phase 4 drives a trainer: the port's transformer at the width of the
+repo's FSDP and optimizer benchmarks (vocab 32000, d_model 4096, 32 heads,
+d_ff 16384, 512 positions, 8 layers: 1,875,320,064 parameters, bf16
+weights, fp32 LayerNorm parameters) with AdamW (optax's defaults, torch's
+``foreach`` update) and deterministic algorithms, on batches of 4 x 512
+tokens from a seeded generator on the card. It takes steps 1-3, calls
+``async_take`` of ``{"model", "optim", "progress", "rng"}`` and at once
+takes steps 4-6, whose in-place updates race the drain; then waits,
+verifies, restores into a fresh model and optimizer (state materialised
+first) and checks every tensor against a device copy of the step-3 state,
+retrains steps 4-6 and checks every loss, parameter and moment against the
+uninterrupted run, and restores a sync take of the step-6 state into
+zeroed tensors in place; all bit-exact (``dryrun.train_checkpoint_resume``).
+The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
 It exits non-zero too on a host without CUDA. The last line of its output
@@ -664,11 +677,64 @@ def phase3(gb, seed, root, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: a trainer that checkpoints while it trains, and resumes
+# ---------------------------------------------------------------------------
+
+
+def phase4(seed, device, root, card):
+    from torchsnapshot_tpu_torch import dryrun, kernels
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(
+        vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512
+    )
+    with open("/proc/meminfo") as f:
+        avail = next(line for line in f if line.startswith("MemAvailable")).split()[1]
+    log(f"phase4 before: host MemAvailable {int(avail) / 1024**2:.1f} GiB, disk free {shutil.disk_usage(root).free} bytes")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = dryrun.train_checkpoint_resume(cfg, root, device=device, batch=4, seed=seed)
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches["pack_slab"] < 1 or launches["fork_copy"] < 1:
+        raise AssertionError(f"phase4: K1 and K2 must both launch: {launches}")
+    nbytes = out["state_bytes"]
+    rates = {
+        "params": out["n_params"],
+        "layers": cfg.n_layers,
+        "state_bytes": nbytes,
+        "async_stall_s": out["async_stall_s"],
+        "async_drain_s": out["async_drain_s"],
+        "sync_take_gbps": nbytes / out["sync_take_s"] / 1e9,
+        "restore_gbps": nbytes / out["restore_s"] / 1e9,
+        "sync_restore_gbps": nbytes / out["sync_restore_s"] / 1e9,
+        "step_s": out["step_s"],
+        "racing_step_s": out["racing_step_s"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+        "wall_s": wall,
+    }
+    log(f"phase4 state on {card}: {out['n_params']} parameters, {out['n_tensors']} tensors, {nbytes} bytes")
+    log(f"phase4 losses (bit-identical after the resume) on {card}: {out['losses']}")
+    log(f"phase4 async take on {card}: stall {out['async_stall_s']:.4f} s, drain {out['async_drain_s']:.3f} s, drain stats {json.dumps(out['drain_stats'])}")
+    log(f"phase4 on {card}: sync take {rates['sync_take_gbps']:.3f} GB/s, restore {rates['restore_gbps']:.3f} GB/s, sync restore {rates['sync_restore_gbps']:.3f} GB/s over {nbytes} bytes")
+    log(f"phase4 step time on {card}: {out['step_s']} s alone, {out['racing_step_s']} s racing the drain")
+    log(f"phase4 allocator growth per step on {card}: alone {json.dumps(out['step_allocations'])}, racing {json.dumps(out['racing_step_allocations'])}")
+    log(f"phase4 launches on {card}: {json.dumps(launches)}")
+    log(f"phase4 on {card}: {json.dumps(rates)}")
+    return launches, rates
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    # Phase 4 runs cuBLAS deterministically, which needs this before CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -705,6 +771,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         k3_times = time_k3(device, args.gb, gen)
         ranks = phase3(args.gb, args.seed, root, card)
+        launches["phase4"], trainer = phase4(args.seed, device, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -713,6 +780,7 @@ def main() -> int:
     for label, t in k3_times.items():
         log(f"copy_blocks timing ({label}) on {card}: {json.dumps(t)}")
     log(f"main path on {card}: {json.dumps(rates)}")
+    log(f"phase4 trainer on {card}: {json.dumps(trainer)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

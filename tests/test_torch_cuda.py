@@ -12,6 +12,10 @@ import os
 import pytest
 import torch
 
+# The trainer test runs cuBLAS deterministically, which needs this before
+# CUDA starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import torchsnapshot_tpu_torch as tts
 from torchsnapshot_tpu_torch import io_preparer, kernels
 from torchsnapshot_tpu_torch.utils import knobs
@@ -221,3 +225,21 @@ def test_two_ranks_on_one_card_reshard(device, tmp_path):
     from torchsnapshot_tpu_torch.test_utils import run_with_processes
 
     run_with_processes(_two_rank_reshard, 2, args=(str(tmp_path),), process_group=True)
+
+
+def test_small_trainer_async_take_races_adamw_and_resumes(device, tmp_path):
+    """``chip_smoke.py``'s phase 4 at a small size: a 2-layer bf16
+    transformer with ``foreach`` AdamW; ``async_take`` at step 3 races the
+    in-place updates of steps 4-6; a restore into a fresh model and
+    optimizer resumes bit-identically; a sync take restores in place."""
+    from torchsnapshot_tpu_torch import dryrun
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=1024, d_model=256, n_heads=4, n_layers=2, d_ff=1024, max_seq_len=128)
+    captured = io_preparer.HOST_CAPTURED["leaves"]
+    with knobs.override_batching_enabled(True):
+        kernels.reset_launch_counts()
+        out = dryrun.train_checkpoint_resume(cfg, str(tmp_path), device=device, batch=4)
+    assert kernels.LAUNCHES["fork_copy"] >= 1 and kernels.LAUNCHES["pack_slab"] >= 1
+    assert io_preparer.HOST_CAPTURED["leaves"] == captured
+    assert len(out["losses"]) == 6 and out["n_tensors"] == 4 * (12 * cfg.n_layers + 6)

@@ -1,6 +1,6 @@
-"""The torch port stands alone: it imports neither JAX nor the JAX package,
-reads no knob of the JAX package, and never quietly runs a CUDA request on
-the CPU."""
+"""The torch port stands alone: it imports neither JAX, flax, optax nor
+the JAX package, reads no knob of the JAX package, and never quietly runs a
+CUDA request on the CPU."""
 
 import ast
 import os
@@ -26,12 +26,7 @@ def _port_files():
 def _forbidden_module(name: str) -> bool:
     # Exact matches: "torchsnapshot_tpu_torch" starts with the JAX package's
     # name and must not be caught by a prefix test.
-    return (
-        name == "jax"
-        or name.startswith("jax.")
-        or name == "torchsnapshot_tpu"
-        or name.startswith("torchsnapshot_tpu.")
-    )
+    return name.split(".")[0] in ("jax", "flax", "optax", "torchsnapshot_tpu")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -56,6 +51,7 @@ def test_forbidden_module_matches_exactly():
     assert not _forbidden_module("torchsnapshot_tpu_torch")
     assert not _forbidden_module("torchsnapshot_tpu_torch.snapshot")
     assert not _forbidden_module("jaxlib_like")
+    assert _forbidden_module("flax.linen") and _forbidden_module("optax")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -68,8 +64,8 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'torchsnapshot_tpu' or m.startswith('torchsnapshot_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'torchsnapshot_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -102,6 +98,19 @@ _MULTI_RANK_MODULES = [
 def test_multi_rank_modules_are_held_to_the_import_rules():
     checked = {os.path.relpath(p, REPO) for p in _port_files()}
     assert set(_MULTI_RANK_MODULES) <= checked
+
+
+_WORKLOAD_MODULES = [
+    "torchsnapshot_tpu_torch/models/transformer.py",
+    "torchsnapshot_tpu_torch/models/moe.py",
+    "torchsnapshot_tpu_torch/tricks/train_state.py",
+    "torchsnapshot_tpu_torch/dryrun.py",
+]
+
+
+def test_workload_modules_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(_WORKLOAD_MODULES) <= checked
 
 
 def test_a_single_process_take_stays_light():

@@ -226,3 +226,28 @@ def test_rng_state_is_captured_at_take_start(tmp_path):
     tts.Snapshot(path).restore({"rng": rng}, device="cpu")
     b = (torch.rand(3), np.random.rand(2))
     assert torch.equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def test_coordinator_is_the_third_positional_argument(tmp_path):
+    """``take``/``async_take`` take ``(path, app_state, coordinator,
+    replicated)`` in the JAX package's order, so a positional coordinator
+    is not read as a list of globs."""
+    import inspect
+
+    from torchsnapshot_tpu_torch.parallel.coordinator import Coordinator
+    from torchsnapshot_tpu_torch.parallel.store import LocalStore
+
+    for name in ("take", "async_take"):
+        port = list(inspect.signature(getattr(tts.Snapshot, name)).parameters)[:4]
+        ref = list(inspect.signature(getattr(jts.Snapshot, name)).parameters)[:4]
+        assert port == ref == ["path", "app_state", "coordinator", "replicated"], name
+    coord = Coordinator(LocalStore(), 0, 1)
+    app = {"m": tts.StateDict(x=torch.arange(4), y=torch.ones(2))}
+    tts.Snapshot.take(str(tmp_path / "a"), app, coord)
+    tts.Snapshot.async_take(str(tmp_path / "b"), app, coord, ["m/x"]).wait()
+    manifest = tts.Snapshot(str(tmp_path / "b")).get_manifest()
+    assert manifest["0/m/x"].replicated and not manifest["0/m/y"].replicated
+    for path in ("a", "b"):
+        got = tts.StateDict(x=torch.zeros(4, dtype=torch.int64), y=torch.zeros(2))
+        tts.Snapshot(str(tmp_path / path), coord).restore({"m": got}, device="cpu")
+        assert torch.equal(got["x"], app["m"]["x"]) and torch.equal(got["y"], app["m"]["y"])

@@ -11,12 +11,17 @@ through unchanged.
 Sharded state crosses as a global array: :func:`dtensor_from_numpy` cuts a
 rank's local shard out of a global numpy array by the placements' own
 geometry (``torch.chunk`` sizes) and wraps it as that rank's DTensor. A
-sharded ``jax.Array``, gathered to the host, is such a global array.
+sharded ``jax.Array``, gathered to the host, is such a global array;
+:func:`dtensor_from_tensor` does the same from a global torch tensor.
+
+Model weights cross between the JAX package's flax parameter trees and
+the port's ``state_dict`` names (:func:`transformer_params_from_jax`,
+:func:`moe_params_from_jax` and their inverses), bit-exact per element.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +44,8 @@ _EXT_BY_TORCH = {t: (name, view) for name, (t, view) in _EXT.items()}
 def _map(tree: Any, leaf) -> Any:
     if isinstance(tree, dict):
         return type(tree)((k, _map(v, leaf)) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a namedtuple
+        return type(tree)(*(_map(v, leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(v, leaf) for v in tree)
     return leaf(tree)
@@ -96,18 +103,102 @@ def dtensor_from_numpy(global_array: np.ndarray, device_mesh: Any, placements: S
     """This rank's DTensor of ``global_array`` over ``device_mesh`` with
     ``placements``: its local shard (bit-exact, on the mesh's device type)
     wrapped by ``DTensor.from_local`` without a collective."""
-    from torch.distributed.tensor import DTensor
-
     coordinate = device_mesh.get_coordinate()
     local = local_shard_of(global_array, device_mesh.shape, placements, coordinate)
     device = torch.device(device_mesh.device_type)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
+    return _wrap_local(_array_to_tensor(local, device), device_mesh, placements, global_array.shape)
+
+
+def dtensor_from_tensor(global_tensor: torch.Tensor, device_mesh: Any, placements: Sequence[Any]) -> Any:
+    """This rank's DTensor of ``global_tensor`` (the same value on every
+    rank, on the mesh's device) over ``device_mesh`` with ``placements``: a
+    private copy of its local shard, without a collective."""
+    coordinate = device_mesh.get_coordinate()
+    local = local_shard_of(global_tensor, device_mesh.shape, placements, coordinate)
+    return _wrap_local(
+        local.clone(memory_format=torch.contiguous_format),
+        device_mesh,
+        placements,
+        global_tensor.shape,
+    )
+
+
+def _wrap_local(local: torch.Tensor, device_mesh: Any, placements: Sequence[Any], shape: Sequence[int]) -> Any:
+    from torch.distributed.tensor import DTensor
+
     return DTensor.from_local(
-        _array_to_tensor(local, device),
+        local,
         device_mesh,
         list(placements),
         run_check=False,
-        shape=torch.Size(global_array.shape),
-        stride=contiguous_stride(global_array.shape),
+        shape=torch.Size(shape),
+        stride=contiguous_stride(shape),
     )
+
+
+# ---------------------------------------------------------------------------
+# Model weights: flax parameter trees <-> the port's state_dict
+# ---------------------------------------------------------------------------
+
+# Modules whose torch weight is an ``nn.Linear`` weight ``(out, in)``: the
+# transpose of flax's ``(in, out)`` kernel. Every other weight keeps
+# flax's layout (embeddings, ``DenseGeneral`` kernels, stacked experts).
+_LINEAR_MODULES = frozenset({"up", "down", "lm_head", "gate"})
+# flax leaf name -> torch leaf name.
+_TORCH_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _flax_leaf_name(module: str, leaf: str) -> str:
+    if leaf != "weight":
+        return leaf
+    if module.startswith("ln"):
+        return "scale"
+    if module.endswith("embed"):
+        return "embedding"
+    return "kernel"
+
+
+def _params_from_jax(params: Any) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree of numpy (and ml_dtypes) arrays, as
+    ``jax.device_get`` returns it, to the port module's ``state_dict``
+    (CPU tensors; ``module.load_state_dict`` copies them in)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Any, parts: tuple) -> None:
+        if hasattr(node, "items"):
+            for k, v in node.items():
+                walk(v, parts + (str(k),))
+            return
+        module = parts[-2] if len(parts) > 1 else ""
+        t = _array_to_tensor(np.asarray(node), "cpu")
+        if module in _LINEAR_MODULES and parts[-1] == "kernel":
+            t = t.t().contiguous()
+        out[".".join(parts[:-1] + (_TORCH_LEAF.get(parts[-1], parts[-1]),))] = t
+
+    walk(params, ())
+    return out
+
+
+def _params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`_params_from_jax`: a port ``state_dict`` to the
+    JAX package's nested parameter dict of numpy arrays."""
+    out: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        module = parts[-2] if len(parts) > 1 else ""
+        leaf = _flax_leaf_name(module, parts[-1])
+        t = t.detach()
+        if module in _LINEAR_MODULES and leaf == "kernel":
+            t = t.t()
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = _tensor_to_array(t)
+    return out
+
+
+# The transformer's and the MoE layer's trees share one naming scheme.
+transformer_params_from_jax = moe_params_from_jax = _params_from_jax
+transformer_params_to_jax = moe_params_to_jax = _params_to_jax

@@ -445,7 +445,9 @@ def _reconstruct_parent_containers(manifest: Manifest) -> None:
             if parent_entry is None:
                 manifest[parent] = DictEntry(keys=[child_key])
             elif isinstance(parent_entry, DictEntry):
-                if child_key not in parent_entry.keys:
-                    # list indices were stringified on flatten; keep as-is
+                # Compare as strings: an int key (an optimizer state's
+                # parameter index) is the same child as its string form, and
+                # flatten keeps no dict whose keys collide as strings.
+                if all(str(k) != child_key for k in parent_entry.keys):
                     parent_entry.keys.append(child_key)
             # ListEntry needs no key bookkeeping

@@ -196,8 +196,8 @@ class Snapshot:
         cls,
         path: str,
         app_state: AppState,
-        replicated: Optional[List[str]] = None,
         coordinator: Optional[Coordinator] = None,
+        replicated: Optional[List[str]] = None,
     ) -> "Snapshot":
         """Write ``app_state`` to ``path`` and return when it is committed.
         ``replicated``: globs of logical paths whose plain tensors hold the
@@ -237,8 +237,8 @@ class Snapshot:
         cls,
         path: str,
         app_state: AppState,
-        replicated: Optional[List[str]] = None,
         coordinator: Optional[Coordinator] = None,
+        replicated: Optional[List[str]] = None,
     ) -> "PendingSnapshot":
         """Return once the state is captured: CUDA tensors and the local
         shards of DTensors forked on the card (K2), CPU tensors and objects

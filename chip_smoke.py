@@ -43,6 +43,27 @@ first) and checks every tensor against a device copy of the step-3 state,
 retrains steps 4-6 and checks every loss, parameter and moment against the
 uninterrupted run, and restores a sync take of the step-6 state into
 zeroed tensors in place; all bit-exact (``dryrun.train_checkpoint_resume``).
+Phase 5 drives the write-path features (compressed, incremental and
+plan-cached takes) on a partial fine-tune of phase 4's transformer at the
+same width, its token and position embeddings and first 4 blocks frozen
+(``requires_grad=False``, out of the optimizer): steps 1-2, ``async_take``
+to c0 (a prepared-take miss), step 3 racing its drain; ``async_take`` to c1
+(a hit, other values), step 4 racing; a sync take to c2 with ``base=c1``
+(the frozen tensors hard-linked); step 5, a sync take to c3 with zlib and
+member-framed compressed slabs; steps 6-7; then c1, c2 and c3 restored
+into a fresh model and materialised optimizer, each bit-exact, and steps
+6-7 resumed from c3 bit-identically. c0-c2 are taken without slab
+batching; then, with batching, on the uninterrupted run: step 8,
+``async_take`` to c4 (a miss) racing step 9, ``async_take`` to c5 (a hit
+whose K1 slabs are packed over its new forks) racing step 10, and a sync
+take to c6 with ``base=c5``; each restored bit-exactly
+(``dryrun.frozen_finetune_checkpoints``).
+It prints the stalls with their phases and cache hits, the deduped bytes
+of c2 and c6 against the frozen bytes and their hard links, c3's raw and
+on-disk bytes and rates, each take's streaming decision and scorecard
+(``TSS_TORCH_STREAM_WRITES=auto``), device memory around each take, and the
+launches. The phase runs again with zstd in place of zlib when
+``zstandard`` imports. Phase 4 prints its takes' streaming decisions too.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -719,13 +740,65 @@ def phase4(seed, device, root, card):
     }
     log(f"phase4 state on {card}: {out['n_params']} parameters, {out['n_tensors']} tensors, {nbytes} bytes")
     log(f"phase4 losses (bit-identical after the resume) on {card}: {out['losses']}")
-    log(f"phase4 async take on {card}: stall {out['async_stall_s']:.4f} s, drain {out['async_drain_s']:.3f} s, drain stats {json.dumps(out['drain_stats'])}")
+    log(f"phase4 async take on {card}: stall {out['async_stall_s']:.4f} s (phases {json.dumps(out['async_phases'])}), drain {out['async_drain_s']:.3f} s, drain stats {json.dumps(out['drain_stats'])}")
     log(f"phase4 on {card}: sync take {rates['sync_take_gbps']:.3f} GB/s, restore {rates['restore_gbps']:.3f} GB/s, sync restore {rates['sync_restore_gbps']:.3f} GB/s over {nbytes} bytes")
     log(f"phase4 step time on {card}: {out['step_s']} s alone, {out['racing_step_s']} s racing the drain")
     log(f"phase4 allocator growth per step on {card}: alone {json.dumps(out['step_allocations'])}, racing {json.dumps(out['racing_step_allocations'])}")
+    for kind in ("async", "sync"):
+        log(f"phase4 {kind} take stream decision on {card}: {json.dumps(out[kind + '_stream'])}")
     log(f"phase4 launches on {card}: {json.dumps(launches)}")
     log(f"phase4 on {card}: {json.dumps(rates)}")
     return launches, rates
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: a partial fine-tune, checkpointed with the caches, base= and zlib
+# ---------------------------------------------------------------------------
+
+
+def phase5(seed, device, root, card):
+    from torchsnapshot_tpu_torch import dryrun, kernels
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(
+        vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512
+    )
+    try:
+        import zstandard  # noqa: F401
+
+        codecs = ["zlib", "zstd"]
+    except ImportError:
+        codecs = ["zlib"]
+    log(f"phase5 codecs run: {codecs}; disk free {shutil.disk_usage(root).free} bytes")
+    results, launches = {}, {}
+    for codec in codecs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = dryrun.frozen_finetune_checkpoints(cfg, root, device=device, batch=4, seed=seed, frozen_blocks=4, codec=codec)
+        out["wall_s"] = time.monotonic() - t0
+        launches[codec] = dict(kernels.LAUNCHES)
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        if launches[codec]["fork_copy"] != 4 or launches[codec]["pack_slab"] < 1:
+            raise AssertionError(f"phase5 ({codec}): K2 must launch four times and K1 at least once: {launches[codec]}")
+        if out["c5_launches"]["pack_slab"] < 1 or out["c5_launches"]["fork_copy"] != 1:
+            raise AssertionError(f"phase5 ({codec}): the batched hit c5 must fork with K2 and pack with K1: {out['c5_launches']}")
+        nbytes = out["state_bytes"]
+        log(f"phase5 {codec} on {card}: state {nbytes} bytes, frozen {out['frozen_bytes']} bytes, losses {out['losses']} (resume bit-identical)")
+        for c, batched in (("c0", False), ("c1", False), ("c4", True), ("c5", True)):
+            log(f"phase5 {codec} {c} async take (batching {'on' if batched else 'off'}) on {card}: stall {out[c + '_stall_s']:.4f} s, cache {json.dumps(out[c + '_cache'])}, phases {json.dumps(out[c + '_phases'])}, drain {out[c + '_drain_s']:.3f} s, allocated before/after wait {out[c + '_allocated']}, launches {json.dumps(out[c + '_launches'])}")
+        for c, base, batched in (("c2", "c1", False), ("c6", "c5", True)):
+            log(f"phase5 {codec} {c} take(base={base}, batching {'on' if batched else 'off'}) on {card}: {out[c + '_take_s']:.3f} s, deduped {out[c + '_bytes_deduped']} bytes vs frozen {out['frozen_bytes']}, objects linked {out[c + '_objects_linked']}, samefile {out[c + '_samefile']} of {out[c + '_objects']}, allocated before/after {out[c + '_allocated']}")
+        for c in ("c0", "c1", "c2", "c3", "c4", "c5", "c6"):
+            log(f"phase5 {codec} {c} stream decision on {card}: {json.dumps(out[c + '_stream'])}")
+        log(f"phase5 {codec} c3 compressed take on {card}: raw {nbytes} bytes, on disk {out['c3_disk_bytes']} bytes (ratio {nbytes / out['c3_disk_bytes']:.4f}), take {out['c3_take_s']:.3f} s ({nbytes / out['c3_take_s'] / 1e9:.3f} GB/s), restore {out['c3_restore_s']:.3f} s ({nbytes / out['c3_restore_s'] / 1e9:.3f} GB/s), allocated before/after {out['c3_allocated']}")
+        restores = ", ".join(f"{c} {nbytes / out[c + '_restore_s'] / 1e9:.3f} GB/s" for c in ("c1", "c2", "c4", "c5", "c6"))
+        log(f"phase5 {codec} restores (bit-exact) on {card}: {restores}; step times {out['step_s']}")
+        log(f"phase5 {codec} launches on {card}: {json.dumps(launches[codec])}; peak device memory {out['peak_device_bytes']} bytes; wall {out['wall_s']:.1f} s")
+        results[codec] = out
+    return launches, results
 
 
 def main() -> int:
@@ -772,6 +845,9 @@ def main() -> int:
         k3_times = time_k3(device, args.gb, gen)
         ranks = phase3(args.gb, args.seed, root, card)
         launches["phase4"], trainer = phase4(args.seed, device, root, card)
+        phase5_launches, finetune = phase5(args.seed, device, root, card)
+        for codec, counts in phase5_launches.items():
+            launches[f"phase5_{codec}"] = counts
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -781,6 +857,9 @@ def main() -> int:
         log(f"copy_blocks timing ({label}) on {card}: {json.dumps(t)}")
     log(f"main path on {card}: {json.dumps(rates)}")
     log(f"phase4 trainer on {card}: {json.dumps(trainer)}")
+    for codec, out in finetune.items():
+        summary = {k: v for k, v in out.items() if not k.endswith(("_phases", "_stream"))}
+        log(f"phase5 {codec} summary on {card}: {json.dumps(summary)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

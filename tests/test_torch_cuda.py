@@ -243,3 +243,146 @@ def test_small_trainer_async_take_races_adamw_and_resumes(device, tmp_path):
     assert kernels.LAUNCHES["fork_copy"] >= 1 and kernels.LAUNCHES["pack_slab"] >= 1
     assert io_preparer.HOST_CAPTURED["leaves"] == captured
     assert len(out["losses"]) == 6 and out["n_tensors"] == 4 * (12 * cfg.n_layers + 6)
+
+
+def test_prepare_cache_hit_rebuilds_the_descriptor_table(device, tmp_path, monkeypatch):
+    """Two async takes of the same structure, the second a prepared-take
+    hit. The first take's forks are kept alive, so the second's are new
+    allocations: K1's table on the hit must point into the new forks (it is
+    rebuilt at every launch, never cached), and both snapshots restore
+    bit-exactly."""
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+
+    forks, packed = [], []
+    fork_copy, launch = kernels.fork_copy, kernels._launch
+
+    def recording_fork(tensors, stream=None):
+        outs = fork_copy(tensors, stream=stream)
+        forks.append(outs)
+        return outs
+
+    def recording_launch(name, srcs, dst_ptrs, dev, stream):
+        if name == "pack_slab":
+            packed.append([t.data_ptr() for t in srcs if t.numel()])
+        return launch(name, srcs, dst_ptrs, dev, stream)
+
+    monkeypatch.setattr(kernels, "fork_copy", recording_fork)
+    monkeypatch.setattr(kernels, "_launch", recording_launch)
+    g = torch.Generator(device=device).manual_seed(5)
+    state = {f"p{i}": torch.randn(37 + i, 5, generator=g, device=device) for i in range(6)}
+    values = []
+    with knobs.override_batching_enabled(True):
+        for take in range(2):
+            values.append({k: v.clone() for k, v in state.items()})
+            packed.clear()
+            tts.Snapshot.async_take(str(tmp_path / f"s{take}"), {"m": tts.StateDict(state)}).wait()
+            assert snapshot_mod.LAST_TAKE_CACHE["prepared_cache_hit"] == (take == 1)
+            fork_ptrs = {t.data_ptr() for t in forks[-1]}
+            assert packed and all(set(p) <= fork_ptrs for p in packed)
+            for v in state.values():
+                v.add_(1)
+    assert not {t.data_ptr() for t in forks[0]} & {t.data_ptr() for t in forks[1]}
+    for take in range(2):
+        target = tts.StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+        tts.Snapshot(str(tmp_path / f"s{take}")).restore({"m": target})
+        for k, v in values[take].items():
+            assert torch.equal(_bytes(target[k]), _bytes(v)), (take, k)
+
+
+def test_compressed_restore_into_cuda_tensors_in_place(device, tmp_path):
+    g = torch.Generator(device=device).manual_seed(6)
+    state = {
+        "w": torch.randint(-8, 8, (300, 64), generator=g, device=device).to(torch.bfloat16),
+        "b": torch.randn(64, generator=g, device=device),
+        "s": torch.arange(10, device=device),
+    }
+    with knobs.override_compression("zlib"), knobs.override_compression_frame_bytes(4096), knobs.override_batching_enabled(True):
+        kernels.reset_launch_counts()
+        tts.Snapshot.take(str(tmp_path / "z"), {"m": tts.StateDict(state)})
+        assert kernels.LAUNCHES["pack_slab"] >= 1  # the compressed slab, packed on the card
+    manifest = tts.Snapshot(str(tmp_path / "z")).get_manifest()
+    assert manifest["0/m/w"].frame_bytes == 4096 and manifest["0/m/b"].raw_range is not None
+    target = tts.StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    ptrs = {k: v.data_ptr() for k, v in target.items()}
+    tts.Snapshot(str(tmp_path / "z")).restore({"m": target})
+    for k, v in state.items():
+        assert target[k].data_ptr() == ptrs[k] and torch.equal(_bytes(target[k]), _bytes(v)), k
+    member = tts.Snapshot(str(tmp_path / "z")).read_object("0/m/b")
+    framed = tts.Snapshot(str(tmp_path / "z")).read_object("0/m/w", memory_budget_bytes=10000)
+    assert member.is_cuda and torch.equal(member, state["b"])
+    assert framed.is_cuda and torch.equal(_bytes(framed), _bytes(state["w"]))
+
+
+def _framed_reshard(rank, world_size, root):
+    import numpy as np
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard
+
+    from torchsnapshot_tpu_torch.convert import dtensor_from_numpy
+    from torchsnapshot_tpu_torch.io_preparers import sharded_array
+
+    torch.cuda.set_device(0)
+    mesh = DeviceMesh("cuda", list(range(world_size)))
+    rng = np.random.default_rng(1)
+    # 96-byte rows, 100-byte frames: no frame boundary falls on a row
+    # boundary, so each piece's frames decode a superset of its rows.
+    g = {"a": rng.integers(-4, 4, (32, 24)).astype(np.float32)}
+    state = {"a": dtensor_from_numpy(g["a"], mesh, [Shard(0)])}
+    with knobs.override_compression("zlib"), knobs.override_compression_frame_bytes(100):
+        tts.Snapshot.take(os.path.join(root, "s"), {"m": tts.StateDict(state)})
+    framed = []
+    plain = sharded_array._framed_shard_reads
+
+    def counting(*args, **kwargs):
+        reqs = plain(*args, **kwargs)
+        framed.extend(reqs)
+        return reqs
+
+    sharded_array._framed_shard_reads = counting
+    os.environ["TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES"] = "500"
+    target = {"a": dtensor_from_numpy(np.zeros_like(g["a"]), mesh, [Shard(1)])}
+    ptr = target["a"].to_local().data_ptr()
+    sd = tts.StateDict(target)
+    kernels.reset_launch_counts()
+    tts.Snapshot(os.path.join(root, "s")).restore({"m": sd})
+    assert framed and kernels.LAUNCHES["copy_blocks"] >= len(framed)
+    consumers = [r.buffer_consumer for r in framed]
+    assert any(c.raw_begin != c.group_raw_begin for c in consumers)  # supersets
+    want = dtensor_from_numpy(g["a"], mesh, [Shard(1)]).to_local()
+    assert sd["a"].to_local().data_ptr() == ptr and torch.equal(_bytes(sd["a"].to_local()), _bytes(want))
+
+
+def test_framed_sharded_restore_through_k3(device, tmp_path):
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_framed_reshard, 2, args=(str(tmp_path),), process_group=True)
+
+
+def test_device_memory_returns_after_wait_on_a_hit(device, tmp_path):
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+
+    g = torch.Generator(device=device).manual_seed(7)
+    state = {f"p{i}": torch.randn(1024, 256, generator=g, device=device) for i in range(4)}
+    with knobs.override_batching_enabled(True):
+        for take in range(2):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(device)
+            tts.Snapshot.async_take(str(tmp_path / f"s{take}"), {"m": tts.StateDict(state)}).wait()
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated(device) <= before, take
+    assert snapshot_mod.LAST_TAKE_CACHE["prepared_cache_hit"]
+
+
+def test_small_frozen_finetune_checkpoints(device, tmp_path):
+    """``chip_smoke.py``'s phase 5 at a small size."""
+    from torchsnapshot_tpu_torch import dryrun
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=1024, d_model=256, n_heads=4, n_layers=4, d_ff=1024, max_seq_len=128)
+    kernels.reset_launch_counts()
+    out = dryrun.frozen_finetune_checkpoints(cfg, str(tmp_path), device=device, batch=4, frozen_blocks=2)
+    assert kernels.LAUNCHES["fork_copy"] == 4 and kernels.LAUNCHES["pack_slab"] >= 1
+    # The batched hit packed its slabs with K1 over its own forks.
+    assert out["c5_cache"]["prepared_cache_hit"] and out["c5_launches"]["pack_slab"] >= 1
+    assert out["c5_launches"]["fork_copy"] == 1
+    assert out["c2_bytes_deduped"] >= out["frozen_bytes"] and out["c2_samefile"] >= 1

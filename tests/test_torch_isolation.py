@@ -141,3 +141,53 @@ def test_unsupported_placements_raise():
     for placement in (Partial(), _StridedShard(0, split_factor=2)):
         with pytest.raises(NotImplementedError, match="not supported"):
             placement_offsets_sizes((4, 4), (2,), [placement], (0,))
+
+
+_A11_MODULES = [
+    "torchsnapshot_tpu_torch/stream_select.py",
+    "torchsnapshot_tpu_torch/take_plan.py",
+    "torchsnapshot_tpu_torch/prepare_cache.py",
+    "torchsnapshot_tpu_torch/serialization.py",
+    "torchsnapshot_tpu_torch/batcher.py",
+    "torchsnapshot_tpu_torch/scheduler.py",
+    "torchsnapshot_tpu_torch/storage_plugins/fs.py",
+]
+
+
+def test_a11_modules_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(_A11_MODULES) <= checked
+
+
+def test_the_uncompressed_only_guard_is_gone():
+    """The port reads compressed snapshots: ``ensure_uncompressed`` and its
+    call sites were removed, and the codecs run without the JAX package."""
+    from torchsnapshot_tpu_torch import serialization
+
+    assert not hasattr(serialization, "ensure_uncompressed")
+    for path in _port_files():
+        with open(path) as f:
+            assert "ensure_uncompressed" not in f.read(), path
+    payload, sizes = serialization.compress_framed(b"abc" * 100, "raw_zlib", 1, 64)
+    assert len(sizes) == 5 and serialization.decode_framed_payload(payload, "raw_zlib") == b"abc" * 100
+
+
+def test_a_single_process_take_with_the_caches_stays_light():
+    """A compressed take and its prepared-take hit load neither JAX nor
+    DTensor."""
+    code = (
+        "import sys, tempfile, os, torch\n"
+        "os.environ['TSS_TORCH_COMPRESSION'] = 'zlib'\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "from torchsnapshot_tpu_torch import snapshot\n"
+        "d = tempfile.mkdtemp()\n"
+        "for i in range(2):\n"
+        "    tts.Snapshot.async_take(os.path.join(d, str(i)), {'m': tts.StateDict(x=torch.ones(2))}).wait()\n"
+        "assert snapshot.LAST_TAKE_CACHE['prepared_cache_hit']\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'torchsnapshot_tpu', 'torch.distributed.tensor'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr

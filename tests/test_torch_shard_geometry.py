@@ -185,8 +185,8 @@ class _Stager:
 class _StubCoordinator:
     """Rank ``rank`` of a world whose ranks reported ``loads``."""
 
-    def __init__(self, rank, loads, with_codec):
-        self.rank, self.loads, self.with_codec = rank, loads, with_codec
+    def __init__(self, rank, loads):
+        self.rank, self.loads = rank, loads
 
     def get_rank(self):
         return self.rank
@@ -195,7 +195,8 @@ class _StubCoordinator:
         return len(self.loads)
 
     def all_gather_object(self, obj):
-        return [(l, "none") if self.with_codec else l for l in self.loads]
+        # Both packages gather (load, codec) pairs.
+        return [(l, "none") for l in self.loads]
 
 
 def _plan(pkg, sizes, n_local, seed):
@@ -224,10 +225,10 @@ def test_partitioner_assignment_matches(seed):
         jm, jr = _plan("jax", sizes, 3, seed)
         tm, tr = _plan("torch", sizes, 3, seed)
         jkeep, jassign = jpartitioner.partition_write_reqs_with_assignment(
-            jm, jr, _StubCoordinator(rank, loads, True)
+            jm, jr, _StubCoordinator(rank, loads)
         )
         tkeep, tassign = tpartitioner.partition_write_reqs_with_assignment(
-            tm, tr, _StubCoordinator(rank, loads, False)
+            tm, tr, _StubCoordinator(rank, loads)
         )
         assert tassign == jassign
         assert [r.path for r in tkeep] == [r.path for r in jkeep]

@@ -168,12 +168,16 @@ def test_error_contracts(tmp_path):
 
 
 def test_compressed_entry_refused(tmp_path):
+    """A compressed entry is no longer refused: the port decodes the JAX
+    package's zstd payload (tests/test_torch_compression.py covers the
+    codecs in depth)."""
     pytest.importorskip("zstandard")
     path = str(tmp_path / "ckpt")
     with jknobs.override_compression("zstd"):
-        jts.Snapshot.take(path, {"m": jts.StateDict(x=np.ones(64, np.float32))})
-    with pytest.raises(NotImplementedError, match="compressed"):
-        tts.Snapshot(path).restore({"m": tts.StateDict()}, device="cpu")
+        jts.Snapshot.take(path, {"m": jts.StateDict(x=np.arange(64, dtype=np.float32))})
+    target = tts.StateDict(x=torch.zeros(64))
+    tts.Snapshot(path).restore({"m": target}, device="cpu")
+    assert torch.equal(target["x"], torch.arange(64, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("batching", [False, True], ids=["plain", "batched"])

@@ -1,0 +1,354 @@
+"""Streaming by measurement in the port (``stream_select.py``,
+``TSS_TORCH_STREAM_WRITES=auto``), modelled on tests/test_stream_select.py:
+the scorecard arithmetic, the credibility thresholds, the forced,
+insufficient and measured resolutions, the process-wide mirror
+``knobs.is_stream_writes_enabled`` reads, the A/B probe, the inversion
+case (streamed side measured slower: auto picks off), and the write
+pipeline: it streams only where the decision says so, never for an
+incremental take, and streamed or not the object and its record are the
+same, and equal to the JAX package's take of the same tree.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import torchsnapshot_tpu as jts
+from torchsnapshot_tpu_torch import Snapshot, StateDict, stream_select
+from torchsnapshot_tpu_torch.utils import knobs
+
+MB = 1024 * 1024
+
+
+@pytest.fixture(autouse=True)
+def _fresh_scorecard():
+    stream_select.reset()
+    yield
+    stream_select.reset()
+
+
+def _set_both(monkeypatch, **knob_values):
+    """The same knob values for the port and the JAX package; the port's
+    digests pinned on, as tests/conftest.py pins the JAX package's."""
+    monkeypatch.setenv("TSS_TORCH_DEDUP_DIGESTS", "1")
+    for k, v in knob_values.items():
+        monkeypatch.setenv("TSS_TORCH_" + k, v)
+        monkeypatch.setenv("TORCHSNAPSHOT_TPU_" + k, v)
+
+
+def _file_bytes(root, name):
+    with open(os.path.join(root, name), "rb") as f:
+        return f.read()
+
+
+class _FakeStreamingPlugin:
+    supports_streaming = True
+
+
+class _FakeWholePlugin:
+    supports_streaming = False
+
+
+class _FakeFSStoragePlugin:
+    supports_streaming = True
+
+
+def _feed(label, stream_bps, whole_bps, nbytes=None, ops=2):
+    """Credible evidence on both sides at the given byte rates."""
+    nbytes = nbytes or stream_select.MIN_CREDIBLE_BYTES
+    for _ in range(ops):
+        stream_select.note_streamed(label, nbytes, nbytes / stream_bps)
+        stream_select.note_whole(label, nbytes, nbytes / whole_bps)
+
+
+def test_storage_label_strips_plugin_suffix():
+    assert stream_select.storage_label(_FakeFSStoragePlugin()) == "_fakefs"
+    assert stream_select.storage_label(_FakeStreamingPlugin()) == "_fakestreamingplugin"
+
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+    assert (
+        stream_select.storage_label(FSStoragePlugin.__new__(FSStoragePlugin))
+        == "fs"
+    )
+
+
+def test_forced_modes_pass_through():
+    plugin = _FakeStreamingPlugin()
+    with knobs.override_stream_writes_mode("on"):
+        assert stream_select.resolve(plugin) is True
+        assert stream_select.last_decision()["reason"] == "forced"
+    with knobs.override_stream_writes_mode("off"):
+        assert stream_select.resolve(plugin) is False
+        rec = stream_select.last_decision()
+        assert rec["mode"] == "off" and rec["reason"] == "forced"
+
+
+def test_auto_is_optimistic_without_credible_evidence():
+    plugin = _FakeStreamingPlugin()
+    with knobs.override_stream_writes_mode("auto"):
+        # No evidence at all.
+        assert stream_select.resolve(plugin) is True
+        assert stream_select.last_decision()["reason"] == "insufficient-evidence"
+        # One credible side only is still not a decision basis.
+        label = stream_select.storage_label(plugin)
+        stream_select.note_whole(label, 2 * stream_select.MIN_CREDIBLE_BYTES, 1.0)
+        stream_select.note_whole(label, 2 * stream_select.MIN_CREDIBLE_BYTES, 1.0)
+        assert stream_select.resolve(plugin) is True
+        assert stream_select.last_decision()["reason"] == "insufficient-evidence"
+
+
+def test_sub_threshold_evidence_stays_optimistic():
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    # Plenty of ops, tiny bytes: below MIN_CREDIBLE_BYTES on both sides.
+    for _ in range(10):
+        stream_select.note_streamed(label, 1 * MB, 0.5)
+        stream_select.note_whole(label, 1 * MB, 0.001)
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(plugin) is True
+        assert stream_select.last_decision()["reason"] == "insufficient-evidence"
+
+
+def test_auto_picks_off_on_measured_inversion():
+    """The r07 regression, acted on: streamed side credibly SLOWER than
+    whole-buffer → auto resolves OFF and records why."""
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    _feed(label, stream_bps=0.21e9, whole_bps=0.36e9)
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(plugin) is False
+        rec = stream_select.last_decision(label)
+        assert rec["reason"] == "measured"
+        assert rec["enabled"] is False
+        assert rec["stream_bps"] < rec["whole_bps"]
+
+
+def test_auto_keeps_streaming_where_it_wins():
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    _feed(label, stream_bps=2.0e9, whole_bps=1.0e9)
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(plugin) is True
+        rec = stream_select.last_decision(label)
+        assert rec["reason"] == "measured" and rec["enabled"] is True
+
+
+@pytest.mark.parametrize("winner", ["stream", "whole"])
+def test_auto_never_picks_the_measured_losing_side(winner):
+    """The bench's regression-gate invariant, in unit form: with credible
+    evidence separating the sides, auto's pick IS the faster side."""
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    fast, slow = 1.0e9, 0.5e9
+    if winner == "stream":
+        _feed(label, stream_bps=fast, whole_bps=slow)
+    else:
+        _feed(label, stream_bps=slow, whole_bps=fast)
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(plugin) is (winner == "stream")
+
+
+def test_resolution_mirrors_into_knobs_boolean_view():
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    _feed(label, stream_bps=0.2e9, whole_bps=0.4e9)
+    with knobs.override_stream_writes_mode("auto"):
+        # Before any resolution the boolean view keeps the optimistic prior.
+        assert knobs.is_stream_writes_enabled() is True
+        stream_select.resolve(plugin)
+        assert knobs.is_stream_writes_enabled() is False
+    stream_select.reset()
+    with knobs.override_stream_writes_mode("auto"):
+        assert knobs.is_stream_writes_enabled() is True
+
+
+def test_non_streaming_plugin_does_not_overwrite_decisions():
+    streaming = _FakeStreamingPlugin()
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(streaming) is True
+        before = stream_select.last_decision()
+        assert stream_select.resolve(_FakeWholePlugin()) is False
+        # The non-decision left the process-wide record untouched.
+        assert stream_select.last_decision() == before
+        assert knobs.is_stream_writes_enabled() is True
+
+
+def test_scorecard_accumulates_and_reports_rates():
+    stream_select.note_streamed("x", 100 * MB, 1.0)
+    stream_select.note_streamed("x", 100 * MB, 1.0)
+    stream_select.note_whole("x", 50 * MB, 0.25)
+    # Zero/negative measurements are dropped, not accumulated.
+    stream_select.note_streamed("x", 0, 1.0)
+    stream_select.note_whole("x", 100, 0.0)
+    card = stream_select.scorecard("x")
+    assert card["stream"]["ops"] == 2
+    assert card["stream"]["bytes"] == 200 * MB
+    assert card["stream"]["rate_bps"] == pytest.approx(100 * MB, rel=1e-6)
+    assert card["whole"]["ops"] == 1
+    assert card["whole"]["rate_bps"] == pytest.approx(200 * MB, rel=1e-6)
+
+
+def test_ab_probe_feeds_scorecard_and_cleans_up(tmp_path):
+    dest = str(tmp_path / "probe_dest")
+    os.makedirs(dest, exist_ok=True)
+    with knobs.override_stream_chunk_bytes(1 * MB):
+        result = stream_select.ab_probe(dest, nbytes=4 * MB, reps=1)
+    assert result is not None
+    assert result["plugin"] == "fs"
+    assert result["probe_bytes"] == 4 * MB
+    assert result["stream_bps"] > 0 and result["whole_bps"] > 0
+    card = stream_select.scorecard("fs")
+    assert card["stream"]["bytes"] == 4 * MB and card["stream"]["ops"] == 1
+    assert card["whole"]["bytes"] == 4 * MB and card["whole"]["ops"] == 1
+    # Probe objects were deleted; nothing in the destination survives.
+    leftovers = []
+    for root, _dirs, files in os.walk(dest):
+        leftovers.extend(os.path.join(root, f) for f in files)
+    assert leftovers == []
+
+
+def test_ab_probe_failure_is_fail_open(tmp_path):
+    # A destination whose parent cannot be created (a file in the way).
+    blocker = tmp_path / "not_a_dir"
+    blocker.write_text("x")
+    assert (
+        stream_select.ab_probe(str(blocker / "dest"), nbytes=1 * MB) is None
+    )
+
+
+def test_take_resolves_auto_and_restores_bit_exact(tmp_path, monkeypatch):
+    """End-to-end: a take under auto with inversion evidence runs the
+    whole-buffer path (decision recorded, gated OFF) and round-trips, and
+    its files are the JAX package's."""
+    _set_both(monkeypatch)
+    np_arrs = {f"p{i}": np.arange(512, dtype=np.float32) + i for i in range(4)}
+    arrs = {k: torch.from_numpy(v) for k, v in np_arrs.items()}
+    with knobs.override_stream_writes_mode("auto"):
+        # Credible inversion for the fs plugin: auto must choose OFF.
+        _feed("fs", stream_bps=0.2e9, whole_bps=0.4e9)
+        path = str(tmp_path / "snap")
+        Snapshot.take(path, {"m": StateDict(**arrs)})
+        rec = stream_select.last_decision("fs")
+        assert rec is not None
+        assert rec["mode"] == "auto"
+        assert rec["enabled"] is False and rec["reason"] == "measured"
+        target = StateDict(**{f"p{i}": torch.zeros(512) for i in range(4)})
+        Snapshot(path).restore({"m": target}, device="cpu")
+    for i in range(4):
+        assert torch.equal(target[f"p{i}"], arrs[f"p{i}"])
+    jax_path = str(tmp_path / "jax")
+    jts.Snapshot.take(jax_path, {"m": jts.StateDict(**np_arrs)})
+    for f in [f"0/m/p{i}" for i in range(4)] + [".checksums.0"]:
+        assert _file_bytes(path, f) == _file_bytes(jax_path, f), f
+    jax_target = jts.StateDict(**{k: np.zeros_like(v) for k, v in np_arrs.items()})
+    jts.Snapshot(path).restore({"m": jax_target})
+    for k, v in np_arrs.items():
+        assert np.asarray(jax_target[k]).tobytes() == v.tobytes(), k
+
+
+def test_staging_seconds_weigh_against_streaming():
+    """The r07 inversion's actual shape: streamed APPENDS are fast, but
+    per-chunk staging overhead (slice + copy the whole path doesn't pay)
+    burns more CPU than the overlap buys. Staging seconds are folded into
+    the rates, so auto must resolve OFF here — an append-only scorecard
+    would have certified the inversion as a win."""
+    plugin = _FakeStreamingPlugin()
+    label = stream_select.storage_label(plugin)
+    nbytes = stream_select.MIN_CREDIBLE_BYTES
+    for _ in range(2):
+        # Appends alone: 1 GB/s streamed vs 0.5 GB/s whole writes.
+        stream_select.note_streamed(label, nbytes, nbytes / 1.0e9)
+        stream_select.note_whole(label, nbytes, nbytes / 0.5e9)
+        # Staging: the streamed side pays 4x the whole side's cost.
+        stream_select.note_stream_stage(label, nbytes / 0.25e9)
+        stream_select.note_whole_stage(label, nbytes / 1.0e9)
+    with knobs.override_stream_writes_mode("auto"):
+        assert stream_select.resolve(plugin) is False
+        rec = stream_select.last_decision(label)
+        assert rec["reason"] == "measured"
+        assert rec["stream_bps"] < rec["whole_bps"]
+
+
+def _streamed_appends(monkeypatch):
+    """Counts the fs plugin's streamed appends."""
+    from torchsnapshot_tpu_torch.storage_plugins import fs
+
+    appends = [0]
+    append = fs._FSWriteStream.append
+
+    async def counting(self, buf):
+        appends[0] += 1
+        await append(self, buf)
+
+    monkeypatch.setattr(fs._FSWriteStream, "append", counting)
+    return appends
+
+
+@pytest.mark.parametrize("mode", ["on", "off", "auto_inverted"])
+def test_pipeline_streams_as_decided_and_writes_the_same_bytes(tmp_path, monkeypatch, mode):
+    """A 4-chunk tensor streams under ``on`` and under ``auto`` without
+    evidence, and is written whole under ``off`` and under ``auto`` with
+    inversion evidence; the object and its sidecar record are the same,
+    and the JAX package's."""
+    appends = _streamed_appends(monkeypatch)
+    _set_both(monkeypatch, STREAM_CHUNK_BYTES="1024", HASH_CHUNK_BYTES="512")
+    np_x = np.arange(1024, dtype=np.float32)
+    x = torch.from_numpy(np_x)
+    paths = {}
+    for name, m in (("ref", "on"), ("run", mode)):
+        if m == "auto_inverted":
+            _feed("fs", stream_bps=0.2e9, whole_bps=0.4e9)
+            m = "auto"
+        with knobs.override_stream_writes_mode(m):
+            appends[0] = 0
+            paths[name] = str(tmp_path / name)
+            Snapshot.take(paths[name], {"m": StateDict(x=x)})
+        if name == "ref":
+            assert appends[0] == 4
+    assert appends[0] == (4 if mode == "on" else 0)
+    paths["jax"] = str(tmp_path / "jax")
+    jts.Snapshot.take(paths["jax"], {"m": jts.StateDict(x=np_x)})
+    for f in ("0/m/x", ".checksums.0"):
+        want = _file_bytes(paths["jax"], f)
+        assert _file_bytes(paths["ref"], f) == want, f
+        assert _file_bytes(paths["run"], f) == want, f
+    rec = json.load(open(os.path.join(paths["run"], ".checksums.0")))["0/m/x"]
+    assert rec["v"] == 2 and rec["size"] == 4096
+
+
+def test_incremental_take_never_streams(tmp_path, monkeypatch):
+    """Dedup needs an object's digest before its write, which a stream
+    has already appended: a take with base= writes whole, and links, as
+    the JAX package's incremental take of the same tree does."""
+    appends = _streamed_appends(monkeypatch)
+    _set_both(monkeypatch, STREAM_CHUNK_BYTES="1024")
+    np_x = np.arange(1024, dtype=np.float32)
+    x = torch.from_numpy(np_x)
+    with knobs.override_stream_writes_mode("on"):
+        base = str(tmp_path / "base")
+        Snapshot.take(base, {"m": StateDict(x=x)})
+        assert appends[0] == 4
+        appends[0] = 0
+        Snapshot.take(str(tmp_path / "inc"), {"m": StateDict(x=x)}, base=base)
+    assert appends[0] == 0
+    assert os.path.samefile(os.path.join(base, "0/m/x"), str(tmp_path / "inc" / "0/m/x"))
+    jax_base, jax_inc = str(tmp_path / "jax_base"), str(tmp_path / "jax_inc")
+    jts.Snapshot.take(jax_base, {"m": jts.StateDict(x=np_x)})
+    jts.Snapshot.take(jax_inc, {"m": jts.StateDict(x=np_x)}, base=jax_base)
+    assert os.path.samefile(os.path.join(jax_base, "0/m/x"), os.path.join(jax_inc, "0/m/x"))
+    for f in ("0/m/x", ".checksums.0"):
+        assert _file_bytes(str(tmp_path / "inc"), f) == _file_bytes(jax_inc, f), f
+
+
+def test_pipeline_feeds_the_scorecard(tmp_path, monkeypatch):
+    monkeypatch.setenv("TSS_TORCH_STREAM_CHUNK_BYTES", "1024")
+    with knobs.override_stream_writes_mode("on"):
+        Snapshot.take(str(tmp_path / "a"), {"m": StateDict(x=torch.ones(1024), y=torch.ones(4))})
+    card = stream_select.scorecard("fs")
+    assert card["stream"]["bytes"] == 4096 and card["stream"]["ops"] == 4
+    # The whole writes: y, and the sidecar is written outside the graph.
+    assert card["whole"]["bytes"] == 16 and card["whole"]["ops"] == 1

@@ -15,21 +15,31 @@ one D2H copy fetches it. There is no fallback to host packing for CUDA
 members: a failed pack raises. Other slabs concatenate their members'
 staged bytes on the host (:class:`BatchedBufferStager`).
 
-The read side merges adjacent byte ranges of one object into one read.
+Compressed small tensors (``raw_zstd``/``raw_zlib``, unframed, not shard
+pieces) form slabs of their own, one codec per slab: the slab is packed
+raw as above (K1 on the card, one D2H), then compressed on the host with
+one frame per member (:class:`CompressedSlabStager`). Compressed sizes are
+unknown at planning, so the manifest gives each member its raw range
+(``raw_range``) and the slab's ``.ftab`` maps raw frames to compressed
+bytes (:class:`SlabFrameTableStager`).
+
+The read side merges adjacent byte ranges of one object into one read,
+except the framed groups of a big compressed object (``merge_exempt``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 import uuid
 from concurrent.futures import Executor
 from typing import Dict, List, Optional, Tuple
 
 from . import d2h, kernels
-from .io_preparers.array import ArrayBufferStager
+from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayBufferStager, PollingTableStager
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
-from .serialization import Serializer, array_nbytes
+from .serialization import COMPRESSED, Serializer, array_nbytes, compress_member_framed
 
 # Slabs close at this size; smaller tensors join them (the JAX package's
 # default threshold).
@@ -103,6 +113,63 @@ class DeviceBatchedBufferStager(BatchedBufferStager):
         return memoryview(host.numpy())
 
 
+class CompressedSlabStager(BufferStager):
+    """Stages a slab raw (``inner``), then compresses it on the host with
+    one frame per member, and publishes the frame sizes for the slab's
+    :class:`SlabFrameTableStager`. For an async take's device slab this
+    runs in the background drain, never inside the stall."""
+
+    def __init__(self, inner: BatchedBufferStager, member_sizes: List[int], serializer: str, level: int) -> None:
+        self.inner = inner
+        self.member_sizes = member_sizes
+        self.serializer = serializer
+        self.level = level
+        self.frame_sizes: Optional[List[int]] = None
+        self.frame_error: Optional[BaseException] = None
+        # frame_sizes is published from a staging thread and cleared on the
+        # loop between takes (the prepared-take cache).
+        self._frame_lock = threading.Lock()
+
+    def reset_take(self) -> None:
+        """Clear this take's frame publication (a cached slab's next take)."""
+        with self._frame_lock:
+            self.frame_sizes = None
+            self.frame_error = None
+
+    async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
+        try:
+            raw = await self.inner.stage_buffer(executor)
+
+            def work() -> bytes:
+                payload, sizes = compress_member_framed(raw, self.member_sizes, self.serializer, self.level)
+                with self._frame_lock:
+                    self.frame_sizes = sizes
+                return payload
+
+            if executor is None:
+                return work()
+            return await asyncio.get_running_loop().run_in_executor(executor, work)
+        except BaseException as e:
+            self.frame_error = e
+            raise
+
+    def get_staging_cost_bytes(self) -> int:
+        # The raw slab and its compressed output coexist.
+        return 2 * self.inner.get_staging_cost_bytes()
+
+
+class SlabFrameTableStager(PollingTableStager):
+    """A compressed slab's ``.ftab``: per-frame raw and compressed sizes
+    (frames are member-aligned, so a member's ``raw_range`` maps to its
+    compressed bytes through both)."""
+
+    def __init__(self, main: CompressedSlabStager, path: str) -> None:
+        super().__init__(main, described=f"slab {path}")
+
+    def _table(self) -> dict:
+        return {"member_framed": True, "raw_sizes": self.main.member_sizes, "sizes": self.main.frame_sizes}
+
+
 def _device_key(req: WriteReq) -> str:
     tensor = getattr(req.buffer_stager, "tensor", None)
     return "" if tensor is None or tensor.device.type == "cpu" else str(tensor.device)
@@ -120,68 +187,111 @@ def _device_packable(members: List[Tuple[WriteReq, int, int]]) -> bool:
 def batch_write_requests(
     entries: List[Entry], write_reqs: List[WriteReq]
 ) -> List[WriteReq]:
-    """Coalesce small raw-tensor writes into slabs. Mutates the members'
-    entries in place (new ``location`` + ``byte_range``); runs before the
+    """Coalesce small tensor writes into slabs: raw ones into raw slabs,
+    compressed ones into member-framed compressed slabs (one codec each).
+    Mutates the members' entries in place (new ``location`` and
+    ``byte_range``, or ``raw_range`` when compressed); runs before the
     manifest is serialized."""
     threshold = SLAB_SIZE_THRESHOLD_BYTES
     by_location = _collect_array_entries(entries)
+    # Shard pieces never join compressed slabs: the sharded read path
+    # speaks file byte ranges, not raw slab coordinates.
+    shard_locations = {
+        shard.tensor.location
+        for entry in entries
+        if isinstance(entry, ShardedArrayEntry)
+        for shard in entry.shards
+    }
     small: List[Tuple[WriteReq, ArrayEntry, int]] = []
+    small_compressed: List[Tuple[WriteReq, ArrayEntry, int]] = []
     passthrough: List[WriteReq] = []
     for req in write_reqs:
         entry = by_location.get(req.path)
-        if entry is None or entry.serializer != Serializer.RAW:
+        if entry is None:
             passthrough.append(req)
             continue
         nbytes = array_nbytes(entry.shape, entry.dtype)
         if nbytes >= threshold:
             passthrough.append(req)
-        else:
+        elif entry.serializer == Serializer.RAW:
             small.append((req, entry, nbytes))
-    if len(small) <= 1:
+        elif (
+            entry.serializer in COMPRESSED
+            and entry.frame_bytes is None
+            and isinstance(req.buffer_stager, ArrayBufferStager)
+            and req.path not in shard_locations
+        ):
+            small_compressed.append((req, entry, nbytes))
+        else:
+            passthrough.append(req)
+    if len(small) + len(small_compressed) <= 1:
         return write_reqs
 
-    # Deferred members first, then by device, then by path: slabs never mix
-    # deferred and captured members, nor devices (a one-device slab is what
-    # K1 packs). On a single device this is the JAX package's order.
-    small.sort(key=lambda t: (0 if t[0].defer_staging else 1, _device_key(t[0]), t[0].path))
     batched: List[WriteReq] = []
-    slab: List[Tuple[WriteReq, int, int]] = []
-    slab_entries: List[ArrayEntry] = []
-    offset = 0
 
-    def close_slab() -> None:
-        nonlocal slab, slab_entries, offset
-        if len(slab) == 1:
-            # A one-member slab is strictly worse than the plain object.
-            passthrough.append(slab[0][0])
-        elif slab:
-            slab_path = f"batched/{uuid.uuid4().hex}"
-            for (_req, begin, end), entry in zip(slab, slab_entries):
-                entry.location = slab_path
-                entry.byte_range = [begin, end]
-            stager = (
-                DeviceBatchedBufferStager if _device_packable(slab) else BatchedBufferStager
-            )(slab)
-            batched.append(
-                WriteReq(
-                    path=slab_path,
-                    buffer_stager=stager,
-                    defer_staging=all(req.defer_staging for req, _, _ in slab),
-                )
-            )
-        slab, slab_entries, offset = [], [], 0
+    def pack(members: List[Tuple[WriteReq, ArrayEntry, int]], compressed: bool) -> None:
+        # Deferred members first, then by device, then by path: slabs never
+        # mix deferred and captured members, nor devices (a one-device slab
+        # is what K1 packs). On a single device this is the JAX package's
+        # order.
+        members = sorted(members, key=lambda t: (0 if t[0].defer_staging else 1, _device_key(t[0]), t[0].path))
+        slab: List[Tuple[WriteReq, int, int]] = []
+        slab_entries: List[ArrayEntry] = []
+        offset = 0
 
-    for req, entry, nbytes in small:
-        if slab and (
-            offset + nbytes > threshold
-            or slab[0][0].defer_staging != req.defer_staging
-            or _device_key(slab[0][0]) != _device_key(req)
-        ):
-            close_slab()
-        slab.append((req, offset, offset + nbytes))
-        slab_entries.append(entry)
-        offset += nbytes
-    close_slab()
+        def close_slab() -> None:
+            nonlocal slab, slab_entries, offset
+            if len(slab) == 1:
+                # A one-member slab is strictly worse than the plain object.
+                passthrough.append(slab[0][0])
+            elif slab:
+                slab_path = f"batched/{uuid.uuid4().hex}"
+                for (_req, begin, end), entry in zip(slab, slab_entries):
+                    entry.location = slab_path
+                    if compressed:
+                        entry.raw_range = [begin, end]
+                    else:
+                        entry.byte_range = [begin, end]
+                stager: BufferStager = (
+                    DeviceBatchedBufferStager if _device_packable(slab) else BatchedBufferStager
+                )(slab)
+                defer = all(req.defer_staging for req, _, _ in slab)
+                if compressed:
+                    for req, _, _ in slab:
+                        req.buffer_stager.stage_raw = True
+                    stager = CompressedSlabStager(
+                        stager,
+                        member_sizes=[end - begin for _, begin, end in slab],
+                        serializer=slab_entries[0].serializer,
+                        level=slab[0][0].buffer_stager.compression_level,
+                    )
+                    batched.append(WriteReq(path=slab_path, buffer_stager=stager, defer_staging=defer))
+                    batched.append(
+                        WriteReq(
+                            path=slab_path + FRAME_TABLE_SUFFIX,
+                            buffer_stager=SlabFrameTableStager(stager, slab_path),
+                            defer_staging=defer,
+                        )
+                    )
+                else:
+                    batched.append(WriteReq(path=slab_path, buffer_stager=stager, defer_staging=defer))
+            slab, slab_entries, offset = [], [], 0
+
+        for req, entry, nbytes in members:
+            if slab and (
+                offset + nbytes > threshold
+                or slab[0][0].defer_staging != req.defer_staging
+                or _device_key(slab[0][0]) != _device_key(req)
+            ):
+                close_slab()
+            slab.append((req, offset, offset + nbytes))
+            slab_entries.append(entry)
+            offset += nbytes
+        close_slab()
+
+    pack(small, compressed=False)
+    for serializer in (Serializer.RAW_ZSTD, Serializer.RAW_ZLIB):
+        pack([m for m in small_compressed if m[1].serializer == serializer], compressed=True)
     return passthrough + batched
 
 
@@ -227,6 +337,7 @@ def batch_read_requests(
         if (
             req.byte_range is None
             or req.byte_range[1] - req.byte_range[0] >= _MERGE_MAX_MEMBER_BYTES
+            or getattr(req.buffer_consumer, "merge_exempt", False)
         ):
             out.append(req)
         else:

@@ -162,6 +162,53 @@ def record_chunk_info(
     return grain, shas, crcs
 
 
+def record_size(rec: Any) -> Optional[int]:
+    if isinstance(rec, list) and len(rec) == 3 and isinstance(rec[1], int):
+        return rec[1]
+    if is_v2_record(rec) and isinstance(rec.get("size"), int):
+        return rec["size"]
+    return None
+
+
+def record_whole_sha(rec: Any) -> Optional[str]:
+    """The whole-object sha256 when one was recorded (v1 records with dedup
+    digests on; v2 records only through the compatibility digest)."""
+    if isinstance(rec, list) and len(rec) == 3:
+        return rec[2]
+    if is_v2_record(rec):
+        return rec.get("sha")
+    return None
+
+
+def record_content_keys(rec: Any) -> Tuple[str, ...]:
+    """The record's collision-resistant content identities, most specific
+    first: ``tree:<grain>:<root>`` for a v2 record, ``sha:<hex>`` for a
+    whole-object sha256. Two objects dedup when their sizes match and
+    their key sets intersect; a crc-only record has none."""
+    keys: List[str] = []
+    if is_v2_record(rec):
+        root = rec.get("root")
+        grain = rec.get("grain")
+        if root and isinstance(grain, int):
+            keys.append(f"tree:{grain}:{root}")
+    sha = record_whole_sha(rec)
+    if sha:
+        keys.append(f"sha:{sha}")
+    return tuple(keys)
+
+
+def record_cache_key(rec: Any) -> Optional[str]:
+    """Content address of an object: the v2 root suffixed with its grain,
+    or the v1 whole sha256."""
+    if is_v2_record(rec):
+        root = rec.get("root")
+        grain = rec.get("grain")
+        if root and isinstance(grain, int):
+            return f"{root}-t{grain}"
+        return None
+    return record_whole_sha(rec) or None
+
+
 def record_crc(rec: Any) -> Optional[int]:
     """Whole-object crc32 (v2 records store the combined value, which is
     bit-identical to the serial fold)."""
@@ -357,17 +404,39 @@ async def hash_buffer(
     want_sha: bool,
     loop: asyncio.AbstractEventLoop,
     executor,
+    want_whole_sha: bool = False,
 ):
     """Digest one whole buffer: chunk-parallel on ``executor`` above one
     grain, the single-job serial fold otherwise. Gives the same record as
-    feeding the same bytes through :func:`make_stream_hasher`."""
+    feeding the same bytes through :func:`make_stream_hasher`.
+    ``want_whole_sha`` also records the whole-object sha256 of a v2 record
+    (one job beside the chunk jobs), for an incremental take whose base
+    recorded v1 identities."""
     mv = memoryview(mv).cast("B")
     if grain <= 0 or mv.nbytes <= grain:
         return await loop.run_in_executor(executor, serial_digest, mv, want_sha)
+    whole = None
+    if want_whole_sha:
+        whole = loop.run_in_executor(executor, lambda: hashlib.sha256(mv).hexdigest())
     hasher = ChunkHasher(grain, want_sha, loop, executor)
     try:
         await hasher.feed(mv)
-        return await hasher.finalize()
+        rec = await hasher.finalize()
     except BaseException:
         hasher.abort()
+        if whole is not None:
+            whole.cancel()
         raise
+    if whole is not None:
+        rec["sha"] = await whole
+    return rec
+
+
+def digest_of_bytes(data, grain: int, want_sha: bool = True):
+    """The record :func:`hash_buffer` gives ``data`` at ``grain``,
+    computed synchronously."""
+    mv = memoryview(data).cast("B")
+    if grain <= 0 or mv.nbytes <= grain:
+        return serial_digest(mv, want_sha)
+    results = [_hash_chunk_parts([mv[b:e]], want_sha) for b, e in chunk_extents(mv.nbytes, grain)]
+    return _combine_results(results, grain, want_sha)

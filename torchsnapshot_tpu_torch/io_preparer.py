@@ -229,6 +229,7 @@ def prepare_write(
     is_async_snapshot: bool = False,
     ready: Optional[Dict[torch.device, torch.cuda.Event]] = None,
     captured_paths: Set[str] = frozenset(),
+    leaf_index: Optional[Dict[str, List[WriteReq]]] = None,
 ) -> Tuple[Manifest, List[WriteReq]]:
     """Plan all writes of this rank's flattened state; no data moves.
 
@@ -236,49 +237,71 @@ def prepare_write(
     are final (the caller's stream at take time, or the fork's event).
     ``captured_paths``: leaves that are already private captures
     (:func:`capture_flattened`); nothing the caller does can reach them, so
-    their staging is deferred past ``async_take``'s return."""
+    their staging is deferred past ``async_take``'s return.
+    ``leaf_index``: filled with each leaf's write requests (for the
+    prepared-take cache)."""
     manifest: Manifest = {}
     write_reqs: List[WriteReq] = []
     ready = ready or {}
     for logical_path, value in flattened.items():
-        kind = classify(value, world_size)
-        replicated = logical_path in replicated_paths or kind == "replicated_array"
-        captured = logical_path in captured_paths
-        if kind == "primitive":
-            manifest[logical_path] = PrimitiveEntry.from_value(value, replicated=replicated)
-            continue
-        if kind == "sharded":
-            entry, reqs = ShardedArrayIOPreparer.prepare_write(
-                logical_path,
-                value,
-                is_async_snapshot and not captured,
-                ready.get(value.local.device),
-            )
-            manifest[logical_path] = entry
-            for r in reqs:
-                r.defer_staging = captured
-            write_reqs.extend(reqs)
-            continue
-        if isinstance(value, DTensorLeaf):
-            value = value.local
-        storage_path = get_storage_path(logical_path, rank, replicated)
-        if kind == "object":
-            entry, reqs = ObjectIOPreparer.prepare_write(storage_path, value, replicated)
-            manifest[logical_path] = entry
-            write_reqs.extend(reqs)
-            continue
-        tensor, dtype_str = _as_tensor(value)
-        preparer = ChunkedArrayIOPreparer if should_chunk(tensor) else ArrayIOPreparer
-        entry, reqs = preparer.prepare_write(
-            storage_path,
-            tensor,
-            replicated,
+        start = len(write_reqs)
+        _prepare_leaf(logical_path, value, rank, world_size, replicated_paths,
+                      is_async_snapshot, ready, captured_paths, manifest, write_reqs)
+        if leaf_index is not None:
+            leaf_index[logical_path] = write_reqs[start:]
+    return manifest, write_reqs
+
+
+def _prepare_leaf(
+    logical_path: str,
+    value: Any,
+    rank: int,
+    world_size: int,
+    replicated_paths: Set[str],
+    is_async_snapshot: bool,
+    ready: Dict[torch.device, Any],
+    captured_paths: Set[str],
+    manifest: Manifest,
+    write_reqs: List[WriteReq],
+) -> None:
+    """Plan one leaf's entry and write requests (``prepare_write``)."""
+    kind = classify(value, world_size)
+    replicated = logical_path in replicated_paths or kind == "replicated_array"
+    captured = logical_path in captured_paths
+    if kind == "primitive":
+        manifest[logical_path] = PrimitiveEntry.from_value(value, replicated=replicated)
+        return
+    if kind == "sharded":
+        entry, reqs = ShardedArrayIOPreparer.prepare_write(
+            logical_path,
+            value,
             is_async_snapshot and not captured,
-            ready.get(tensor.device),
-            dtype_str,
+            ready.get(value.local.device),
         )
         manifest[logical_path] = entry
         for r in reqs:
             r.defer_staging = captured
         write_reqs.extend(reqs)
-    return manifest, write_reqs
+        return
+    if isinstance(value, DTensorLeaf):
+        value = value.local
+    storage_path = get_storage_path(logical_path, rank, replicated)
+    if kind == "object":
+        entry, reqs = ObjectIOPreparer.prepare_write(storage_path, value, replicated)
+        manifest[logical_path] = entry
+        write_reqs.extend(reqs)
+        return
+    tensor, dtype_str = _as_tensor(value)
+    preparer = ChunkedArrayIOPreparer if should_chunk(tensor) else ArrayIOPreparer
+    entry, reqs = preparer.prepare_write(
+        storage_path,
+        tensor,
+        replicated,
+        is_async_snapshot and not captured,
+        ready.get(tensor.device),
+        dtype_str,
+    )
+    manifest[logical_path] = entry
+    for r in reqs:
+        r.defer_staging = captured
+    write_reqs.extend(reqs)

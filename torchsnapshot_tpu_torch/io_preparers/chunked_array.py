@@ -8,7 +8,7 @@ so both packages name and cut the chunks identically.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,19 +71,25 @@ class ChunkedArrayIOPreparer:
         return entry, write_reqs
 
     @staticmethod
-    def prepare_read(
+    def prepare_read(  # spmd-pure
         entry: ChunkedArrayEntry,
         target: np.ndarray,
         buffer_size_limit_bytes: Optional[int] = None,
+        frame_tables: Optional[Dict[str, Any]] = None,
     ) -> List[ReadReq]:
-        """Reads filling the flat uint8 view ``target`` chunk by chunk."""
+        """Reads filling the flat uint8 view ``target`` chunk by chunk
+        (``frame_tables``: the chunks' ``.ftab`` tables by location)."""
         row_bytes = dtype_itemsize(entry.dtype) * int(np.prod(entry.shape[1:]))
         reqs: List[ReadReq] = []
         for chunk in entry.chunks:
             offset = chunk.offsets[0] * row_bytes
             reqs.extend(
                 ArrayIOPreparer.prepare_read(
-                    chunk.tensor, target, offset, buffer_size_limit_bytes
+                    chunk.tensor,
+                    target,
+                    offset,
+                    buffer_size_limit_bytes,
+                    (frame_tables or {}).get(chunk.tensor.location),
                 )
             )
         return reqs

@@ -25,6 +25,12 @@ class ObjectBufferStager(BufferStager):
     def __init__(self, obj: Any) -> None:
         self.obj = obj
 
+    def rebind(self, obj: Any) -> None:
+        self.obj = obj
+
+    def unbind(self) -> None:
+        self.obj = None
+
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         def dump() -> bytes:
             return pickle.dumps(self.obj, protocol=pickle.HIGHEST_PROTOCOL)

@@ -19,7 +19,10 @@ A port of ``torchsnapshot_tpu/io_preparers/sharded_array.py`` for
   one H2D copy moves them to a device staging buffer, and K3 scatters the
   overlap rectangles into the target in place (``ShardedArrayBufferConsumer``).
   Saved and target shardings need not match in mesh shape, placements or
-  number of ranks.
+  number of ranks. A compressed shard is decoded on the host first, into
+  the same pinned buffer, and then takes the same H2D and K3 route; a
+  budgeted read of a framed shard fetches the frames covering each piece
+  of its overlap rows and cuts the piece out of their decoded bytes.
 
 ``Partial`` and ``_StridedShard`` placements raise ``NotImplementedError``.
 """
@@ -37,9 +40,15 @@ import torch
 from .. import hashing, kernels
 from ..io_types import BufferConsumer, BufferType, ReadReq, WriteReq
 from ..manifest import ArrayEntry, Shard, ShardedArrayEntry
-from ..serialization import Serializer, dtype_to_string, ensure_uncompressed, string_to_dtype
+from ..serialization import (
+    COMPRESSED,
+    Serializer,
+    dtype_to_string,
+    ensure_codec_available,
+    string_to_dtype,
+)
 from ..utils import knobs
-from .array import ArrayIOPreparer
+from .array import ArrayIOPreparer, FramedSliceConsumer, member_framed_reads
 
 # A target to restore into: (tensor of the target shard, global offsets, sizes)
 TargetShard = Tuple[torch.Tensor, Sequence[int], Sequence[int]]
@@ -384,6 +393,16 @@ class ShardedArrayBufferConsumer(BufferConsumer):
             src = host.view(dtype).view(shape)
             kernels.copy_blocks([(src[ss], dst[ds]) for dst, ss, ds in self.copy_specs])
 
+    def deliver(self, mv: memoryview) -> None:
+        """Scatter the piece's decoded raw bytes (a compressed payload's,
+        on a consumer thread)."""
+        if mv.nbytes != self.nbytes:
+            raise ValueError(f"{self.entry.location}: decoded {mv.nbytes} bytes; expected {self.nbytes}")
+        host = self._alloc_host()
+        host.numpy()[:] = np.frombuffer(mv, dtype=np.uint8)
+        self._host = host
+        self._scatter()
+
     async def consume_buffer(self, buf: BufferType, executor: Optional[Executor] = None) -> None:
         mv = memoryview(buf).cast("B")
         if mv.nbytes != self.nbytes:
@@ -417,6 +436,110 @@ def _same_buffer(mv: memoryview, host: torch.Tensor) -> bool:
         return True
     addr = np.frombuffer(mv, dtype=np.uint8).__array_interface__["data"][0]
     return addr == host.data_ptr()
+
+
+def _copy_specs(off: Sequence[int], sz: Sequence[int], targets: List[TargetShard]):
+    """(target, piece slices, target slices) of each target the piece
+    (global ``off``, ``sz``) overlaps."""
+    specs = []
+    for dst, dst_off, dst_sz in targets:
+        ov = overlap(off, sz, dst_off, dst_sz)
+        if ov is not None:
+            specs.append((dst, ov[0], ov[1]))
+    return specs
+
+
+def _piece_entry(entry: ArrayEntry, sizes: Sequence[int]) -> ArrayEntry:
+    return ArrayEntry(
+        location=entry.location,
+        serializer=entry.serializer,
+        dtype=entry.dtype,
+        shape=list(sizes),
+        replicated=entry.replicated,
+    )
+
+
+def _framed_shard_reads(
+    shard: Shard,
+    targets: List[TargetShard],
+    frame_table: List[int],
+    buffer_size_limit_bytes: int,
+    h2d: Any,
+) -> List[ReadReq]:
+    """Budgeted reads of one framed compressed shard: the overlap row
+    intervals cut into pieces of at most the budget (and at least one
+    frame's rows), each fetching and decoding only its covering frames.
+    The decoded region starts at its first frame, before the piece; the
+    piece is cut out of it before the H2D and K3 see it."""
+    entry = shard.tensor
+    itemsize = string_to_dtype(entry.dtype).itemsize
+    F = entry.frame_bytes
+    base = entry.byte_range[0] if entry.byte_range else 0
+    row_bytes = int(np.prod(shard.sizes[1:])) * itemsize if shard.sizes else itemsize
+    total = int(np.prod(shard.sizes)) * itemsize if shard.sizes else itemsize
+    effective = max(buffer_size_limit_bytes, -(-F // row_bytes) * row_bytes)
+    if not shard.sizes:
+        pieces = [(list(shard.offsets), list(shard.sizes))]
+    else:
+        rects = [(d_off, d_sz) for _dst, d_off, d_sz in targets]
+        pieces = []
+        for r0, r1 in overlap_row_intervals(shard.offsets, shard.sizes, rects):
+            off = list(shard.offsets)
+            sz = list(shard.sizes)
+            off[0] = shard.offsets[0] + r0
+            sz[0] = r1 - r0
+            pieces.extend(subdivide(off, sz, itemsize, effective, dim=0))
+    prefix = [0]
+    for s in frame_table:
+        prefix.append(prefix[-1] + int(s))
+    reqs: List[ReadReq] = []
+    for off, sz in pieces:
+        specs = _copy_specs(off, sz, targets)
+        if not specs:
+            continue
+        a = (off[0] - shard.offsets[0]) * row_bytes if sz else 0
+        b = a + (int(np.prod(sz)) * itemsize if sz else itemsize)
+        f0 = a // F
+        f1 = min(len(frame_table), -(-b // F))
+        consumer = ShardedArrayBufferConsumer(_piece_entry(entry, sz), specs, h2d)
+        reqs.append(
+            ReadReq(
+                path=entry.location,
+                buffer_consumer=FramedSliceConsumer(
+                    entry.serializer, f0 * F, a, b, consumer.deliver,
+                    decoded_raw_bytes=min(f1 * F, total) - f0 * F,
+                ),
+                byte_range=(base + prefix[f0], base + prefix[f1]),
+            )
+        )
+    return reqs
+
+
+def _decoded_shard_reads(
+    shard: Shard,
+    targets: List[TargetShard],
+    frame_table: Optional[Any],
+    buffer_size_limit_bytes: Optional[int],
+    h2d: Any,
+) -> List[ReadReq]:
+    """Reads of one compressed shard: budgeted frame groups of a framed
+    shard when its table is at hand, a compressed slab member's own frames,
+    else the whole payload, decoded once."""
+    entry = shard.tensor
+    budgeted = frame_table is not None and buffer_size_limit_bytes is not None
+    if entry.raw_range is None and entry.frame_bytes and budgeted:
+        return _framed_shard_reads(shard, targets, frame_table, buffer_size_limit_bytes, h2d)
+    specs = _copy_specs(shard.offsets, shard.sizes, targets)
+    if not specs:
+        return []
+    consumer = ShardedArrayBufferConsumer(_piece_entry(entry, shard.sizes), specs, h2d)
+    if entry.raw_range is not None:
+        return member_framed_reads(entry, frame_table, consumer.deliver)
+    decode = FramedSliceConsumer(
+        entry.serializer, 0, 0, consumer.nbytes, consumer.deliver, framed=bool(entry.frame_bytes)
+    )
+    byte_range = tuple(entry.byte_range) if entry.byte_range else None
+    return [ReadReq(path=entry.location, buffer_consumer=decode, byte_range=byte_range)]
 
 
 # ---------------------------------------------------------------------------
@@ -475,17 +598,31 @@ class ShardedArrayIOPreparer:
         buffer_size_limit_bytes: Optional[int] = None,
         digests: Optional[Dict[str, object]] = None,
         h2d: Any = None,
+        frame_tables: Optional[Dict[str, Any]] = None,
     ) -> List[ReadReq]:
         """Plan reads scattering the saved shards into ``targets``: only the
         row ranges some target overlaps are fetched (``shard_read_intervals``),
         split at ``buffer_size_limit_bytes``; saved shards no target overlaps
         are never read. Each read carries its byte range explicitly, so it
         lands straight in its consumer's host buffer. ``h2d`` (a
-        ``d2h.HostToDevice``) carries CUDA targets' copies."""
+        ``d2h.HostToDevice``) carries CUDA targets' copies. A compressed
+        shard is decoded first (``frame_tables``: the ``.ftab`` tables by
+        location, for framed shards' budgeted reads and slab members)."""
         targets = [(t, o, s) for t, o, s in targets if t.numel() > 0]
         read_reqs: List[ReadReq] = []
         for shard in entry.shards:
-            ensure_uncompressed(shard.tensor.serializer, shard.tensor.location)
+            ensure_codec_available(shard.tensor.serializer)
+            if shard.tensor.serializer in COMPRESSED:
+                read_reqs.extend(
+                    _decoded_shard_reads(
+                        shard,
+                        targets,
+                        (frame_tables or {}).get(shard.tensor.location),
+                        buffer_size_limit_bytes,
+                        h2d,
+                    )
+                )
+                continue
             itemsize = string_to_dtype(shard.tensor.dtype).itemsize
             base0 = shard.tensor.byte_range[0] if shard.tensor.byte_range else 0
             if not shard.sizes:
@@ -508,24 +645,15 @@ class ShardedArrayIOPreparer:
                 if sub_sz:
                     sub_off[0] = shard.offsets[0] + b // row_bytes
                     sub_sz[0] = (e - b) // row_bytes
-                copy_specs = []
-                for dst, dst_off, dst_sz in targets:
-                    ov = overlap(sub_off, sub_sz, dst_off, dst_sz)
-                    if ov is not None:
-                        copy_specs.append((dst, ov[0], ov[1]))
+                copy_specs = _copy_specs(sub_off, sub_sz, targets)
                 if not copy_specs:
                     continue  # gap-merged rows with no overlap of their own
-                sub_entry = ArrayEntry(
-                    location=shard.tensor.location,
-                    serializer=shard.tensor.serializer,
-                    dtype=shard.tensor.dtype,
-                    shape=list(sub_sz),
-                    replicated=shard.tensor.replicated,
-                )
                 read_reqs.append(
                     ReadReq(
                         path=shard.tensor.location,
-                        buffer_consumer=ShardedArrayBufferConsumer(sub_entry, copy_specs, h2d),
+                        buffer_consumer=ShardedArrayBufferConsumer(
+                            _piece_entry(shard.tensor, sub_sz), copy_specs, h2d
+                        ),
                         byte_range=(base0 + b, base0 + e),
                     )
                 )

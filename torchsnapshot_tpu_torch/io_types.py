@@ -114,6 +114,11 @@ class StorageWriteStream(abc.ABC):
 class StoragePlugin(abc.ABC):
     """Storage backend. A missing object raises ``FileNotFoundError``."""
 
+    # Whether appends (write_stream) are worth streaming a large object
+    # through; the streaming decision (stream_select) only considers such
+    # plugins.
+    supports_streaming = False
+
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None:
         ...
@@ -133,6 +138,13 @@ class StoragePlugin(abc.ABC):
     @abc.abstractmethod
     async def close(self) -> None:
         ...
+
+    async def link_in(self, src_abs_path: str, path: str) -> bool:
+        """Alias the existing file at absolute ``src_abs_path`` into this
+        store at ``path`` without copying bytes (incremental takes).
+        Returns False when unsupported or failed; the caller then writes
+        the bytes. Default: unsupported."""
+        return False
 
     def sync_write(
         self, write_io: WriteIO, event_loop: asyncio.AbstractEventLoop

@@ -165,6 +165,9 @@ class Coordinator:
 # same sequence of collectives against one long-lived coordinator.
 _INSTALLED: Optional[Coordinator] = None
 _C10D: Optional[tuple] = None  # (process group, its coordinator)
+# The single-process coordinator: one per process, so what hangs off it
+# across takes (the plan and prepared-take caches) persists.
+_LOCAL: Optional[Coordinator] = None
 
 
 def set_coordinator(coordinator: Optional[Coordinator]) -> None:
@@ -179,7 +182,7 @@ def get_coordinator(coordinator: Optional[Coordinator] = None) -> Coordinator:
     installed coordinator, ``torch.distributed``'s default process group
     (rank and world size from it, traffic over its c10d store), else rank 0
     of 1 over a :class:`LocalStore`."""
-    global _C10D
+    global _C10D, _LOCAL
     if coordinator is not None:
         return coordinator
     if _INSTALLED is not None:
@@ -191,4 +194,6 @@ def get_coordinator(coordinator: Optional[Coordinator] = None) -> Coordinator:
         if _C10D is None or _C10D[0] is not group:
             _C10D = (group, Coordinator(C10dStore(), dist.get_rank(), dist.get_world_size()))
         return _C10D[1]
-    return Coordinator(LocalStore(), 0, 1)
+    if _LOCAL is None:
+        _LOCAL = Coordinator(LocalStore(), 0, 1)
+    return _LOCAL

@@ -7,18 +7,37 @@ broadcast is needed. Replicated storage paths carry no rank, so each rank
 keeps exactly the write requests assigned to it. Every rank keeps every
 replicated *entry* in its manifest, whoever writes the bytes.
 
-The JAX package also gathers each rank's compression codec and refuses a
-take whose ranks disagree; the port has no codecs yet, so there is nothing
-to compare.
+Each rank's compression codec rides the same gather: a rank restoring a
+replicated entry trusts its own manifest copy, so ranks whose codecs
+differ would let one rank's copy lie about another's bytes. Such a take
+fails on every rank (:class:`CodecDivergenceError`). A framed replicated
+payload's ``.ftab`` follows its payload to the same writer: its stager
+waits on the payload's stager. A plan-cache hit replays the cached
+assignment and gathers nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from .io_preparers.array import FRAME_TABLE_SUFFIX
 from .io_types import WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, Manifest, is_replicated
 from .parallel.coordinator import Coordinator
+from .utils import knobs
+
+
+class CodecDivergenceError(ValueError):
+    """The ranks of a take run different compression codecs. Raised on
+    every rank; ``ranks`` are those whose codec differs from rank 0's."""
+
+    def __init__(self, codecs: List[str]) -> None:
+        self.codecs = codecs
+        self.ranks = [r for r, c in enumerate(codecs) if c != codecs[0]]
+        super().__init__(
+            f"TSS_TORCH_COMPRESSION differs across ranks ({codecs}); set it "
+            "identically on every process"
+        )
 
 
 def _estimate(req: WriteReq) -> int:
@@ -43,28 +62,53 @@ def partition_write_reqs_with_assignment(
     manifest: Manifest,
     write_reqs: List[WriteReq],
     coordinator: Coordinator,
+    assignment: Optional[Dict[str, int]] = None,
 ) -> Tuple[List[WriteReq], Dict[str, int]]:
     """The subset of ``write_reqs`` this rank executes, and the replicated
-    ``{storage_path: writer_rank}`` assignment."""
+    ``{storage_path: writer_rank}`` assignment (``assignment``: a cached
+    one to replay, with no collective)."""
     world_size = coordinator.get_world_size()
     rank = coordinator.get_rank()
     if world_size == 1:
         return write_reqs, {}
 
     replicated_locations = set()
+    partners: Dict[str, str] = {}  # .ftab -> its payload
     for entry in manifest.values():
         if is_replicated(entry):
-            if hasattr(entry, "location"):
-                replicated_locations.add(entry.location)
-            for chunk in getattr(entry, "chunks", None) or []:
-                replicated_locations.add(chunk.tensor.location)
+            subs = [entry] if hasattr(entry, "location") else []
+            subs += [chunk.tensor for chunk in getattr(entry, "chunks", None) or []]
+            for sub in subs:
+                replicated_locations.add(sub.location)
+                if getattr(sub, "frame_bytes", None):
+                    partners[sub.location + FRAME_TABLE_SUFFIX] = sub.location
 
     replicated_reqs = [r for r in write_reqs if r.path in replicated_locations]
-    other_reqs = [r for r in write_reqs if r.path not in replicated_locations]
-    local_load = sum(_estimate(r) for r in other_reqs)
-    loads: List[int] = list(coordinator.all_gather_object(local_load))
-    assignment = greedy_assignment(loads, [(_estimate(r), r.path) for r in replicated_reqs])
-    return other_reqs + [r for r in replicated_reqs if assignment[r.path] == rank], assignment
+    partner_reqs = [r for r in write_reqs if r.path in partners]
+    other_reqs = [
+        r for r in write_reqs if r.path not in replicated_locations and r.path not in partners
+    ]
+    if assignment is None:
+        local_load = sum(_estimate(r) for r in other_reqs)
+        gathered = coordinator.all_gather_object((local_load, knobs.get_compression()))
+        codecs = [codec for _, codec in gathered]
+        if len(set(codecs)) > 1:
+            raise CodecDivergenceError(codecs)
+        loads: List[int] = [load for load, _ in gathered]
+        assignment = greedy_assignment(loads, [(_estimate(r), r.path) for r in replicated_reqs])
+        for partner, payload in partners.items():
+            assignment[partner] = assignment.get(payload, 0)
+    missing = [r.path for r in replicated_reqs + partner_reqs if r.path not in assignment]
+    if missing:
+        # A cached plan that does not know a replicated path means the take
+        # fingerprint missed something that shapes storage paths; dropping
+        # the request would commit an entry no rank writes.
+        raise RuntimeError(
+            f"plan-cache assignment is missing replicated write paths {missing[:5]}; "
+            "set TSS_TORCH_PLAN_CACHE=0 to work around"
+        )
+    mine = [r for r in replicated_reqs + partner_reqs if assignment[r.path] == rank]
+    return other_reqs + mine, assignment
 
 
 def consolidate_replicated_entries(global_manifest: Manifest) -> None:

@@ -3,10 +3,19 @@
 Write: each request becomes a ``stage -> io`` chain (stage: D2H +
 serialize into a host buffer; io: hash + storage write, concurrently), or
 one ``stream`` node for a streamable request of at least two stream
-chunks: the storage append of one chunk overlaps the staging of the next.
-Streaming is decided by size alone. The staged bytes of every object are
-digested into the ``.checksums.<rank>`` sidecar, written before the
-caller commits ``.snapshot_metadata``.
+chunks: the storage append of one chunk overlaps the staging of the next,
+at most ``STREAM_INFLIGHT`` chunks deep. Whether a pipeline streams at all
+is decided once, by measurement (``stream_select``). The staged bytes of
+every object are digested into the ``.checksums.<rank>`` sidecar, written
+before the caller commits ``.snapshot_metadata``.
+
+Incremental takes (``base_loader``): the base's digests load lazily, on
+the first write (in an async take's background drain, never in its
+stall). Each object is then hashed before its write; when its size and a
+content key match a base object (by path, or by content for slabs, whose
+paths are new each take) the storage plugin links the base's file in
+(``link_in``) instead of writing, and any refusal falls back to the write.
+Such a take never streams: dedup needs the digest before the write.
 
 Read: each request becomes a ``read -> consume`` chain (fetch a byte
 range; copy it into its target), budgeted by the consumer's cost.
@@ -18,11 +27,12 @@ import asyncio
 import contextlib
 import json
 import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from . import d2h, hashing
+from . import d2h, hashing, stream_select
 from .engine import GraphExecutor, Node
 from .engine.intervals import stream_stats
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
@@ -75,6 +85,7 @@ class _WritePipeline:
         storage: StoragePlugin,
         memory_budget_bytes: int,
         rank: int,
+        base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
     ) -> None:
         self.storage = storage
         self.rank = rank
@@ -82,9 +93,22 @@ class _WritePipeline:
         self.checksums: Dict[str, object] = {}
         # Resolved once: a deferred background drain must not re-read knobs
         # whose environment changed since the take was planned.
-        self._want_sha = knobs.is_dedup_digests_enabled()
+        self._want_sha = knobs.is_dedup_digests_enabled(has_base=base_loader is not None)
         self._grain = knobs.get_hash_chunk_bytes()
         self._stream_chunk = knobs.get_stream_chunk_bytes()
+        self._stream_inflight = knobs.get_stream_inflight()
+        self._stream_on = stream_select.resolve(storage)
+        self._label = stream_select.storage_label(storage)
+        # The base: (root, {path: record}, {(size, key): path}) once loaded.
+        self._base_loader = base_loader
+        self._base_resolved = base_loader is None
+        self._base_lock: Optional[asyncio.Lock] = None
+        self._base: Optional[tuple] = None
+        # A base with v1 records needs a whole-object sha256 of each new
+        # object too, or nothing would match.
+        self._base_needs_whole_sha = False
+        self.bytes_deduped = 0
+        self.objects_linked = 0
         self._staging_ctx: Optional[d2h.StagingContext] = None
         self._engine = GraphExecutor(
             memory_budget_bytes,
@@ -109,17 +133,30 @@ class _WritePipeline:
         finally:
             d2h.deactivate(token)
 
+    def _stream_eligible(self, req: WriteReq) -> bool:
+        """Streams when this pipeline streams at all, the plugin can, the
+        take has no base (dedup needs the whole object's digest before its
+        write), and a second chunk exists to overlap with."""
+        stager = req.buffer_stager
+        return (
+            self._stream_on
+            and self.storage.supports_streaming
+            and self._base_loader is None
+            and stager.get_staging_cost_bytes() >= 2 * self._stream_chunk
+            and stager.can_stream()
+        )
+
     def _add_request(self, req: WriteReq) -> None:
         stager = req.buffer_stager
         cost = stager.get_staging_cost_bytes()
-        if cost >= 2 * self._stream_chunk and stager.can_stream():
+        if self._stream_eligible(req):
             self._engine.add(
                 Node(
                     "stream",
                     lambda ctx, _p, req=req: self._stream_one(req),
-                    # Admitted at its steady-state footprint: the chunk in
-                    # staging, the one being written, one look-ahead.
-                    cost_bytes=min(cost, 3 * self._stream_chunk),
+                    # Admitted at its steady-state footprint: the stream's
+                    # depth in chunks.
+                    cost_bytes=min(cost, self._stream_inflight * self._stream_chunk),
                     pool="streaming",
                     stream="io",
                     path=req.path,
@@ -142,19 +179,80 @@ class _WritePipeline:
         )
 
     async def _stage_one(self, ctx, req: WriteReq):
+        t0 = time.monotonic()
         buf = await req.buffer_stager.stage_buffer(self.pools.staging_executor())
+        stream_select.note_whole_stage(self._label, time.monotonic() - t0)
         ctx.recost(memoryview(buf).nbytes)
         return buf
 
+    async def _storage_write(self, path: str, buf) -> None:
+        """One whole-buffer write, timed into the streaming scorecard."""
+        t0 = time.monotonic()
+        await self.storage.write(WriteIO(path=path, buf=buf))
+        stream_select.note_whole(self._label, memoryview(buf).nbytes, time.monotonic() - t0)
+
+    async def _resolve_base(self) -> None:
+        """Load the base's digests once (on the hash pool), and index them
+        by content so an object can match a base object at another path."""
+        if self._base_lock is None:
+            self._base_lock = asyncio.Lock()
+        async with self._base_lock:
+            if self._base_resolved:
+                return
+            loop = asyncio.get_running_loop()
+            loaded = await loop.run_in_executor(self.pools.hash_executor(), self._base_loader)
+            if loaded is not None:
+                root, digests = loaded
+                by_content: Dict[Tuple[Any, str], str] = {}
+                for k, v in digests.items():
+                    size = hashing.record_size(v)
+                    for key in hashing.record_content_keys(v):
+                        by_content.setdefault((size, key), k)
+                self._base = (root, digests, by_content)
+                self._base_needs_whole_sha = any(isinstance(v, list) for v in digests.values())
+            self._base_resolved = True
+
+    async def _link_from_base(self, path: str, digest: Any) -> bool:
+        """Link the base object byte-identical to this one (size and a
+        content key) in at ``path``; False when none is, or the link
+        failed."""
+        keys = hashing.record_content_keys(digest)
+        if not keys:
+            return False
+        size = hashing.record_size(digest)
+        root, digests, by_content = self._base
+        rec = digests.get(path)
+        if rec is not None and hashing.record_size(rec) == size and set(keys) & set(hashing.record_content_keys(rec)):
+            src = path  # the same object at the same path
+        else:
+            src = next((by_content[(size, k)] for k in keys if (size, k) in by_content), None)
+        if src is None or not await self.storage.link_in(os.path.join(root, src), path):
+            return False
+        self.bytes_deduped += size
+        self.objects_linked += 1
+        return True
+
     async def _write_one(self, path: str, buf) -> None:
         loop = asyncio.get_running_loop()
+        if not self._base_resolved:
+            await self._resolve_base()
+        if self._base is not None:
+            # The digest decides link or write, so it comes first.
+            digest = await hashing.hash_buffer(
+                memoryview(buf), self._grain, self._want_sha, loop, self.pools.hash_executor(),
+                want_whole_sha=self._base_needs_whole_sha,
+            )
+            self.checksums[path] = digest
+            if not await self._link_from_base(path, digest):
+                await self._storage_write(path, buf)
+            return
         digest = asyncio.ensure_future(
             hashing.hash_buffer(
                 memoryview(buf), self._grain, self._want_sha, loop, self.pools.hash_executor()
             )
         )
         try:
-            await self.storage.write(WriteIO(path=path, buf=buf))
+            await self._storage_write(path, buf)
         except BaseException:
             digest.cancel()
             await asyncio.gather(digest, return_exceptions=True)
@@ -170,13 +268,20 @@ class _WritePipeline:
             self._grain, self._want_sha, loop, self.pools.hash_executor()
         )
         stream = await self.storage.write_stream(req.path)
-        queue: asyncio.Queue = asyncio.Queue(maxsize=1)
+        # One chunk in staging, one being appended, the rest queued.
+        queue: asyncio.Queue = asyncio.Queue(maxsize=max(1, self._stream_inflight - 2))
         end = object()
 
         async def produce() -> None:
             agen = req.buffer_stager.stage_chunks(self.pools.staging_executor())
             try:
-                async for buf in agen:
+                while True:
+                    t0 = time.monotonic()
+                    try:
+                        buf = await agen.__anext__()
+                    except StopAsyncIteration:
+                        break
+                    stream_select.note_stream_stage(self._label, time.monotonic() - t0)
                     await queue.put(buf)
             finally:
                 await agen.aclose()
@@ -188,7 +293,9 @@ class _WritePipeline:
                 if buf is end:
                     return
                 await hasher.feed(buf)
+                t0 = time.monotonic()
                 await stream.append(buf)
+                stream_select.note_streamed(self._label, memoryview(buf).nbytes, time.monotonic() - t0)
 
         tasks = [asyncio.ensure_future(produce()), asyncio.ensure_future(consume())]
         try:
@@ -233,6 +340,8 @@ class _WritePipeline:
             self._engine.intervals["stage"],
             self._engine.intervals["io"],
         )
+        self.drain_stats["bytes_deduped"] = self.bytes_deduped
+        self.drain_stats["objects_linked"] = self.objects_linked
 
 
 class PendingIOWork:
@@ -255,10 +364,13 @@ def sync_execute_write_reqs(
     memory_budget_bytes: int,
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
+    base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
 ) -> PendingIOWork:
     """Run the write pipeline to its capture point; the returned handle
-    finishes the rest (deferred staging and every write)."""
-    pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank)
+    finishes the rest (deferred staging and every write). ``base_loader``
+    returns an incremental take's base as ``(root, {path: record})``, or
+    None to write everything."""
+    pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank, base_loader)
     event_loop.run_until_complete(pipeline.run_until_staged())
     return PendingIOWork(pipeline)
 

@@ -19,14 +19,20 @@ torch dtype. Torch's own sub-byte dtypes (``int4``, ``uint4``,
 ``float4_e2m1fn_x2``, …) have no counterpart in the format and are refused
 on write.
 
-The compressed serializers (``raw_zstd``, ``raw_zlib``) are not handled by
-this package yet: a compressed entry is refused on restore with a clear
-error.
+``raw_zstd`` and ``raw_zlib`` are the raw byte stream compressed, the
+JAX package's codecs byte for byte (``torchsnapshot_tpu/serialization.py``,
+the same libraries and levels). A payload above the frame size is framed:
+independent frames of ``frame_bytes`` raw bytes each, concatenated, with
+their compressed sizes in a ``.ftab`` side object, so a budgeted sub-read
+fetches and decodes only the frames it covers. A compressed slab has one
+frame per member. zstd needs the ``zstandard`` package; zlib is in the
+standard library.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,12 +95,120 @@ _NUMPY_DTYPES = {
 _NUMPY_STRING_OF = {v: k for k, v in _NUMPY_DTYPES.items()}
 
 
-def ensure_uncompressed(serializer: str, where: str) -> None:
-    if serializer in (Serializer.RAW_ZSTD, Serializer.RAW_ZLIB):
-        raise NotImplementedError(
-            f"{where}: entry is compressed ({serializer}); this package "
-            "reads uncompressed snapshots only"
-        )
+# Serializers whose decoded payload is the raw little-endian byte stream.
+RAW_FAMILY = (Serializer.RAW, Serializer.RAW_ZSTD, Serializer.RAW_ZLIB)
+COMPRESSED = (Serializer.RAW_ZSTD, Serializer.RAW_ZLIB)
+
+
+def is_raw_family(serializer: str) -> bool:
+    return serializer in RAW_FAMILY
+
+
+def raw_serializer_for_codec(codec: str) -> str:
+    """The serializer of codec ``none``, ``zstd`` or ``zlib``."""
+    return {"zstd": Serializer.RAW_ZSTD, "zlib": Serializer.RAW_ZLIB}.get(codec, Serializer.RAW)
+
+
+def codec_for_raw_serializer(serializer: str) -> str:
+    return {Serializer.RAW_ZSTD: "zstd", Serializer.RAW_ZLIB: "zlib"}.get(serializer, "none")
+
+
+def ensure_codec_available(serializer: str) -> None:
+    """Raise at read planning when an entry needs a codec this host lacks,
+    rather than mid-pipeline in a consumer thread."""
+    if serializer == Serializer.RAW_ZSTD:
+        try:
+            import zstandard  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "this snapshot's entries are zstd-compressed; restoring "
+                "requires the 'zstandard' package"
+            ) from e
+
+
+def compress_payload(view, serializer: str, level: int):
+    """Compress a raw byte view per ``serializer`` (RAW passes through)."""
+    if serializer == Serializer.RAW_ZSTD:
+        import zstandard
+
+        return zstandard.ZstdCompressor(level=level).compress(view)
+    if serializer == Serializer.RAW_ZLIB:
+        return zlib.compress(view, level)
+    return view
+
+
+def decode_raw_payload(buf, serializer: str):
+    """Undo :func:`compress_payload`: the raw little-endian bytes."""
+    if serializer == Serializer.RAW_ZSTD:
+        import zstandard
+
+        return zstandard.ZstdDecompressor().decompress(memoryview(buf))
+    if serializer == Serializer.RAW_ZLIB:
+        return zlib.decompress(memoryview(buf))
+    return buf
+
+
+def compress_framed(view, serializer: str, level: int, frame_bytes: int) -> Tuple[bytes, List[int]]:
+    """Compress ``view`` as independent frames of ``frame_bytes`` raw bytes
+    each (the last one short). Returns ``(payload, frame_sizes)``: frames
+    [i, j) are bytes ``[prefix[i], prefix[j])`` of the payload."""
+    n = memoryview(view).nbytes
+    full, tail = divmod(n, frame_bytes)
+    member_sizes = [frame_bytes] * full + ([tail] if tail else [])
+    if not member_sizes:
+        return b"", []
+    return compress_member_framed(view, member_sizes, serializer, level)
+
+
+def compress_member_framed(view, member_sizes, serializer: str, level: int) -> Tuple[bytes, List[int]]:
+    """Compress ``view`` with one independent frame per member (member i
+    covers ``member_sizes[i]`` raw bytes), so a member's read decodes its
+    own frame only. Returns ``(payload, frame_sizes)``."""
+    mv = memoryview(view).cast("B")
+    parts = []
+    sizes = []
+    begin = 0
+    for n in member_sizes:
+        frame = compress_payload(mv[begin : begin + n], serializer, level)
+        parts.append(frame)
+        sizes.append(len(frame))
+        begin += n
+    if begin != mv.nbytes:
+        raise ValueError(f"member sizes cover {begin} of {mv.nbytes} bytes")
+    return b"".join(parts), sizes
+
+
+def decode_framed_payload(buf, serializer: str):
+    """Decode a concatenation of frames (zstd and zlib streams end
+    themselves, so no frame table is needed)."""
+    if serializer == Serializer.RAW_ZSTD:
+        import zstandard
+
+        reader = zstandard.ZstdDecompressor().stream_reader(memoryview(buf), read_across_frames=True)
+        return reader.read()
+    if serializer == Serializer.RAW_ZLIB:
+        out = []
+        rest = memoryview(buf)
+        while rest.nbytes:
+            d = zlib.decompressobj()
+            out.append(d.decompress(rest))
+            rest = memoryview(d.unused_data)
+        return b"".join(out)
+    return buf
+
+
+def codec_library_versions() -> Dict[str, str]:
+    """Versions of the codec libraries, recorded in a compressed snapshot's
+    metadata: compressed bytes (and so incremental dedup) are stable only
+    within one library version."""
+    versions = {"zlib": zlib.ZLIB_RUNTIME_VERSION}
+    try:
+        import zstandard
+
+        versions["zstd"] = zstandard.__version__
+    except ImportError:
+        pass
+    return versions
 
 
 def dtype_to_string(dtype: torch.dtype) -> str:

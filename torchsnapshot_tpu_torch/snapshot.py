@@ -21,6 +21,18 @@ leaves no ``.snapshot_metadata``. A restore fills each rank's DTensors from
 the saved bytes that overlap its local shards, whatever the saved world
 size and placements were.
 
+Steady state: a take's plan is fingerprinted (``take_plan.py``); a
+multi-rank take whose every rank holds a plan for its own structure, from
+the same earlier take, replays it with constant store traffic per non-zero
+rank, and a take at world size 1 or on such a hit reuses its prepared
+stagers (``prepare_cache.py``).
+
+Incremental takes (``base=``): an object byte-identical to one of the base
+snapshot (size and sha256 or tree root, from the base's sidecars) is
+hard-linked from the base instead of written; a compressed take writes
+``raw_zlib``/``raw_zstd`` entries (``TSS_TORCH_COMPRESSION``), and restore
+decodes whatever each entry records.
+
 Devices: ``take``/``async_take`` stage CUDA tensors through the CUDA path
 (D2H lanes, kernels K1 and K2); ``restore`` writes into each live tensor's
 own device, and a leaf with no live tensor lands on ``device`` (default
@@ -37,8 +49,10 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import fnmatch
+import hashlib
 import json
 import logging
+import os
 import threading
 import time
 import zlib
@@ -48,9 +62,10 @@ import numpy as np
 import torch
 
 from . import d2h
+from . import prepare_cache
 from .batcher import batch_read_requests, batch_write_requests
 from .flatten import flatten, inflate
-from .hashing import record_crc
+from .hashing import record_content_keys, record_crc
 from .io_preparer import (
     cuda_source,
     is_dtensor,
@@ -58,7 +73,7 @@ from .io_preparer import (
     capture_flattened,
     prepare_write,
 )
-from .io_preparers.array import ArrayIOPreparer, PickledArrayConsumer
+from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayIOPreparer, PickledArrayConsumer
 from .io_preparers.chunked_array import ChunkedArrayIOPreparer
 from .io_preparers.object import ObjectIOPreparer
 from .io_preparers.sharded_array import (
@@ -66,6 +81,7 @@ from .io_preparers.sharded_array import (
     alloc_target_shards,
     assemble_dtensor,
     dtensor_leaf,
+    overlap,
 )
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO
 from .manifest import (
@@ -86,7 +102,11 @@ from .manifest import (
 )
 from .parallel.coordinator import Coordinator, get_coordinator
 from .parallel.store import BarrierError, LinearBarrier
-from .partitioner import consolidate_replicated_entries, partition_write_reqs_with_assignment
+from .partitioner import (
+    CodecDivergenceError,
+    consolidate_replicated_entries,
+    partition_write_reqs_with_assignment,
+)
 from .rng_state import RNGState
 from .scheduler import (
     CHECKSUM_FILE_PREFIX,
@@ -98,12 +118,23 @@ from .scheduler import (
 from .serialization import (
     BYTE_VIEW_DTYPES,
     Serializer,
-    ensure_uncompressed,
+    array_nbytes,
+    codec_library_versions,
+    is_raw_family,
     numpy_dtype_to_string,
     string_to_dtype,
 )
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
+from .take_plan import (
+    CachedPlan,
+    TakePlan,
+    compute_fingerprint,
+    gather_manifest_delta,
+    preflight,
+    probe_plan,
+    store_plan,
+)
 from .utils import knobs
 from .version import __version__
 
@@ -112,6 +143,12 @@ logger = logging.getLogger(__name__)
 # Wall seconds of the planning phases of this process's last take or
 # async_take (the async stall is their sum), for diagnostics.
 LAST_TAKE_PHASES: Dict[str, float] = {}
+# Whether this process's last take hit the plan cache and the
+# prepared-take cache.
+LAST_TAKE_CACHE: Dict[str, bool] = {}
+# Drain stats of this process's last sync take (see
+# PendingSnapshot.drain_stats).
+LAST_SYNC_DRAIN_STATS: Dict[str, float] = {}
 
 
 class CheckpointAbortedError(RuntimeError):
@@ -198,22 +235,31 @@ class Snapshot:
         app_state: AppState,
         coordinator: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
+        base: Optional[str] = None,
     ) -> "Snapshot":
         """Write ``app_state`` to ``path`` and return when it is committed.
         ``replicated``: globs of logical paths whose plain tensors hold the
-        same value on every rank (DDP state); they are written once."""
+        same value on every rank (DDP state); they are written once.
+        ``base``: an earlier snapshot to take incrementally against: each
+        object byte-identical to one of the base's (size and sha256 or
+        tree root from its sidecars) is hard-linked instead of rewritten,
+        and any failure falls back to the write. The links share inodes,
+        so the base may be deleted later. Near-free checkpoints when most
+        state is frozen (partial fine-tunes, embedding-heavy models)."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
+        plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+        path = plan.path
         barrier = cls._barrier(coord, "commit", path)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path)
         phase = ["plan"]
         try:
-            pending, metadata = cls._take_impl(
-                path, app_state, replicated or [], coord, storage, event_loop, False, phase
-            )
+            pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
             pending.sync_complete(event_loop)
+            LAST_SYNC_DRAIN_STATS.clear()
+            LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
             phase[0] = "commit"
             _commit(barrier, rank, metadata, storage, event_loop)
             if barrier is not None:
@@ -226,6 +272,7 @@ class Snapshot:
                 raise
             raise aborted from e
         finally:
+            prepare_cache.release(plan.prepared_entry)
             storage.sync_close(event_loop)
             event_loop.close()
         snapshot = cls(path, coordinator)
@@ -239,24 +286,27 @@ class Snapshot:
         app_state: AppState,
         coordinator: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
+        base: Optional[str] = None,
     ) -> "PendingSnapshot":
         """Return once the state is captured: CUDA tensors and the local
         shards of DTensors forked on the card (K2), CPU tensors and objects
         copied into private buffers. The caller may then mutate every
         tensor in place; the transfer, the writes and the commit run on a
-        background thread."""
+        background thread (for ``base=``, the base's digests load there
+        too)."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
+        plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+        path = plan.path
         barrier = cls._barrier(coord, "async_commit", path)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(path)
         phase = ["plan"]
         try:
-            pending, metadata = cls._take_impl(
-                path, app_state, replicated or [], coord, storage, event_loop, True, phase
-            )
+            pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
         except BaseException as e:
+            prepare_cache.release(plan.prepared_entry)
             storage.sync_close(event_loop)
             event_loop.close()
             if barrier is None:
@@ -266,23 +316,25 @@ class Snapshot:
             if aborted is e:
                 raise
             raise aborted from e
-        return PendingSnapshot(path, pending, metadata, storage, event_loop, coord, barrier)
+        return PendingSnapshot(
+            path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry
+        )
 
     @classmethod
-    def _take_impl(
+    def _plan_take(
         cls,
         path: str,
         app_state: AppState,
-        replicated: List[str],
         coord: Coordinator,
-        storage: StoragePlugin,
-        event_loop: asyncio.AbstractEventLoop,
-        is_async: bool,
-        phase_out: List[str],
-    ) -> Tuple[PendingIOWork, SnapshotMetadata]:
-        """Plan the take and run its pipeline to the capture point;
-        ``phase_out[0]`` says how far it got ("plan", then "write")."""
-        rank, world_size = coord.get_rank(), coord.get_world_size()
+        replicated: List[str],
+        base: Optional[str],
+    ) -> TakePlan:
+        """Flatten this rank's state, fingerprint its structure and run the
+        preflight round that canonicalises path, base and globs and decides
+        the plan-cache hit (``take_plan.py``). At world size > 1 a failure
+        here is kept for the collective report; the rank still takes part
+        in the preflight (as a miss)."""
+        world_size = coord.get_world_size()
         phases: Dict[str, float] = {}
         t0 = time.monotonic()
 
@@ -298,65 +350,301 @@ class Snapshot:
         rng_states = {
             k: (s, s.state_dict()) for k, s in app_state.items() if isinstance(s, RNGState)
         }
+        manifest: Manifest = {}
+        flattened: Dict[str, Any] = {}
+        fingerprint = ""
+        cached: Optional[CachedPlan] = None
         failure: Optional[Exception] = None
         try:
-            manifest: Manifest = {}
-            flattened: Dict[str, Any] = {}
             for key in sorted(app_state):
                 sd = rng_states[key][1] if key in rng_states else app_state[key].state_dict()
                 m, f = flatten(sd, prefix=key)
                 manifest.update(m)
                 flattened.update(f)
             flattened = as_leaves(flattened)
-            replicated_paths = {
-                p for p in flattened if any(fnmatch.fnmatch(p, g) for g in replicated)
-            }
             phase("flatten")
+            plan_cache_on = world_size > 1 and knobs.is_plan_cache_enabled()
+            if plan_cache_on or knobs.is_prepared_cache_enabled():
+                fingerprint = compute_fingerprint(flattened, world_size, replicated)
+                cached = probe_plan(coord, fingerprint) if plan_cache_on else None
+            phase("fingerprint")
+        except Exception as e:
+            if world_size == 1:
+                raise
+            failure, cached = e, None
+        # SPMD take counter: its value certifies "stored by take #N".
+        coord._take_seq = getattr(coord, "_take_seq", 0) + 1  # type: ignore[attr-defined]
+        keys_sig = hashlib.sha1("\x00".join(sorted(app_state)).encode()).hexdigest()[:12]
+        pf = preflight(
+            coord, path, base, replicated, cached.token if cached is not None else None, keys_sig
+        )
+        phase("preflight")
+        return TakePlan(
+            path=pf.path,
+            base=pf.base,
+            replicated_globs=pf.replicated_globs,
+            flattened=flattened,
+            manifest=manifest,
+            rng_states=rng_states,
+            fingerprint=fingerprint,
+            cache_hit=pf.hit,
+            cached=cached if pf.hit else None,
+            failure=failure,
+            phases=phases,
+        )
+
+    @classmethod
+    def _take_impl(
+        cls,
+        plan: TakePlan,
+        coord: Coordinator,
+        storage: StoragePlugin,
+        event_loop: asyncio.AbstractEventLoop,
+        is_async: bool,
+        phase_out: List[str],
+    ) -> Tuple[PendingIOWork, Optional[SnapshotMetadata]]:
+        """Prepare the take and run its pipeline to the capture point;
+        ``phase_out[0]`` says how far it got ("plan", then "write"). The
+        metadata is None on a non-zero rank of a plan-cache hit (only rank
+        0 gathers the manifest then)."""
+        rank, world_size = coord.get_rank(), coord.get_world_size()
+        path = plan.path
+        phases = dict(plan.phases)
+        t0 = time.monotonic()
+
+        def phase(name: str) -> None:
+            nonlocal t0
+            t1 = time.monotonic()
+            phases[name] = t1 - t0
+            t0 = t1
+
+        manifest: Manifest = dict(plan.manifest)
+        failure = plan.failure
+        prep_key = None
+        prepared = None
+        leaf_index: Optional[Dict[str, List[Any]]] = None
+        write_reqs: List[Any] = []
+        assignment: Dict[str, int] = {}
+        codec_versions = None
+
+        def partition_and_batch(cached_assignment: Optional[Dict[str, int]]) -> None:
+            """Partition (replaying ``cached_assignment`` when given: no
+            collective), batch, and cache the prepared take."""
+            nonlocal write_reqs, assignment
+            write_reqs, assignment = partition_write_reqs_with_assignment(
+                manifest, write_reqs, coord, cached_assignment
+            )
+            if knobs.is_batching_enabled():
+                write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
+            if prep_key is not None:
+                entry = prepare_cache.PreparedTake(
+                    key=prep_key,
+                    leaf_kinds={
+                        p: prepare_cache.leaf_signature(v, world_size, p in captured)
+                        for p, v in flattened.items()
+                    },
+                    leaf_index=leaf_index or {},
+                    local_manifest=local_manifest,
+                    write_reqs=write_reqs,
+                    assignment=assignment,
+                )
+                prepare_cache.store(coord, prep_key, entry)
+                plan.prepared_entry = entry
+
+        try:
+            if failure is not None:
+                raise failure
+            if knobs.get_compression() != "none":
+                codec_versions = codec_library_versions()
+            replicated_paths = {
+                p for p in plan.flattened if any(fnmatch.fnmatch(p, g) for g in plan.replicated_globs)
+            }
             if is_async:
-                flattened, captured, ready = capture_flattened(flattened)
+                flattened, captured, ready = capture_flattened(plan.flattened)
             else:
-                captured = set()
+                flattened, captured = plan.flattened, set()
                 sources = [cuda_source(v) for v in flattened.values()]
                 devices = {t.device for t in sources if t is not None}
                 ready = {dev: d2h.ready_event(dev) for dev in devices}
             phase("capture")
-            local_manifest, write_reqs = prepare_write(
-                flattened, rank, world_size, replicated_paths, is_async, ready, captured
-            )
+            # The prepared-take cache engages only where its miss path has
+            # no collective: world size 1, or a certified plan-cache hit
+            # (whose replayed assignment makes the partition local). Never
+            # with base=: dedup is a function of the bytes, not the
+            # structure, and slab paths must stay fresh per take.
+            if (
+                plan.fingerprint
+                and plan.base is None
+                and knobs.is_prepared_cache_enabled()
+                and (world_size == 1 or plan.cache_hit)
+            ):
+                prep_key = (plan.fingerprint, type(storage).__name__, is_async)
+                prepared = prepare_cache.acquire(coord, prep_key)
+                plan.prepared_entry = prepared
+            if prepared is not None:
+                try:
+                    local_manifest, write_reqs, assignment = prepared.rebind(
+                        flattened, world_size, captured, ready
+                    )
+                except prepare_cache.RebindMismatch:
+                    logger.warning("prepared-take rebind mismatch for %s; re-preparing", path, exc_info=True)
+                    prepare_cache.release(prepared)
+                    prepare_cache.invalidate(coord, prep_key)
+                    plan.prepared_entry = prepared = None
+            if prepared is None:
+                leaf_index = {} if prep_key is not None else None
+                local_manifest, write_reqs = prepare_write(
+                    flattened, rank, world_size, replicated_paths, is_async, ready, captured, leaf_index
+                )
             manifest.update(local_manifest)
+            if plan.cache_hit and prepared is None:
+                partition_and_batch(plan.cached.assignment)
+            phase("prepare")
         except Exception as e:
             if world_size == 1:
                 raise
             failure = e
-        if world_size > 1:
-            # Every rank learns of a planning failure anywhere before any
-            # rank waits on the failed one's manifest.
-            statuses = coord.all_gather_object(None if failure is None else repr(failure))
-            failed = [r for r, st in enumerate(statuses) if st is not None]
-            if failed:
-                detail = statuses[failed[0]]
-                raise CheckpointAbortedError(path, failed[0], "plan", detail) from (
-                    failure if failure is not None else RuntimeError(detail)
+        if plan.cache_hit:
+            status = None if failure is None else repr(failure)
+            global_manifest, outcome = gather_manifest_delta(manifest, coord, plan.cached, status)
+            if outcome is not None:
+                raise CheckpointAbortedError(path, outcome[0], "plan", outcome[1]) from (
+                    failure if failure is not None else RuntimeError(outcome[1])
                 )
-        write_reqs, _ = partition_write_reqs_with_assignment(manifest, write_reqs, coord)
-        if knobs.is_batching_enabled():
-            write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
-        metadata = SnapshotMetadata(
-            version=__version__,
-            world_size=world_size,
-            manifest=_gather_manifest(manifest, coord),
-        )
+        else:
+            if world_size > 1:
+                # Every rank learns of a planning failure anywhere before
+                # any rank waits on the failed one's manifest.
+                statuses = coord.all_gather_object(None if failure is None else repr(failure))
+                failed = [r for r, st in enumerate(statuses) if st is not None]
+                if failed:
+                    detail = statuses[failed[0]]
+                    raise CheckpointAbortedError(path, failed[0], "plan", detail) from (
+                        failure if failure is not None else RuntimeError(detail)
+                    )
+            if prepared is None:
+                try:
+                    partition_and_batch(None)
+                except CodecDivergenceError as e:
+                    if rank in e.ranks:
+                        raise
+                    raise CheckpointAbortedError(path, e.ranks[0], "plan", str(e)) from None
+            global_manifest, local_dicts, gathered_dicts = _gather_manifest(manifest, coord)
+            if world_size > 1 and knobs.is_plan_cache_enabled():
+                store_plan(
+                    coord,
+                    plan.fingerprint,
+                    CachedPlan(
+                        token=coord._take_seq,  # type: ignore[attr-defined]
+                        assignment=assignment,
+                        local_entry_dicts=local_dicts,
+                        gathered_entry_dicts=gathered_dicts if rank == 0 else None,
+                    ),
+                )
+        metadata = None
+        if global_manifest is not None:
+            metadata = SnapshotMetadata(
+                version=__version__,
+                world_size=world_size,
+                manifest=global_manifest,
+                codec_versions=codec_versions,
+            )
+        LAST_TAKE_CACHE.clear()
+        LAST_TAKE_CACHE.update(plan_cache_hit=plan.cache_hit, prepared_cache_hit=prepared is not None)
         phase("plan")
         phase_out[0] = "write"
+        base = plan.base
+        if base and not knobs.is_dedup_digests_enabled(has_base=True):
+            logger.warning(
+                "base=%s ignored: incremental dedup needs dedup digests "
+                "(TSS_TORCH_DEDUP_DIGESTS is off); taking a full snapshot",
+                base,
+            )
+            base = None
+        base_loader = None
+        if base:
+            # Resolved on the pipeline (an async take's background drain),
+            # so reading the base never lengthens the stall.
+            def base_loader(base=base):
+                try:
+                    return cls._load_base_digests(base)
+                except Exception:  # noqa: BLE001 - never abort a take over its base
+                    logger.warning("base=%s digest load failed; taking a full snapshot", base, exc_info=True)
+                    return None
+
         pending = sync_execute_write_reqs(
-            write_reqs, storage, knobs.get_memory_budget_bytes(), rank, event_loop
+            write_reqs, storage, knobs.get_memory_budget_bytes(), rank, event_loop, base_loader
         )
-        for stateful, state in rng_states.values():
-            stateful.load_state_dict(state)
         phase("stage_until_capture_point")
+        for stateful, state in plan.rng_states.values():
+            stateful.load_state_dict(state)
+        phase("rng_restore")
         LAST_TAKE_PHASES.clear()
         LAST_TAKE_PHASES.update(phases)
         return pending, metadata
+
+    @classmethod
+    def _load_base_digests(cls, base: str) -> Optional[Tuple[str, Dict[str, Any]]]:
+        """``(base root, {storage path: sidecar record})`` of the base's
+        objects that carry a content identity, or None when the base
+        cannot serve (uncommitted, unusable, no sha256 recorded); the take
+        then writes everything."""
+        root = base[len("fs://") :] if base.startswith("fs://") else base
+        if "://" not in root:
+            root = os.path.abspath(root)
+        event_loop = asyncio.new_event_loop()
+        try:
+            try:
+                storage = url_to_storage_plugin(base)
+            except Exception:  # noqa: BLE001 - an unusable base never aborts the take
+                logger.warning("base=%s is unusable; taking a full snapshot", base, exc_info=True)
+                return None
+            try:
+                try:
+                    metadata = cls(base)._read_metadata(storage, event_loop)
+                except Exception:  # noqa: BLE001
+                    logger.warning("base=%s has no committed metadata; taking a full snapshot", base)
+                    return None
+                codec = knobs.get_compression()
+                if codec != "none" and metadata.codec_versions:
+                    # Compressed bytes are stable only within one library
+                    # version; a change makes dedup miss silently.
+                    recorded = metadata.codec_versions.get(codec)
+                    current = codec_library_versions().get(codec)
+                    if recorded is not None and recorded != current:
+                        logger.warning(
+                            "base=%s compressed its objects with %s %s but this take "
+                            "uses %s; byte-identical dedup will likely miss every "
+                            "compressed object",
+                            base, codec, recorded, current,
+                        )
+                merged, unreadable = _read_checksum_sidecars(storage, metadata.world_size, event_loop)
+                if unreadable:
+                    logger.warning(
+                        "base=%s: checksum sidecars unreadable (%s); objects recorded "
+                        "only there will be rewritten",
+                        base, unreadable,
+                    )
+                digests = {k: v for k, v in merged.items() if record_content_keys(v)}
+                if digests and len(digests) < len(merged):
+                    logger.warning(
+                        "base=%s: %d of %d objects carry no sha256 dedup identity and "
+                        "will be rewritten (pin TSS_TORCH_DEDUP_DIGESTS=1 on every host)",
+                        base, len(merged) - len(digests), len(merged),
+                    )
+                if not digests:
+                    logger.warning(
+                        "base=%s carries no sha256 dedup identities (its take ran with "
+                        "dedup digests off); taking a full snapshot. Pin "
+                        "TSS_TORCH_DEDUP_DIGESTS=1 for every take of an incremental chain",
+                        base,
+                    )
+                    return None
+                return root, digests
+            finally:
+                storage.sync_close(event_loop)
+        finally:
+            event_loop.close()
 
     # --------------------------------------------------------------- restore
     def restore(
@@ -434,10 +722,18 @@ class Snapshot:
         h2d = d2h.HostToDevice()
         read_reqs: List[ReadReq] = []
         finalizers: List[Callable[[], None]] = []
+        frame_tables = _fetch_frame_tables(
+            [(e, live.get(p)) for p, e in scoped.items() if not is_container_entry(e)],
+            storage,
+            event_loop,
+            budget,
+        )
         for p, entry in scoped.items():
             if is_container_entry(entry):
                 continue
-            reqs, fin = _prepare_restore_one(p, entry, live.get(p), loaded, device, budget, h2d)
+            reqs, fin = _prepare_restore_one(
+                p, entry, live.get(p), loaded, device, budget, h2d, frame_tables
+            )
             read_reqs.extend(reqs)
             if fin is not None:
                 finalizers.append(fin)
@@ -496,14 +792,9 @@ class Snapshot:
         storage = url_to_storage_plugin(self.path)
         try:
             metadata = self._read_metadata(storage, event_loop)
-            expected: Dict[str, Any] = {}
-            for rank in range(metadata.world_size):
-                read_io = ReadIO(path=f"{CHECKSUM_FILE_PREFIX}{rank}")
-                try:
-                    storage.sync_read(read_io, event_loop)
-                except FileNotFoundError:
-                    continue
-                expected.update(json.loads(bytes(read_io.buf).decode()))
+            expected, unreadable = _read_checksum_sidecars(storage, metadata.world_size, event_loop)
+            if unreadable:
+                raise RuntimeError(f"checksum sidecars unreadable: {unreadable}")
             locations = _manifest_storage_locations(metadata.manifest)
             if not expected:
                 if not locations:
@@ -602,19 +893,43 @@ def _commit(
         barrier.depart()
 
 
-def _gather_manifest(manifest: Manifest, coord: Coordinator) -> Manifest:
+def _gather_manifest(
+    manifest: Manifest, coord: Coordinator
+) -> Tuple[Manifest, Dict[str, dict], Optional[List[Dict[str, dict]]]]:
     """The global ``"<rank>/<logical_path>" -> Entry`` manifest, on every
-    rank (one all_gather of the per-rank manifests). Replicated entries
+    rank (one all_gather of the per-rank manifests), with this rank's and
+    every rank's entry dicts (a plan-cache baseline). Replicated entries
     that slab batching relocated on their writer are made consistent."""
     if coord.get_world_size() == 1:
-        return {f"0/{p}": e for p, e in manifest.items()}
-    gathered = coord.all_gather_object({p: entry_to_dict(e) for p, e in manifest.items()})
+        return {f"0/{p}": e for p, e in manifest.items()}, {}, None
+    local = {p: entry_to_dict(e) for p, e in manifest.items()}
+    gathered = coord.all_gather_object(local)
     global_manifest: Manifest = {}
     for r, m in enumerate(gathered):
         for p, d in m.items():
             global_manifest[f"{r}/{p}"] = entry_from_dict(d)
     consolidate_replicated_entries(global_manifest)
-    return global_manifest
+    return global_manifest, local, gathered
+
+
+def _read_checksum_sidecars(
+    storage: StoragePlugin, world_size: int, event_loop: asyncio.AbstractEventLoop
+) -> Tuple[Dict[str, Any], Dict[int, str]]:
+    """Every rank's ``.checksums.<rank>`` merged, and the ranks whose
+    sidecar exists but could not be read (a missing one is no error: that
+    rank wrote nothing)."""
+    merged: Dict[str, Any] = {}
+    unreadable: Dict[int, str] = {}
+    for rank in range(world_size):
+        read_io = ReadIO(path=f"{CHECKSUM_FILE_PREFIX}{rank}")
+        try:
+            storage.sync_read(read_io, event_loop)
+            merged.update(json.loads(bytes(read_io.buf).decode()))
+        except FileNotFoundError:
+            continue
+        except Exception as e:  # noqa: BLE001 - reported to the caller
+            unreadable[rank] = repr(e)
+    return merged, unreadable
 
 
 def _manifest_storage_locations(manifest: Manifest) -> Set[str]:
@@ -635,6 +950,93 @@ def _manifest_storage_locations(manifest: Manifest) -> Set[str]:
 # ---------------------------------------------------------------------------
 
 
+def _wanted_framed_locations(entry: Entry, live: Any, budget: Optional[int]) -> List[str]:
+    """Locations under ``entry`` whose ``.ftab`` this restore needs:
+    compressed slab members (``raw_range``: the table is how a member's
+    bytes are found) and framed payloads above the budget (sub-read by
+    frame groups). A sharded entry's shards count only where they overlap
+    the live DTensor's local shard, when there is one."""
+
+    def wanted(sub: ArrayEntry) -> bool:
+        if sub.raw_range is not None:
+            return True
+        return bool(
+            budget is not None
+            and sub.frame_bytes
+            and array_nbytes(sub.shape, sub.dtype) > budget
+        )
+
+    out: List[str] = []
+    if isinstance(entry, ArrayEntry) and wanted(entry):
+        out.append(entry.location)
+    for chunk in getattr(entry, "chunks", None) or []:
+        if wanted(chunk.tensor):
+            out.append(chunk.tensor.location)
+    shards = getattr(entry, "shards", None) or []
+    if shards:
+        targets = None
+        if is_dtensor(live):
+            targets = [(o, z) for _t, o, z in alloc_target_shards(dtensor_leaf(live)).values()]
+        for shard in shards:
+            if not wanted(shard.tensor):
+                continue
+            if targets is not None and not any(
+                overlap(shard.offsets, shard.sizes, o, z) is not None for o, z in targets
+            ):
+                continue
+            out.append(shard.tensor.location)
+    return out
+
+
+def _fetch_frame_tables(
+    entry_live_pairs: List[Tuple[Entry, Any]],
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    budget: Optional[int],
+) -> Dict[str, Any]:
+    """The ``.ftab`` tables a restore needs, by payload location: a
+    compressed slab's ``{"sizes", "raw_sizes"}``, a framed payload's frame
+    sizes. A missing or unreadable table degrades to whole-object reads,
+    with a warning, never to a failed restore."""
+    locations: Dict[str, None] = {}
+    for entry, live in entry_live_pairs:
+        for loc in _wanted_framed_locations(entry, live, budget):
+            locations[loc] = None
+    tables: Dict[str, Any] = {}
+    if not locations:
+        return tables
+
+    async def fetch_one(loc: str) -> None:
+        read_io = ReadIO(path=loc + FRAME_TABLE_SUFFIX)
+        try:
+            await storage.read(read_io)
+            parsed = json.loads(bytes(read_io.buf).decode())
+            if parsed.get("member_framed"):
+                tables[loc] = {
+                    "sizes": [int(x) for x in parsed["sizes"]],
+                    "raw_sizes": [int(x) for x in parsed["raw_sizes"]],
+                }
+            else:
+                tables[loc] = [int(x) for x in parsed["sizes"]]
+        except Exception:  # noqa: BLE001 - degrade, don't fail
+            logger.warning(
+                "frame table %s%s unreadable; reading the whole object",
+                loc, FRAME_TABLE_SUFFIX, exc_info=True,
+            )
+
+    async def fetch_all() -> None:
+        sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+
+        async def bounded(loc: str) -> None:
+            async with sem:
+                await fetch_one(loc)
+
+        await asyncio.gather(*(bounded(loc) for loc in locations))
+
+    event_loop.run_until_complete(fetch_all())
+    return tables
+
+
 def _prepare_restore_one(
     logical_path: str,
     entry: Entry,
@@ -643,15 +1045,17 @@ def _prepare_restore_one(
     device: Any,
     buffer_size_limit_bytes: int,
     h2d: d2h.HostToDevice,
+    frame_tables: Optional[Dict[str, Any]] = None,
 ) -> Tuple[List[ReadReq], Optional[Callable[[], None]]]:
     """Plan the reads of one entry; returns (read_reqs, finalizer). The
     finalizer (run after every read) moves a filled host buffer onto its
-    CUDA device."""
+    CUDA device. A compressed entry is decoded into that host buffer."""
+    frame_tables = frame_tables or {}
     if isinstance(entry, ShardedArrayEntry) or (
         is_dtensor(live) and isinstance(entry, (ArrayEntry, ChunkedArrayEntry))
     ):
         return _prepare_sharded_restore(
-            logical_path, entry, live, loaded, device, buffer_size_limit_bytes, h2d
+            logical_path, entry, live, loaded, device, buffer_size_limit_bytes, h2d, frame_tables
         ), None
     if isinstance(entry, PrimitiveEntry):
         loaded[logical_path] = entry.get_value()
@@ -678,7 +1082,6 @@ def _prepare_restore_one(
                 byte_range=tuple(entry.byte_range) if entry.byte_range else None,
             )
         ], None
-    ensure_uncompressed(first.serializer, logical_path)
     if entry.dtype in BYTE_VIEW_DTYPES:
         logger.warning(
             "%s: dtype %s has no torch counterpart; restored as uint8 "
@@ -718,9 +1121,11 @@ def _prepare_restore_one(
             loaded[logical_path] = host
         target = host.reshape(-1).view(torch.uint8).numpy()
     if isinstance(entry, ChunkedArrayEntry):
-        reqs = ChunkedArrayIOPreparer.prepare_read(entry, target, buffer_size_limit_bytes)
+        reqs = ChunkedArrayIOPreparer.prepare_read(entry, target, buffer_size_limit_bytes, frame_tables)
     else:
-        reqs = ArrayIOPreparer.prepare_read(entry, target, 0, buffer_size_limit_bytes)
+        reqs = ArrayIOPreparer.prepare_read(
+            entry, target, 0, buffer_size_limit_bytes, frame_tables.get(entry.location)
+        )
     return reqs, finalize
 
 
@@ -734,7 +1139,7 @@ def _as_sharded(logical_path: str, entry: Entry) -> ShardedArrayEntry:
     else:
         shards = [Shard([0] * len(entry.shape), entry.shape, entry)]
     for shard in shards:
-        if shard.tensor.serializer != Serializer.RAW:
+        if not is_raw_family(shard.tensor.serializer):
             raise NotImplementedError(
                 f"{logical_path}: a {shard.tensor.serializer} entry cannot fill a DTensor"
             )
@@ -749,6 +1154,7 @@ def _prepare_sharded_restore(
     device: Any,
     buffer_size_limit_bytes: int,
     h2d: d2h.HostToDevice,
+    frame_tables: Dict[str, Any],
 ) -> List[ReadReq]:
     """Reads that fill, from the saved shards that overlap it, each target:
     the local shard of a live DTensor (in place), else the live tensor or a
@@ -787,7 +1193,9 @@ def _prepare_sharded_restore(
     for t, _, _ in targets:
         if t.device.type == "cuda":
             h2d.stream(t.device)  # on this (the caller's) thread
-    return ShardedArrayIOPreparer.prepare_read(saved, targets, buffer_size_limit_bytes, None, h2d)
+    return ShardedArrayIOPreparer.prepare_read(
+        saved, targets, buffer_size_limit_bytes, None, h2d, frame_tables
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -810,12 +1218,15 @@ class PendingSnapshot:
         event_loop: asyncio.AbstractEventLoop,
         coord: Coordinator,
         barrier: Optional[LinearBarrier],
+        prepared_entry: Optional[prepare_cache.PreparedTake] = None,
     ) -> None:
         self.path = path
         self._pending_io_work = pending_io_work
         self._metadata = metadata
         self._coord = coord
         self._barrier = barrier
+        # Released (its stagers unbound) once the drain ends, either way.
+        self._prepared_entry = prepared_entry
         self._exc: Optional[BaseException] = None
         self._phase = "write"
         self._done = threading.Event()
@@ -843,6 +1254,8 @@ class PendingSnapshot:
             self._exc = e
         finally:
             try:
+                prepare_cache.release(self._prepared_entry)
+                self._prepared_entry = None
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
@@ -868,6 +1281,7 @@ class PendingSnapshot:
 
     @property
     def drain_stats(self) -> Dict[str, float]:
-        """Overlap accounting of the background drain (empty until it
-        ends): wall_s, stage_busy_s, io_busy_s, overlap_s, idle_s."""
+        """Accounting of the background drain (empty until it ends):
+        wall_s, stage_busy_s, io_busy_s, overlap_s, idle_s, and for an
+        incremental take bytes_deduped and objects_linked."""
         return self._pending_io_work.drain_stats

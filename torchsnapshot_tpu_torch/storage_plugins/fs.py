@@ -4,7 +4,8 @@ Crash-safe: every object is written to ``<path>.tmp.<id>`` and renamed into
 place, so a crash mid-write never leaves a truncated object under its real
 name. Plain buffered I/O on a thread pool (the JAX package's O_DIRECT
 engine is not ported; its ``DISABLE_NATIVE_IO`` path writes the same
-bytes as this one).
+bytes as this one). An incremental take links unchanged objects of its
+base in with hard links (:meth:`FSStoragePlugin.link_in`).
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ class _FSWriteStream(StorageWriteStream):
 
 
 class FSStoragePlugin(StoragePlugin):
+    supports_streaming = True
+
     def __init__(self, root: str) -> None:
         self.root = root
         self._executor: Optional[ThreadPoolExecutor] = None
@@ -111,6 +114,29 @@ class FSStoragePlugin(StoragePlugin):
 
     async def delete(self, path: str) -> None:
         await self._run(os.remove, self._abs(path))
+
+    async def link_in(self, src_abs_path: str, path: str) -> bool:
+        """Hard-link ``src_abs_path`` to ``path``, atomically through a
+        temporary name. Fails soft: a cross-device link, a deleted base or
+        a filesystem without hard links returns False and the caller
+        writes the bytes. The link shares the inode, so deleting the base
+        later leaves this snapshot whole."""
+        return await self._run(self._link_in_inner, src_abs_path, path)
+
+    def _link_in_inner(self, src_abs_path: str, path: str) -> bool:
+        dst = self._abs(path)
+        tmp = _tmp_name(dst)
+        try:
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            os.link(src_abs_path, tmp)
+            os.replace(tmp, dst)
+            return True
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return False
 
     async def close(self) -> None:
         if self._executor is not None:

@@ -64,6 +64,22 @@ on-disk bytes and rates, each take's streaming decision and scorecard
 (``TSS_TORCH_STREAM_WRITES=auto``), device memory around each take, and the
 launches. The phase runs again with zstd in place of zlib when
 ``zstandard`` imports. Phase 4 prints its takes' streaming decisions too.
+Phase 0 also builds the native O_DIRECT I/O engine (``g++``, beside the
+kernels' ``nvcc``) and fails if it does not load.
+Phase 6 drives a serving fleet: two ranks on the one card (gloo) each hold
+phase 4's transformer weights (3.75 GB, no optimizer), taken once with
+``replicated=["**"]`` and batching on (K1), then restored bit-exactly into
+a fresh model directly, by broadcast, by swarm (the broadcast cap lowered
+to 1 byte, since no object of this model exceeds 256 MiB), twice through a
+read cache (the second reads 0 origin bytes), with ``VERIFY_READS=all``,
+and lazily for one block (the bytes read equal the block's); phase 3's TP
+state, taken without slabs, is restored with swapped placements through
+the need-aware swarm (K3, at most 1.1x one copy from the origin). The
+parent then scrubs the served snapshot, scrubs and repairs a copy with one
+flipped byte (the object is quarantined and a restore of the copy raises),
+and runs phase 2's sync take and restore with the native engine on, off
+and on, printing its direct/buffered counts and the temp root's file
+system. It prints origin, peer and cache bytes per rank and the rates.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -801,6 +817,370 @@ def phase5(seed, device, root, card):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: a serving fleet restoring from one snapshot
+# ---------------------------------------------------------------------------
+
+SERVE_CFG = dict(vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512)
+SERVE_BLOCK = "model/block_3.*"  # the lazy restore's subtree
+
+
+def _fresh_model(cfg, device):
+    """An all-zero Transformer on ``device``, without a random init."""
+    from torchsnapshot_tpu_torch.models.transformer import Transformer
+
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model.to_empty(device=device)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            t.zero_()
+    return model
+
+
+def _set_env(env):
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+_SERVE_MODES = {
+    "direct": {"TSS_TORCH_BCAST_RESTORE": "0", "TSS_TORCH_SWARM_RESTORE": "0", "TSS_TORCH_BCAST_MAX_BYTES": None},
+    "bcast": {"TSS_TORCH_BCAST_RESTORE": "1", "TSS_TORCH_SWARM_RESTORE": "0", "TSS_TORCH_BCAST_MAX_BYTES": None},
+    # Every object of this model is under the 256 MiB broadcast cap, so
+    # the swarm leg lowers the cap to 1 byte: it then takes every object
+    # with a v2 chunk grid.
+    "swarm": {"TSS_TORCH_BCAST_RESTORE": "0", "TSS_TORCH_SWARM_RESTORE": "1", "TSS_TORCH_BCAST_MAX_BYTES": "1"},
+}
+
+
+def phase6_worker(rank, world_size, seed, root, out_dir):
+    """One serving rank: restores of the served snapshot in every mode, then
+    the need-aware swarm reshard of phase 3's TP state. Writes its numbers
+    to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    cfg = TransformerConfig(**SERVE_CFG)
+    result = {"rank": rank, "launches": {}, "restores": {}}
+    model = init_params(cfg, seed=seed, device=device)
+    ref = model.state_dict()
+    nbytes = sum(t.numel() * t.element_size() for t in ref.values())
+    result["state_bytes"] = nbytes
+    result["n_tensors"] = len(ref)
+    path = os.path.join(root, "serve")
+
+    def drive(label, fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        result["launches"][label] = dict(kernels.LAUNCHES)
+        return out, wall
+
+    _, take_s = drive("take", lambda: tts.Snapshot.take(path, {"model": model}, replicated=["**"]))
+    if result["launches"]["take"]["pack_slab"] < 1:
+        raise AssertionError(f"phase6: the take of the served snapshot did not launch K1: {result['launches']['take']}")
+    result["take_gbps"] = nbytes / take_s / 1e9
+    if rank == 0:
+        sizes = {}
+        for e in tts.Snapshot(path).get_manifest().values():
+            loc = getattr(e, "location", None)
+            if loc:
+                sizes[loc] = max(sizes.get(loc, 0), os.path.getsize(os.path.join(path, loc)))
+        result["objects"] = len(sizes)
+        result["largest_objects"] = sorted(sizes.items(), key=lambda kv: -kv[1])[:4]
+
+    def restore(label, env, include=None):
+        _set_env(env)
+        target = _fresh_model(cfg, device)
+        _, wall = drive(label, lambda: tts.Snapshot(path).restore({"model": target}, include=include))
+        got = target.state_dict()
+        for k, want in ref.items():
+            selected = include is None or snapshot_mod._matches_include(f"model/{k}", include)
+            expect = want if selected else torch.zeros_like(want)
+            if not torch.equal(_bytes(got[k]), _bytes(expect)):
+                raise AssertionError(f"phase6 {label}: {k} differs")
+        stats = snapshot_mod.LAST_RESTORE_STATS
+        bc, sw = stats["bcast"], stats["swarm"]
+        rec = {
+            "wall_s": wall,
+            "gbps": nbytes / wall / 1e9,
+            "bytes_read": stats["bytes_read"],
+            "attribution": stats["attribution"],
+            "bcast": {k: bc.get(k) for k in ("entries", "origin_bytes", "recv_bytes", "direct_fallbacks", "reelections")},
+            "swarm": {k: sw.get(k) for k in ("objects", "chunks", "origin_bytes", "peer_bytes", "cache_bytes", "direct_fallbacks", "reelections", "peer_chunks_verified")},
+        }
+        result["restores"][label] = rec
+        log(f"phase6 rank {rank} {label}: {json.dumps(rec)}")
+        del target, got
+        torch.cuda.empty_cache()
+        return rec
+
+    # (a) the three transports
+    for mode, env in _SERVE_MODES.items():
+        restore(mode, env)
+    _set_env(_SERVE_MODES["direct"])
+    # (b) the read cache: one directory per rank, as one per host
+    cache_env = {"TSS_TORCH_READ_CACHE_DIR": os.path.join(root, f"cache{rank}")}
+    restore("cache_cold", cache_env)
+    second = restore("cache_warm", cache_env)
+    if second["attribution"]["origin_bytes"] != 0:
+        raise AssertionError(f"phase6: the second cached restore read origin bytes: {second}")
+    _set_env({"TSS_TORCH_READ_CACHE_DIR": None})
+    shutil.rmtree(os.path.join(root, f"cache{rank}"))
+    # (c) verified reads
+    restore("verify_all", {"TSS_TORCH_VERIFY_READS": "all"})
+    _set_env({"TSS_TORCH_VERIFY_READS": None})
+    # (d) a lazy restore of one block
+    lazy = restore("include_block", {}, include=[SERVE_BLOCK])
+    block_bytes = sum(
+        t.numel() * t.element_size() for k, t in ref.items()
+        if snapshot_mod._matches_include(f"model/{k}", [SERVE_BLOCK])
+    )
+    result["block_bytes"] = block_bytes
+    if lazy["bytes_read"] != block_bytes:
+        raise AssertionError(f"phase6: the lazy restore read {lazy['bytes_read']} bytes, the block has {block_bytes}")
+    del model, ref
+    torch.cuda.empty_cache()
+
+    # (e) phase 3's TP state restored with swapped placements through the
+    # need-aware swarm. Each shard is its own object (no slabs: a slab
+    # member is a byte range, which the swarm does not trade), and a 16 MiB
+    # hash grain gives the 50-67 MB shard objects the v2 chunk grids the
+    # swarm needs.
+    mesh = DeviceMesh("cuda", list(range(world_size)))
+    tp_path = os.path.join(root, "serve_tp")
+    params = tp_state(4.0, seed, device, mesh, "save")
+    result["tp_local_bytes"] = _tensor_bytes(params)
+    _set_env({"TSS_TORCH_HASH_CHUNK_BYTES": str(16 << 20), "TSS_TORCH_ENABLE_BATCHING": "0"})
+    drive("tp_take", lambda: tts.Snapshot.take(tp_path, {"model": tts.StateDict(params)}))
+    _set_env({"TSS_TORCH_HASH_CHUNK_BYTES": None, "TSS_TORCH_ENABLE_BATCHING": "1", "TSS_TORCH_SWARM_RESTORE": "1"})
+    del params
+    target = {"model": tts.StateDict(tp_state(4.0, seed, device, mesh, "swap", zeros=True))}
+    _, wall = drive("swarm_reshard", lambda: tts.Snapshot(tp_path).restore(target))
+    check_tp_state(dict(target["model"]), 4.0, seed, device, "swap", "phase6 swarm reshard")
+    sw = snapshot_mod.LAST_RESTORE_STATS["swarm"]
+    result["reshard"] = {
+        "wall_s": wall,
+        "gbps": _tensor_bytes(dict(target["model"])) / wall / 1e9,
+        "attribution": snapshot_mod.LAST_RESTORE_STATS["attribution"],
+        "swarm": {k: sw.get(k) for k in ("objects", "chunks", "chunks_origin", "chunks_peer", "origin_bytes", "peer_bytes")},
+    }
+    if result["launches"]["swarm_reshard"]["copy_blocks"] < 1:
+        raise AssertionError("phase6: the swarm reshard did not launch K3")
+    if sw.get("objects", 0) < 1:
+        raise AssertionError(f"phase6: the reshard did not go through the swarm: {sw}")
+    _set_env({"TSS_TORCH_SWARM_RESTORE": None})
+    dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _flip_byte(path, offset):
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase6_scrub(root, card):
+    """(f): the served snapshot scrubs clean; a copy with one flipped byte
+    scrubs corrupt, then is quarantined by a repair, and its restore
+    raises."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+    from torchsnapshot_tpu_torch.parallel.coordinator import Coordinator
+    from torchsnapshot_tpu_torch.parallel.store import LocalStore
+
+    path = os.path.join(root, "serve")
+    t0 = time.monotonic()
+    clean = tts.Snapshot(path).scrub()
+    scrub_s = time.monotonic() - t0
+    if not clean["clean"]:
+        raise AssertionError(f"phase6: scrub of the served snapshot: {clean['problems']} problems")
+    copy = os.path.join(root, "serve_copy")
+    shutil.copytree(path, copy)
+    # The largest object (the embedding table), one byte past its middle.
+    victim = max(
+        {e.location for e in tts.Snapshot(path).get_manifest().values() if getattr(e, "location", None)},
+        key=lambda loc: os.path.getsize(os.path.join(path, loc)),
+    )
+    _flip_byte(os.path.join(copy, victim), os.path.getsize(os.path.join(path, victim)) // 2 + 1)
+    found = tts.Snapshot(copy).scrub()
+    if found["entries"][victim]["status"] != "corrupt" or found["corrupt"] != 1:
+        raise AssertionError(f"phase6: scrub missed the flipped byte: {found['entries'].get(victim)}")
+    fixed = tts.Snapshot(copy).scrub(repair=True)
+    status = fixed["entries"][victim]["status"]
+    if status not in ("repaired", "quarantined"):
+        raise AssertionError(f"phase6: scrub(repair=True) left {victim} {status}")
+    raised = None
+    if status == "quarantined":
+        one = Coordinator(LocalStore(), 0, 1)
+        try:
+            tts.Snapshot(copy).restore({"model": _fresh_model(TransformerConfig(**SERVE_CFG), torch.device("cuda", 0))}, coordinator=one)
+        except FileNotFoundError as e:
+            raised = repr(e)[:200]
+        if raised is None:
+            raise AssertionError("phase6: a restore of the quarantined copy did not raise")
+    shutil.rmtree(copy)
+    out = {
+        "scrub_s": scrub_s,
+        "scrub_gbps": clean["bytes"] / scrub_s / 1e9,
+        "objects": clean["objects"],
+        "bytes": clean["bytes"],
+        "flipped": victim,
+        "found": found["entries"][victim],
+        "after_repair": fixed["entries"][victim],
+        "restore_raised": raised,
+    }
+    log(f"phase6 scrub on {card}: {json.dumps(out)}")
+    return out
+
+
+def _meminfo_kib(field):
+    with open("/proc/meminfo") as f:
+        return int(next(line for line in f if line.startswith(field + ":")).split()[1])
+
+
+def _evict_page_cache(path):
+    """fsync and ``POSIX_FADV_DONTNEED`` every file under ``path``; returns
+    the files and the drop of ``/proc/meminfo``'s ``Cached`` in bytes."""
+    before = _meminfo_kib("Cached")
+    files = 0
+    for dirpath, _, names in os.walk(path):
+        for name in names:
+            fd = os.open(os.path.join(dirpath, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+            files += 1
+    return {"files": files, "cached_drop_bytes": (before - _meminfo_kib("Cached")) * 1024}
+
+
+def phase6_native_io(gb, device, gen, root, card):
+    """(g): phase 2's sync take and restore with the native engine and
+    with ``TSS_TORCH_DISABLE_NATIVE_IO=1``, with the engine's counts; each
+    restore runs again after its files are evicted from the page cache."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import native
+
+    fs_type = subprocess.run(["stat", "-f", "-c", "%T", root], capture_output=True, text=True).stdout.strip()
+    params, progress, _ = build_state(gb, device, gen)
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    out = {"fs_type": fs_type, "state_bytes": nbytes}
+    for label, disabled in (("engine", None), ("no_engine", "1"), ("engine_again", None)):
+        _set_env({"TSS_TORCH_DISABLE_NATIVE_IO": disabled})
+        path = os.path.join(root, f"native_{label}")
+        app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+        native.reset_io_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tts.Snapshot.take(path, app)
+        take_s = time.monotonic() - t0
+        target = {"model": tts.StateDict(_zeros_like_tree(params)), "progress": tts.StateDict(step=torch.zeros_like(progress["step"]))}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tts.Snapshot(path).restore(target)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _assert_bits_equal(dict(target["model"]), params, f"phase6 native {label}")
+        counts = native.io_counts()
+        # The same restore after asking the kernel to drop the snapshot's
+        # files from the page cache; ``cached_drop_bytes`` shows whether
+        # the machine's page cache shrank by them.
+        evicted = _evict_page_cache(path)
+        for t in _tensors(target["model"]):
+            t.zero_()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tts.Snapshot(path).restore(target)
+        torch.cuda.synchronize()
+        evicted_s = time.monotonic() - t0
+        _assert_bits_equal(dict(target["model"]), params, f"phase6 native {label} evicted")
+        out[label] = {
+            "take_gbps": nbytes / take_s / 1e9,
+            "restore_gbps": nbytes / restore_s / 1e9,
+            "evicted_restore_gbps": nbytes / evicted_s / 1e9,
+            "page_cache_evicted": evicted,
+            "counts": counts,
+        }
+        if disabled is None and counts["direct_writes"] + counts["buffered_writes"] < 1:
+            raise AssertionError(f"phase6: the native engine moved nothing: {counts}")
+        if disabled and counts["direct_writes"] + counts["buffered_writes"] + counts["direct_reads"] + counts["buffered_reads"]:
+            raise AssertionError(f"phase6: the disabled engine moved bytes: {counts}")
+        del target
+        shutil.rmtree(path)
+    _set_env({"TSS_TORCH_DISABLE_NATIVE_IO": None})
+    log(f"phase6 native engine on {card}, temp root on {fs_type}: {json.dumps(out)}")
+    return out
+
+
+def phase6(seed, device, gen, gb, root, card):
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    with open("/proc/meminfo") as f:
+        avail = next(line for line in f if line.startswith("MemAvailable")).split()[1]
+    log(f"phase6 before: host MemAvailable {int(avail) / 1024**2:.1f} GiB, disk free {shutil.disk_usage(root).free} bytes")
+    out_dir = os.path.join(root, "phase6_out")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    run_with_processes(phase6_worker, 2, args=(seed, root, out_dir), timeout_s=900, process_group=True)
+    log(f"phase6 two serving ranks done in {time.monotonic() - t0:.1f} s")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+        log(f"phase6 rank {rank} on {card} (two ranks sharing one card): {json.dumps(ranks[-1])}")
+    nbytes = ranks[0]["state_bytes"]
+    cap = 256 * 1024 * 1024
+    over = [(loc, n) for loc, n in ranks[0]["largest_objects"] if n > cap]
+    log(f"phase6 objects above BCAST_MAX_BYTES ({cap}): {over}; largest {ranks[0]['largest_objects'][:2]}")
+    summary = {}
+    for label in ranks[0]["restores"]:
+        recs = [r["restores"][label] for r in ranks]
+        summary[label] = {
+            "origin_bytes_per_rank": [r["attribution"]["origin_bytes"] for r in recs],
+            "peer_bytes_per_rank": [r["attribution"]["peer_bytes"] for r in recs],
+            "cache_bytes_per_rank": [r["attribution"]["cache_bytes"] for r in recs],
+            "direct_fallbacks": [r["bcast"]["direct_fallbacks"] for r in recs],
+            "gbps_per_rank": [r["gbps"] for r in recs],
+        }
+        log(f"phase6 {label} restore on {card}: {json.dumps(summary[label])}")
+    swarm_origin = sum(summary["swarm"]["origin_bytes_per_rank"])
+    if swarm_origin > 1.1 * nbytes:
+        raise AssertionError(f"phase6: the swarm read {swarm_origin} origin bytes for {nbytes} bytes of state")
+    reshard_origin = sum(r["reshard"]["attribution"]["origin_bytes"] for r in ranks)
+    tp_bytes = sum(r["tp_local_bytes"] for r in ranks)
+    if reshard_origin > 1.1 * tp_bytes:
+        raise AssertionError(f"phase6: the swarm reshard read {reshard_origin} origin bytes for {tp_bytes} bytes")
+    log(f"phase6 swarm reshard on {card}: origin {reshard_origin} bytes for {tp_bytes} bytes of state ({reshard_origin / tp_bytes:.4f}x), per rank {json.dumps([r['reshard'] for r in ranks])}")
+    scrub = phase6_scrub(root, card)
+    shutil.rmtree(os.path.join(root, "serve"))
+    shutil.rmtree(os.path.join(root, "serve_tp"))
+    native_io = phase6_native_io(gb, device, gen, root, card)
+    launches = {}
+    for r in ranks:
+        for label, counts in r["launches"].items():
+            launches[f"phase6_rank{r['rank']}_{label}"] = counts
+    return launches, {"summary": summary, "scrub": scrub, "native_io": native_io}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -826,9 +1206,21 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    import threading
+
+    from torchsnapshot_tpu_torch import native
+
+    # The kernels (nvcc) and the native I/O engine (g++) build side by side.
     t0 = time.monotonic()
+    engine = {}
+    engine_build = threading.Thread(target=lambda: engine.update(lib=native.load_native()))
+    engine_build.start()
     kernels.load_library()
+    engine_build.join()
     log(f"kernel build: {kernels.BUILD_SECONDS:.2f} s compile, {time.monotonic() - t0:.2f} s to load")
+    if engine.get("lib") is None:
+        raise AssertionError("the native I/O engine did not build or load")
+    log(f"native I/O engine: ABI {engine['lib'].tss_io_version()}, {native._lib_path()}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     errs = phase1(device, gen)
@@ -848,6 +1240,8 @@ def main() -> int:
         phase5_launches, finetune = phase5(args.seed, device, root, card)
         for codec, counts in phase5_launches.items():
             launches[f"phase5_{codec}"] = counts
+        phase6_launches, serving = phase6(args.seed, device, gen, args.gb, root, card)
+        launches.update(phase6_launches)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -860,6 +1254,7 @@ def main() -> int:
     for codec, out in finetune.items():
         summary = {k: v for k, v in out.items() if not k.endswith(("_phases", "_stream"))}
         log(f"phase5 {codec} summary on {card}: {json.dumps(summary)}")
+    log(f"phase6 serving summary on {card}: {json.dumps(serving)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

@@ -386,3 +386,140 @@ def test_small_frozen_finetune_checkpoints(device, tmp_path):
     assert out["c5_cache"]["prepared_cache_hit"] and out["c5_launches"]["pack_slab"] >= 1
     assert out["c5_launches"]["fork_copy"] == 1
     assert out["c2_bytes_deduped"] >= out["frozen_bytes"] and out["c2_samefile"] >= 1
+
+
+def _pinned_h2d_probe(monkeypatch_target):
+    """Wrap the whole-tensor H2D (T2) to record whether each host source
+    was pinned."""
+    from torchsnapshot_tpu_torch import d2h
+
+    seen = []
+    inner = d2h.host_to_device
+
+    def probe(host, live, device, stream):
+        seen.append(bool(host.is_pinned()))
+        return inner(host, live, device, stream)
+
+    monkeypatch_target.host_to_device = probe
+    return seen
+
+
+def _cuda_bcast_swarm(rank, world_size, root):
+    import json
+
+    import numpy as np
+
+    from torchsnapshot_tpu_torch import bcast, d2h, snapshot, swarm
+
+    torch.cuda.set_device(0)
+    os.environ["TSS_TORCH_DEDUP_DIGESTS"] = "1"
+    os.environ["TSS_TORCH_HASH_CHUNK_BYTES"] = "65536"
+    rng = np.random.default_rng(0)
+    g = {"emb": rng.standard_normal((512, 256)).astype(np.float32),  # 512 KiB
+         "w": rng.standard_normal((64, 64)).astype(np.float32),
+         "ids": rng.integers(0, 9, 1000).astype(np.int64)}
+    state = {k: torch.from_numpy(v).cuda() for k, v in g.items()}
+    path = os.path.join(root, "s")
+    tts.Snapshot.take(path, {"m": tts.StateDict(state)}, replicated=["**"])
+    seen = _pinned_h2d_probe(d2h)
+    out = {}
+    for mode, cap in (("bcast", str(1 << 20)), ("swarm", "4096")):
+        os.environ["TSS_TORCH_BCAST_RESTORE"] = "1"
+        os.environ["TSS_TORCH_SWARM_RESTORE"] = "1"
+        os.environ["TSS_TORCH_BCAST_MAX_BYTES"] = cap
+        target = {k: torch.zeros_like(v) for k, v in state.items()}
+        ptrs = {k: t.data_ptr() for k, t in target.items()}
+        sd = tts.StateDict(target)
+        tts.Snapshot(path).restore({"m": sd})
+        for k in g:
+            assert sd[k].is_cuda and sd[k].data_ptr() == ptrs[k], k
+            assert torch.equal(_bytes(sd[k]), _bytes(state[k])), (mode, k)
+        out[mode] = {
+            "recv": bcast.LAST_RESTORE_BCAST["recv_bytes"],
+            "peer": swarm.LAST_RESTORE_SWARM["peer_bytes"],
+            "origin": snapshot.LAST_RESTORE_STATS["attribution"]["origin_bytes"],
+        }
+    assert seen and all(seen), seen
+    with open(os.path.join(root, f"r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def test_bcast_and_swarm_payloads_land_in_cuda_targets_through_pinned_buffers(device, tmp_path):
+    import json
+
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_cuda_bcast_swarm, 2, args=(str(tmp_path),), process_group=True)
+    recs = [json.load(open(tmp_path / f"r{r}.json")) for r in range(2)]
+    assert sum(r["bcast"]["recv"] for r in recs) > 0
+    assert sum(r["swarm"]["peer"] for r in recs) > 0
+    total = 512 * 256 * 4 + 64 * 64 * 4 + 1000 * 8
+    assert sum(r["bcast"]["origin"] for r in recs) == total
+    assert sum(r["swarm"]["origin"] for r in recs) <= 1.1 * total
+
+
+def test_verified_reads_into_cuda_tensors(device, tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch import scheduler
+
+    monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "all")
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(1024, 1024, generator=g, device=device).to(torch.bfloat16)
+    path = str(tmp_path / "s")
+    tts.Snapshot.take(path, {"m": tts.StateDict(x=x)})
+    sd = tts.StateDict(x=torch.zeros_like(x))
+    tts.Snapshot(path).restore({"m": sd})
+    assert torch.equal(_bytes(sd["x"]), _bytes(x))
+    with open(os.path.join(path, "0/m/x"), "r+b") as f:
+        f.seek(12345)
+        b = f.read(1)
+        f.seek(12345)
+        f.write(bytes([b[0] ^ 1]))
+    target = torch.zeros_like(x)
+    with pytest.raises(scheduler.ReadVerificationError):
+        tts.Snapshot(path).restore({"m": tts.StateDict(x=target)})
+    torch.cuda.synchronize()
+    # Checked on the host before the H2D: the live tensor was never written.
+    assert not target.any()
+
+
+def _swarm_reshard(rank, world_size, root):
+    import json
+
+    import numpy as np
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard
+
+    from torchsnapshot_tpu_torch import swarm
+    from torchsnapshot_tpu_torch.convert import dtensor_from_numpy
+
+    torch.cuda.set_device(0)
+    os.environ["TSS_TORCH_DEDUP_DIGESTS"] = "1"
+    os.environ["TSS_TORCH_HASH_CHUNK_BYTES"] = "65536"
+    mesh = DeviceMesh("cuda", list(range(world_size)))
+    a = np.random.default_rng(1).standard_normal((256, 512)).astype(np.float32)
+    path = os.path.join(root, "s")
+    tts.Snapshot.take(path, {"m": tts.StateDict(a=dtensor_from_numpy(a, mesh, [Shard(0)]))})
+    os.environ["TSS_TORCH_SWARM_RESTORE"] = "1"
+    target = dtensor_from_numpy(np.zeros_like(a), mesh, [Shard(1)])
+    sd = tts.StateDict(a=target)
+    kernels.reset_launch_counts()
+    tts.Snapshot(path).restore({"m": sd})
+    launches = kernels.LAUNCHES["copy_blocks"]
+    want = dtensor_from_numpy(a, mesh, [Shard(1)]).to_local()
+    assert torch.equal(_bytes(sd["a"].to_local()), _bytes(want))
+    rec = swarm.LAST_RESTORE_SWARM
+    with open(os.path.join(root, f"r{rank}.json"), "w") as f:
+        json.dump({"k3": launches, "origin": rec["origin_bytes"], "peer": rec["peer_bytes"]}, f)
+
+
+def test_swarm_reshard_into_dtensors_launches_k3(device, tmp_path):
+    import json
+
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_swarm_reshard, 2, args=(str(tmp_path),), process_group=True)
+    recs = [json.load(open(tmp_path / f"r{r}.json")) for r in range(2)]
+    assert all(r["k3"] > 0 for r in recs), recs
+    assert all(r["peer"] > 0 for r in recs), recs
+    # Each rank needs every row of both saved shards: one origin copy.
+    assert sum(r["origin"] for r in recs) == 256 * 512 * 4

@@ -191,3 +191,45 @@ def test_a_single_process_take_with_the_caches_stays_light():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+_A1_A12_MODULES = [
+    "torchsnapshot_tpu_torch/native/__init__.py",
+    "torchsnapshot_tpu_torch/bcast.py",
+    "torchsnapshot_tpu_torch/swarm.py",
+    "torchsnapshot_tpu_torch/storage_plugins/cache.py",
+    "torchsnapshot_tpu_torch/storage_plugins/memory.py",
+]
+
+
+def test_storage_and_serving_modules_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(_A1_A12_MODULES) <= checked
+    # The engine's C++ source is the port's own copy.
+    assert os.path.exists(os.path.join(PORT, "native", "tss_io.cpp"))
+
+
+def test_a_cached_verified_restore_stays_light():
+    """memory://, the read cache, verified reads and the serving modules
+    load neither JAX nor the JAX package."""
+    code = (
+        "import sys, tempfile, os, torch\n"
+        "os.environ['TSS_TORCH_READ_CACHE_DIR'] = tempfile.mkdtemp()\n"
+        "os.environ['TSS_TORCH_VERIFY_READS'] = 'all'\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "from torchsnapshot_tpu_torch import bcast, swarm, native\n"
+        "from torchsnapshot_tpu_torch.storage_plugins import cache, memory\n"
+        "native.load_native()\n"
+        "x = torch.arange(10.0)\n"
+        "tts.Snapshot.take('memory://light', {'m': tts.StateDict(x=x)})\n"
+        "t = tts.StateDict(x=torch.zeros(10))\n"
+        "tts.Snapshot('memory://light').restore({'m': t}, device='cpu')\n"
+        "assert torch.equal(t['x'], x)\n"
+        "tts.Snapshot('memory://light').restore({'m': t}, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchsnapshot_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -378,9 +378,9 @@ def test_overlapping_take_misses_on_the_busy_latch(tmp_path, monkeypatch):
     gate = threading.Event()
     write = fs.FSStoragePlugin._write_file
 
-    def held_write(self, path, buf):
+    def held_write(self, *args):
         gate.wait(30)
-        write(self, path, buf)
+        return write(self, *args)
 
     monkeypatch.setattr(fs.FSStoragePlugin, "_write_file", held_write)
     first = tts.Snapshot.async_take(str(tmp_path / "b"), {"m": tts.StateDict(state)})

@@ -275,3 +275,48 @@ def test_tracer_off_allocates_nothing():
         assert ct.active_tracer() is None
     assert ct._TRACER is None
     assert coordinator_mod._INSTALLED is None
+
+
+@pytest.mark.parametrize("nbytes", [8 * 1024 * 1024 + 1, 20 * 1024 * 1024 + 5])
+def test_c10d_store_moves_values_above_the_message_limit(nbytes):
+    """c10d's libuv TCPStore refuses a message above 8 MiB; the broadcast
+    and swarm restores post objects of up to 256 MiB through the
+    coordinator's store, so C10dStore stores such values in parts."""
+    import os as _os
+
+    import torch.distributed as dist
+
+    server = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    client = dist.TCPStore("127.0.0.1", server.port, is_master=False)
+    store = C10dStore(client)
+    value = _os.urandom(nbytes)
+    store.set("big", value)
+    assert store.try_get("big") == value
+    assert store.get("big") == value
+    assert store.prefix("p").try_get_many(["x"]) == [None]
+    store.delete("big")
+    assert store.try_get("big") is None
+    assert not client.check(["tss/big/#0"])  # the parts went too
+    store.set("small", b"v")
+    assert store.get("small") == b"v"
+
+
+@pytest.mark.parametrize("parts", [0, 3])
+def test_c10d_store_delete_of_parts_without_header_does_not_block(parts):
+    """A writer that died part-way through a parted value, or a second
+    deleter, leaves parts with no header: delete removes them at once
+    instead of waiting on the header for the store's timeout."""
+    import datetime
+
+    import torch.distributed as dist
+
+    raw = dist.HashStore()
+    raw.set_timeout(datetime.timedelta(seconds=3))
+    store = C10dStore(raw)
+    for i in range(parts):
+        raw.set(f"tss/orphan/#{i}", b"x" * 16)
+    t0 = time.monotonic()
+    store.delete("orphan")
+    store.delete("orphan")  # a second deleter finds nothing
+    assert time.monotonic() - t0 < 1.0
+    assert not any(raw.check([f"tss/orphan/#{i}"]) for i in range(max(parts, 1)))

@@ -327,16 +327,22 @@ _MERGE_MAX_MEMBER_BYTES = 1 << 20
 
 
 def batch_read_requests(
-    read_reqs: List[ReadReq], max_merged_bytes: Optional[int] = None
+    read_reqs: List[ReadReq],
+    max_merged_bytes: Optional[int] = None,
+    merge_large: bool = False,
 ) -> List[ReadReq]:
     """Merge exactly adjacent small byte-range reads per object into one
-    read, each merged run capped at ``max_merged_bytes``."""
+    read, each merged run capped at ``max_merged_bytes``. ``merge_large``
+    merges large reads too, as the JAX package does: over a read cache a
+    slab read whole populates one whole entry, where its members' ranges
+    would each cover its hash chunks only in part."""
+    member_cap = None if merge_large else _MERGE_MAX_MEMBER_BYTES
     ranged: Dict[str, List[ReadReq]] = {}
     out: List[ReadReq] = []
     for req in read_reqs:
         if (
             req.byte_range is None
-            or req.byte_range[1] - req.byte_range[0] >= _MERGE_MAX_MEMBER_BYTES
+            or (member_cap is not None and req.byte_range[1] - req.byte_range[0] >= member_cap)
             or getattr(req.buffer_consumer, "merge_exempt", False)
         ):
             out.append(req)

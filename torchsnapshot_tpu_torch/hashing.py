@@ -222,6 +222,186 @@ def record_crc(rec: Any) -> Optional[int]:
 
 
 # ---------------------------------------------------------------------------
+# Verification (full-object, per-chunk, ranged).
+# ---------------------------------------------------------------------------
+
+
+def _chunk_mismatches(
+    mv: memoryview,
+    grain: int,
+    shas: Optional[List[str]],
+    crcs: Optional[List[int]],
+    first: int,
+    base: int,
+) -> List[int]:
+    """Chunk indices whose bytes in ``mv`` don't match the recorded chunk
+    digests. ``mv`` holds chunks ``first..`` of the object, with chunk
+    ``first`` starting at ``base`` within ``mv``; every checked chunk must
+    be fully present in ``mv`` (callers guarantee it)."""
+    bad: List[int] = []
+    n = len(shas) if shas is not None else len(crcs or [])
+    off = base
+    idx = first
+    while idx < n and off < mv.nbytes:
+        end = min(off + grain, mv.nbytes)
+        part = mv[off:end]
+        if shas is not None:
+            if hashlib.sha256(part).hexdigest() != shas[idx]:
+                bad.append(idx)
+        elif crcs is not None:
+            if zlib.crc32(part) != crcs[idx]:
+                bad.append(idx)
+        off = end
+        idx += 1
+    return bad
+
+
+def find_bad_chunks(mv: memoryview, rec: Any) -> Optional[List[int]]:
+    """Per-chunk audit of a FULL object's bytes against a v2 record: the
+    list of corrupt chunk indices (empty == clean), or None when the record
+    carries no chunk grid (v1/legacy — not chunk-attributable)."""
+    info = record_chunk_info(rec)
+    if info is None:
+        return None
+    grain, shas, crcs = info
+    return _chunk_mismatches(memoryview(mv).cast("B"), grain, shas, crcs, 0, 0)
+
+
+def verify_buffer(mv: memoryview, rec: Any) -> Optional[str]:
+    """Full-object check against any record format; returns a mismatch
+    description or None. Runs on an executor thread — every hash here
+    releases the GIL for large buffers."""
+    mv = memoryview(mv).cast("B")
+    size = record_size(rec)
+    if size is not None and mv.nbytes != size:
+        return f"size {mv.nbytes} != recorded {size}"
+    info = record_chunk_info(rec)
+    if info is not None:
+        grain, shas, crcs = info
+        bad = _chunk_mismatches(mv, grain, shas, crcs, 0, 0)
+        if bad:
+            kind = "sha256" if shas is not None else "crc32"
+            return f"chunk {kind} mismatch at chunk(s) {bad} (grain {grain})"
+        return None
+    sha = record_whole_sha(rec)
+    if sha:
+        got = hashlib.sha256(mv).hexdigest()
+        if got != sha:
+            return f"sha256 {got} != recorded {sha}"
+        return None
+    crc = record_crc(rec)
+    if isinstance(crc, int):
+        got_crc = zlib.crc32(mv)
+        if got_crc != crc:
+            return f"crc32 {got_crc} != recorded {crc}"
+    return None
+
+
+def _contained_chunks(
+    rec: Any, begin: int, end: int
+) -> Optional[Tuple[int, int, int]]:
+    """``(first_chunk, last_chunk_exclusive, grain)`` for the chunks FULLY
+    contained in byte range [begin, end) of the object; None when the
+    record has no chunk grid or no chunk fits entirely in the range."""
+    info = record_chunk_info(rec)
+    if info is None:
+        return None
+    grain, _shas, _crcs = info
+    size = record_size(rec)
+    if size is None:
+        return None
+    first = (begin + grain - 1) // grain
+    # A chunk is contained if its full extent [k*grain, min((k+1)*grain,
+    # size)) lies inside [begin, end) — the object's LAST chunk may be
+    # short, so containment is against its real extent.
+    extents = chunk_extents(size, grain)
+    last = first
+    for k in range(first, len(extents)):
+        if extents[k][1] <= end:
+            last = k + 1
+        else:
+            break
+    if last <= first:
+        return None
+    return first, last, grain
+
+
+def verify_chunks_of(
+    mv: memoryview,
+    info: Tuple[int, Optional[List[str]], Optional[List[int]]],
+    begin: Optional[int] = None,
+    end: Optional[int] = None,
+) -> Optional[str]:
+    """Verify chunks of a FULL object's bytes against a chunk grid
+    (``record_chunk_info`` tuple); with ``begin``/``end``, only the chunks
+    *intersecting* [begin, end) — the read cache's ranged-hit check, which
+    holds the whole entry and therefore verifies even partially-covered
+    edge chunks completely. Returns a mismatch description or None."""
+    grain, shas, crcs = info
+    mv = memoryview(mv).cast("B")
+    total = len(shas) if shas is not None else len(crcs or [])
+    if begin is None:
+        first, last = 0, total
+    else:
+        first = min(total, max(0, begin) // grain)
+        last = (
+            min(total, (end + grain - 1) // grain)
+            if end is not None
+            else total
+        )
+    if last <= first:
+        return None
+    bad = _chunk_mismatches(
+        mv[first * grain :],
+        grain,
+        shas[:last] if shas is not None else None,
+        crcs[:last] if crcs is not None else None,
+        first,
+        0,
+    )
+    if bad:
+        kind = "sha256" if shas is not None else "crc32"
+        return f"chunk {kind} mismatch at chunk(s) {bad} (grain {grain})"
+    return None
+
+
+def range_verifiable(rec: Any, begin: int, end: int) -> bool:
+    """Whether a ranged read of [begin, end) covers at least one full chunk
+    of the record's grid — i.e. chunk-granular verification can check it."""
+    return _contained_chunks(rec, begin, end) is not None
+
+
+def verify_range(mv: memoryview, rec: Any, begin: int, end: int) -> Optional[str]:
+    """Verify a RANGED read's bytes (``mv`` holds exactly [begin, end) of
+    the object) at chunk granularity: every chunk fully contained in the
+    range is checked against its recorded digest; partial edge chunks are
+    skipped (their digests cover bytes the range didn't fetch). Returns a
+    mismatch description or None — including when nothing was verifiable.
+    """
+    contained = _contained_chunks(rec, begin, end)
+    if contained is None:
+        return None
+    first, last, grain = contained
+    info = record_chunk_info(rec)
+    assert info is not None
+    _grain, shas, crcs = info
+    mv = memoryview(mv).cast("B")
+    sub_shas = shas[:last] if shas is not None else None
+    sub_crcs = crcs[:last] if crcs is not None else None
+    bad = _chunk_mismatches(
+        mv, grain, sub_shas, sub_crcs, first, first * grain - begin
+    )
+    if bad:
+        kind = "sha256" if shas is not None else "crc32"
+        return (
+            f"chunk {kind} mismatch at chunk(s) {bad} (grain {grain}, "
+            f"range [{begin}, {end}))"
+        )
+    return None
+
+
+# ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
 # The hashing engines.
 # ---------------------------------------------------------------------------
 

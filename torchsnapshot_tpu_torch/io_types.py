@@ -82,6 +82,12 @@ class ReadReq:
 class WriteIO:
     path: str
     buf: BufferType
+    # Set by a caller that will use ``digest_out``: a plugin that hashes
+    # while it writes (the native fs engine folds crc32 into its write
+    # loop) leaves the ``[crc32, size, None]`` record there; None means it
+    # did not, and the caller hashes.
+    want_digest: bool = False
+    digest_out: Optional[list] = None
 
 
 @dataclass
@@ -118,6 +124,10 @@ class StoragePlugin(abc.ABC):
     # through; the streaming decision (stream_select) only considers such
     # plugins.
     supports_streaming = False
+    # Whether co-hosted ranks share this backend's device (a local disk):
+    # I/O concurrency divides by them, and the broadcast and swarm
+    # restores stay off under ``auto``.
+    scales_io_with_local_world = False
 
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None:

@@ -1,0 +1,396 @@
+// Native I/O engine of torchsnapshot_tpu_torch: O_DIRECT file reads and
+// writes through an aligned bounce buffer, falling back to buffered I/O
+// wherever O_DIRECT is unsupported (tmpfs, overlayfs, unaligned tails).
+// The port keeps its own copy of the JAX package's engine
+// (torchsnapshot_tpu/native/tss_io.cpp): the same C ABI and
+// tss_io_version() == 3, plus process-wide counters of the transfers and
+// bytes that went direct and that went buffered (tss_io_counts).
+//
+// C ABI only, loaded with ctypes, which releases the GIL for each call:
+// the caller keeps every buffer it passes referenced until the call
+// returns.
+//
+// All functions return 0 on success or -errno on failure.
+
+#include <algorithm>
+#include <atomic>
+#include <cerrno>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
+// The inline-crc digest path needs zlib headers; hosts without zlib dev
+// files build with -DTSS_NO_ZLIB (the loader retries with it) and keep the
+// full IO engine, just without tss_write_file_digest — Python hashing
+// covers digests there.
+#ifndef TSS_NO_ZLIB
+#include <zlib.h>
+#endif
+
+namespace {
+
+// Counters, by index: direct writes, buffered writes, direct reads,
+// buffered reads (calls), then the same four in bytes. A call that starts
+// direct and finishes buffered counts once on each side, with its bytes
+// split where the fallback began.
+enum { kDirectW, kBufferedW, kDirectR, kBufferedR, kNumCounts };
+std::atomic<uint64_t> g_calls[kNumCounts];
+std::atomic<uint64_t> g_bytes[kNumCounts];
+
+void count(int kind, uint64_t nbytes) {
+  g_calls[kind].fetch_add(1, std::memory_order_relaxed);
+  g_bytes[kind].fetch_add(nbytes, std::memory_order_relaxed);
+}
+
+// One finished call of `nbytes`, of which the first `direct_bytes` went
+// through O_DIRECT.
+void account(int direct_kind, int buffered_kind, uint64_t direct_bytes,
+             uint64_t nbytes) {
+  if (direct_bytes > 0) count(direct_kind, direct_bytes);
+  if (direct_bytes == 0 || nbytes > direct_bytes)
+    count(buffered_kind, nbytes - direct_bytes);
+}
+
+constexpr uint64_t kAlign = 4096;  // covers 512/4096 logical sector sizes
+
+uint64_t align_up(uint64_t v) { return (v + kAlign - 1) / kAlign * kAlign; }
+uint64_t align_down(uint64_t v) { return v / kAlign * kAlign; }
+
+#ifndef TSS_NO_ZLIB
+// Running CRC32 updated as write chunks advance (bytes hashed exactly once,
+// in file order, while the chunk is cache-hot from the bounce copy).
+// Deliberately crc-only: sha256 dedup digests stay in Python, whose
+// hashlib uses OpenSSL's hardware-accelerated implementation.
+struct HashCtx {
+  uLong crc = crc32(0L, Z_NULL, 0);
+
+  void update(const char* p, uint64_t n) {
+    const Bytef* b = reinterpret_cast<const Bytef*>(p);
+    uint64_t done = 0;
+    while (done < n) {  // zlib's crc32 takes uInt lengths
+      uInt step = static_cast<uInt>(std::min<uint64_t>(n - done, 1u << 30));
+      crc = crc32(crc, b + done, step);
+      done += step;
+    }
+  }
+};
+#else
+struct HashCtx {  // digest API absent; keeps write_impl's signature uniform
+  void update(const char*, uint64_t) {}
+};
+#endif
+
+// Buffered positional write of [src, src+nbytes) at file offset `off`.
+int write_buffered(int fd, const char* src, uint64_t nbytes, uint64_t off,
+                   HashCtx* hc = nullptr) {
+  uint64_t done = 0;
+  while (done < nbytes) {
+    size_t n = std::min<uint64_t>(nbytes - done, 1ull << 30);
+    ssize_t w = pwrite(fd, src + done, n, off + done);
+    if (w < 0) {
+      if (errno == EINTR) continue;
+      return -errno;
+    }
+    if (hc) hc->update(src + done, static_cast<uint64_t>(w));
+    done += static_cast<uint64_t>(w);
+  }
+  return 0;
+}
+
+int read_buffered(int fd, char* dst, uint64_t nbytes, uint64_t off) {
+  uint64_t done = 0;
+  while (done < nbytes) {
+    size_t n = std::min<uint64_t>(nbytes - done, 1ull << 30);
+    ssize_t r = pread(fd, dst + done, n, off + done);
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -errno;
+    }
+    if (r == 0) return -EIO;  // unexpected EOF: caller sized the read
+    done += static_cast<uint64_t>(r);
+  }
+  return 0;
+}
+
+// Shared implementation of the write entry points; `hc` (nullable) receives
+// a running crc32 over the bytes, updated chunk-by-chunk while the data is
+// cache-hot from the bounce-buffer copy.
+int write_impl(const char* path, const void* buf, uint64_t nbytes,
+               int use_direct, uint64_t chunk_bytes, HashCtx* hc) {
+  const char* src = static_cast<const char*>(buf);
+  const int base_flags = O_WRONLY | O_CREAT | O_TRUNC;
+
+  int fd = -1;
+  bool direct = use_direct != 0 && nbytes >= kAlign;
+  if (direct) {
+    fd = open(path, base_flags | O_DIRECT, 0644);
+    if (fd < 0) direct = false;  // fs without O_DIRECT support
+  }
+  if (fd < 0) fd = open(path, base_flags, 0644);
+  if (fd < 0) return -errno;
+
+  int rc = 0;
+  uint64_t off = 0;
+  uint64_t direct_bytes = 0;
+  if (direct) {
+    if (chunk_bytes < kAlign) chunk_bytes = 64ull << 20;
+    chunk_bytes = align_down(chunk_bytes);
+    void* bounce = nullptr;
+    if (posix_memalign(&bounce, kAlign, chunk_bytes) != 0) {
+      close(fd);
+      return -ENOMEM;
+    }
+    while (off < nbytes) {
+      uint64_t n = std::min(chunk_bytes, nbytes - off);
+      uint64_t padded = align_up(n);
+      memcpy(bounce, src + off, n);
+      if (padded > n) memset(static_cast<char*>(bounce) + n, 0, padded - n);
+      ssize_t w = pwrite(fd, bounce, padded, off);
+      if (w < 0) {
+        if (errno == EINTR) continue;
+        if (errno == EINVAL) break;  // device rejected O_DIRECT mid-stream
+        rc = -errno;
+        break;
+      }
+      // A short direct write only advances at an aligned boundary; a
+      // sub-sector (or zero) count means this fs can't make progress under
+      // O_DIRECT — finish buffered below rather than spinning.
+      uint64_t advanced = std::min<uint64_t>(align_down(static_cast<uint64_t>(w)), n);
+      if (advanced == 0) break;
+      if (hc) hc->update(src + off, advanced);
+      off += advanced;
+    }
+    free(bounce);
+    direct_bytes = off;
+    if (rc == 0 && off < nbytes) {
+      // Finish buffered (EINVAL fallback or zero-length write).
+      int fd2 = open(path, O_WRONLY, 0644);
+      if (fd2 < 0) {
+        rc = -errno;
+      } else {
+        rc = write_buffered(fd2, src + off, nbytes - off, off, hc);
+        if (close(fd2) < 0 && rc == 0) rc = -errno;
+      }
+    }
+    // Drop the alignment padding from the final chunk.
+    if (rc == 0 && ftruncate(fd, static_cast<off_t>(nbytes)) < 0) rc = -errno;
+  } else {
+    rc = write_buffered(fd, src, nbytes, 0, hc);
+  }
+  if (close(fd) < 0 && rc == 0) rc = -errno;
+  if (rc == 0) account(kDirectW, kBufferedW, direct_bytes, nbytes);
+  return rc;
+}
+
+}  // namespace
+
+extern "C" {
+
+int tss_io_version() { return 3; }
+
+// Create/truncate `path` and write `nbytes` from `buf`.
+// use_direct != 0 attempts O_DIRECT via an aligned bounce buffer of
+// chunk_bytes; any O_DIRECT failure falls back to buffered I/O and the write
+// still succeeds.
+int tss_write_file(const char* path, const void* buf, uint64_t nbytes,
+                   int use_direct, uint64_t chunk_bytes) {
+  return write_impl(path, buf, nbytes, use_direct, chunk_bytes, nullptr);
+}
+
+#ifndef TSS_NO_ZLIB
+// Like tss_write_file, but also computes the zlib crc32 over the written
+// bytes in the same pass (*crc_out): the separate memory sweep the Python
+// hashing path pays per object is folded into the write loop here.
+int tss_write_file_digest(const char* path, const void* buf, uint64_t nbytes,
+                          int use_direct, uint64_t chunk_bytes,
+                          uint32_t* crc_out) {
+  HashCtx hc;
+  int rc = write_impl(path, buf, nbytes, use_direct, chunk_bytes, &hc);
+  if (rc == 0 && crc_out) *crc_out = static_cast<uint32_t>(hc.crc);
+  return rc;
+}
+#endif
+
+// Positioned write for STREAMED objects: write `nbytes` from `buf` at byte
+// `offset` of `path` (created if absent, never truncated on open — earlier
+// appends stay). use_direct engages O_DIRECT only when `offset` and `nbytes`
+// are both sector-aligned (the streaming caller keeps an unaligned tail in
+// Python and flushes it buffered at commit); any O_DIRECT failure falls back
+// to buffered I/O. `truncate_to` >= 0 ftruncates the file to that size after
+// the write (the commit call drops O_DIRECT padding / sets the final size).
+int tss_write_at(const char* path, const void* buf, uint64_t nbytes,
+                 uint64_t offset, int use_direct, uint64_t chunk_bytes,
+                 int64_t truncate_to) {
+  const char* src = static_cast<const char*>(buf);
+  const int base_flags = O_WRONLY | O_CREAT;
+
+  int fd = -1;
+  bool direct = use_direct != 0 && nbytes >= kAlign &&
+                offset == align_down(offset) && nbytes == align_down(nbytes);
+  if (direct) {
+    fd = open(path, base_flags | O_DIRECT, 0644);
+    if (fd < 0) direct = false;  // fs without O_DIRECT support
+  }
+  if (fd < 0) fd = open(path, base_flags, 0644);
+  if (fd < 0) return -errno;
+
+  int rc = 0;
+  uint64_t done = 0;
+  uint64_t direct_bytes = 0;
+  if (direct) {
+    if (chunk_bytes < kAlign) chunk_bytes = 64ull << 20;
+    chunk_bytes = align_down(chunk_bytes);
+    void* bounce = nullptr;
+    if (posix_memalign(&bounce, kAlign, chunk_bytes) != 0) {
+      close(fd);
+      return -ENOMEM;
+    }
+    while (done < nbytes) {
+      uint64_t n = std::min(chunk_bytes, nbytes - done);  // aligned: so is n
+      memcpy(bounce, src + done, n);
+      ssize_t w = pwrite(fd, bounce, n, offset + done);
+      if (w < 0) {
+        if (errno == EINTR) continue;
+        if (errno == EINVAL) break;  // device rejected O_DIRECT mid-stream
+        rc = -errno;
+        break;
+      }
+      uint64_t advanced = align_down(static_cast<uint64_t>(w));
+      if (advanced == 0) break;  // no O_DIRECT progress: finish buffered
+      done += advanced;
+    }
+    free(bounce);
+    direct_bytes = done;
+    if (rc == 0 && done < nbytes) {
+      int fd2 = open(path, O_WRONLY, 0644);
+      if (fd2 < 0) {
+        rc = -errno;
+      } else {
+        rc = write_buffered(fd2, src + done, nbytes - done, offset + done);
+        if (close(fd2) < 0 && rc == 0) rc = -errno;
+      }
+    }
+  } else {
+    rc = write_buffered(fd, src, nbytes, offset);
+  }
+  if (rc == 0 && truncate_to >= 0 &&
+      ftruncate(fd, static_cast<off_t>(truncate_to)) < 0) {
+    rc = -errno;
+  }
+  if (close(fd) < 0 && rc == 0) rc = -errno;
+  if (rc == 0) account(kDirectW, kBufferedW, direct_bytes, nbytes);
+  return rc;
+}
+
+// Read `nbytes` at byte `offset` of `path` into `dst`. Fails with -EIO if the
+// file is shorter than offset+nbytes (callers size reads from the manifest).
+int tss_read_file(const char* path, void* dst, uint64_t offset, uint64_t nbytes,
+                  int use_direct, uint64_t chunk_bytes) {
+  char* out = static_cast<char*>(dst);
+
+  int fd = -1;
+  bool direct = use_direct != 0 && nbytes >= kAlign;
+  if (direct) {
+    fd = open(path, O_RDONLY | O_DIRECT);
+    if (fd < 0) direct = false;
+  }
+  if (fd < 0) fd = open(path, O_RDONLY);
+  if (fd < 0) return -errno;
+
+  int rc = 0;
+  uint64_t direct_bytes = 0;
+  if (direct) {
+    if (chunk_bytes < kAlign) chunk_bytes = 64ull << 20;
+    chunk_bytes = align_down(chunk_bytes);
+    void* bounce = nullptr;
+    if (posix_memalign(&bounce, kAlign, chunk_bytes) != 0) {
+      close(fd);
+      return -ENOMEM;
+    }
+    struct stat st;
+    if (fstat(fd, &st) < 0) {
+      free(bounce);
+      close(fd);
+      return -errno;
+    }
+    const uint64_t file_size = static_cast<uint64_t>(st.st_size);
+    if (offset + nbytes > file_size) {
+      free(bounce);
+      close(fd);
+      return -EIO;
+    }
+    uint64_t done = 0;
+    while (done < nbytes && rc == 0) {
+      const uint64_t want_off = offset + done;          // unaligned file offset
+      const uint64_t read_off = align_down(want_off);   // aligned read start
+      const uint64_t lead = want_off - read_off;
+      uint64_t n = std::min(chunk_bytes - lead, nbytes - done);
+      // O_DIRECT reads must not extend past EOF by more than a sector pad.
+      uint64_t padded = std::min(align_up(lead + n), align_up(file_size - read_off));
+      ssize_t r = pread(fd, bounce, padded, read_off);
+      if (r < 0) {
+        if (errno == EINTR) continue;
+        if (errno == EINVAL) break;  // fall back below
+        rc = -errno;
+        break;
+      }
+      uint64_t got = static_cast<uint64_t>(r);
+      if (got <= lead) {
+        // No forward progress under O_DIRECT (short read at an unaligned
+        // boundary — seen on NFS/FUSE). Mirror the write path: finish via
+        // the buffered fallback below instead of failing the restore.
+        break;
+      }
+      uint64_t usable = std::min(got - lead, n);
+      memcpy(out + done, static_cast<char*>(bounce) + lead, usable);
+      done += usable;
+    }
+    free(bounce);
+    direct_bytes = done;
+    if (rc == 0 && done < nbytes) {
+      int fd2 = open(path, O_RDONLY);
+      if (fd2 < 0) {
+        rc = -errno;
+      } else {
+        rc = read_buffered(fd2, out + done, nbytes - done, offset + done);
+        close(fd2);
+      }
+    }
+  } else {
+    rc = read_buffered(fd, out, nbytes, offset);
+  }
+  if (close(fd) < 0 && rc == 0) rc = -errno;
+  if (rc == 0) account(kDirectR, kBufferedR, direct_bytes, nbytes);
+  return rc;
+}
+
+// The counters since load (or the last reset): out[0..3] calls and
+// out[4..7] bytes, each as direct writes, buffered writes, direct reads,
+// buffered reads.
+void tss_io_counts(uint64_t* out) {
+  for (int i = 0; i < kNumCounts; ++i) {
+    out[i] = g_calls[i].load(std::memory_order_relaxed);
+    out[kNumCounts + i] = g_bytes[i].load(std::memory_order_relaxed);
+  }
+}
+
+void tss_io_reset_counts() {
+  for (int i = 0; i < kNumCounts; ++i) {
+    g_calls[i].store(0, std::memory_order_relaxed);
+    g_bytes[i].store(0, std::memory_order_relaxed);
+  }
+}
+
+// File size probe (0 on success with *size set).
+int tss_file_size(const char* path, uint64_t* size) {
+  struct stat st;
+  if (stat(path, &st) < 0) return -errno;
+  *size = static_cast<uint64_t>(st.st_size);
+  return 0;
+}
+
+}  // extern "C"

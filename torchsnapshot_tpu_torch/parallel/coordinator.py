@@ -45,6 +45,7 @@ class Coordinator:
         # reading all keys of generations < b, so own keys older than the
         # last completed barrier may go.
         self._last_barrier_gen = 0
+        self._deferred: List[str] = []
 
     # -- identity -----------------------------------------------------------
     def get_rank(self) -> int:
@@ -73,6 +74,24 @@ class Coordinator:
                 self._store.delete(key)
             except Exception:  # noqa: BLE001 - clean-up is best-effort
                 break
+
+    def defer_delete(self, key: str) -> None:
+        """Delete ``key`` (of this coordinator's store) at the next
+        :meth:`collect_deferred`: a payload of the broadcast and swarm
+        restores, which peers read until the restore's final barrier."""
+        self._deferred.append(key)
+
+    def defer_delete_many(self, keys: List[str]) -> None:
+        self._deferred.extend(keys)
+
+    def collect_deferred(self) -> None:
+        """Delete the deferred keys. Call only once every rank has passed
+        a full-world barrier after they were posted."""
+        keys, self._deferred = self._deferred, []
+        try:
+            self._store.delete_many(keys)
+        except Exception:  # noqa: BLE001 - clean-up is best-effort
+            pass
 
     def note_external_barrier(self) -> None:
         """A full-world rendezvous outside the coordinator completed (the

@@ -62,6 +62,10 @@ class Store(abc.ABC):
         """``try_get`` for each key, in order."""
         return [self.try_get(k) for k in keys]
 
+    def delete_many(self, keys: List[str]) -> None:
+        for k in keys:
+            self.delete(k)
+
     def prefix(self, p: str) -> "PrefixStore":
         return PrefixStore(p, self)
 
@@ -148,9 +152,17 @@ class C10dStore(Store):
     A blocking get is a poll of ``check`` (non-blocking) rather than c10d's
     ``wait``: a ``wait`` holds the client's connection for its whole
     duration, which would stall the async commit thread's barrier ops
-    behind a main-thread collective."""
+    behind a main-thread collective.
+
+    c10d's libuv TCPStore server refuses a message above 8 MiB, so a value
+    above :attr:`PART_BYTES` is stored as parts under ``<key>/#<i>``, written
+    before a small header at ``<key>`` that names them: a reader that sees
+    the header finds every part in place (the broadcast and swarm restores
+    move objects of up to 256 MiB this way)."""
 
     _POLL_S = (0.001, 0.05)  # first and longest poll interval
+    PART_BYTES = 4 * 1024 * 1024
+    _HEADER = b"\x00tss-parts\x00"
 
     def __init__(self, store: Any = None, namespace: str = "tss") -> None:
         if store is None:
@@ -164,7 +176,26 @@ class C10dStore(Store):
         return f"{self._ns}/{key}"
 
     def set(self, key: str, value: bytes) -> None:
-        self._store.set(self._k(key), bytes(value))
+        k = self._k(key)
+        value = memoryview(value).cast("B")
+        if value.nbytes <= self.PART_BYTES:
+            self._store.set(k, bytes(value))
+            return
+        n = -(value.nbytes // -self.PART_BYTES)
+        for i in range(n):
+            self._store.set(f"{k}/#{i}", bytes(value[i * self.PART_BYTES : (i + 1) * self.PART_BYTES]))
+        self._store.set(k, self._HEADER + f"{n}:{value.nbytes}".encode())
+
+    def _value(self, k: str, raw: bytes) -> bytes:
+        if not raw.startswith(self._HEADER):
+            return raw
+        n, total = (int(x) for x in raw[len(self._HEADER) :].decode().split(":"))
+        out = bytearray()
+        for i in range(n):
+            out += self._store.get(f"{k}/#{i}")
+        if len(out) != total:
+            raise RuntimeError(f"store value {k!r}: {len(out)} bytes in its parts, {total} expected")
+        return bytes(out)
 
     def get(self, key: str, timeout_s: float = _DEFAULT_TIMEOUT_S) -> bytes:
         deadline = time.monotonic() + timeout_s
@@ -175,20 +206,33 @@ class C10dStore(Store):
                 raise TimeoutError(f"Store.get timed out waiting for {key!r}")
             time.sleep(poll)
             poll = min(poll * 2, self._POLL_S[1])
-        return bytes(self._store.get(k))
+        return self._value(k, bytes(self._store.get(k)))
 
     def try_get(self, key: str) -> Optional[bytes]:
         k = self._k(key)
         if not self._store.check([k]):
             return None
-        return bytes(self._store.get(k))
+        return self._value(k, bytes(self._store.get(k)))
 
     def add(self, key: str, delta: int) -> int:
         return int(self._store.add(self._k(key), delta))
 
     def delete(self, key: str) -> None:
+        """Never blocks: parts left without a header (a writer that died
+        part-way, or a second deleter) are removed while they are found."""
+        k = self._k(key)
         try:
-            self._store.delete_key(self._k(key))
+            raw = bytes(self._store.get(k)) if self._store.check([k]) else b""
+            if raw.startswith(self._HEADER):
+                n = int(raw[len(self._HEADER) :].decode().split(":")[0])
+                for i in range(n):
+                    self._store.delete_key(f"{k}/#{i}")
+            else:
+                i = 0
+                while self._store.check([f"{k}/#{i}"]):
+                    self._store.delete_key(f"{k}/#{i}")
+                    i += 1
+            self._store.delete_key(k)
         except Exception:  # noqa: BLE001 - cleanup is best-effort
             pass
 

@@ -18,13 +18,19 @@ paths are new each take) the storage plugin links the base's file in
 Such a take never streams: dedup needs the digest before the write.
 
 Read: each request becomes a ``read -> consume`` chain (fetch a byte
-range; copy it into its target), budgeted by the consumer's cost.
+range; copy it into its target), budgeted by the consumer's cost. With
+the snapshot's sidecar digests and ``TSS_TORCH_VERIFY_READS=all``, each
+fetch is verified on the host before it is consumed (so before any H2D):
+a whole object against its record, a range against the v2 chunks it
+covers. A mismatch quarantines any read-cache entry of the path and
+re-fetches once; a second one raises :class:`ReadVerificationError`.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -39,6 +45,15 @@ from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
+
+
+class ReadVerificationError(RuntimeError):
+    """A fetched object's bytes did not match the snapshot's recorded
+    digest twice: the first fetch and one verified re-fetch (with any
+    read-cache entry of the path quarantined between them). Persistent
+    corruption at the source; the restore aborts instead of loading bad
+    bytes into live state."""
+
 
 CHECKSUM_FILE_PREFIX = ".checksums."  # one JSON sidecar per rank
 _STAGE_POOLS = ("staging", "streaming")
@@ -185,11 +200,13 @@ class _WritePipeline:
         ctx.recost(memoryview(buf).nbytes)
         return buf
 
-    async def _storage_write(self, path: str, buf) -> None:
+    async def _storage_write(self, write_io: WriteIO) -> None:
         """One whole-buffer write, timed into the streaming scorecard."""
         t0 = time.monotonic()
-        await self.storage.write(WriteIO(path=path, buf=buf))
-        stream_select.note_whole(self._label, memoryview(buf).nbytes, time.monotonic() - t0)
+        await self.storage.write(write_io)
+        stream_select.note_whole(
+            self._label, memoryview(write_io.buf).nbytes, time.monotonic() - t0
+        )
 
     async def _resolve_base(self) -> None:
         """Load the base's digests once (on the hash pool), and index them
@@ -244,15 +261,33 @@ class _WritePipeline:
             )
             self.checksums[path] = digest
             if not await self._link_from_base(path, digest):
-                await self._storage_write(path, buf)
+                await self._storage_write(WriteIO(path=path, buf=buf))
+            return
+        mv = memoryview(buf).cast("B")
+        if not (self._grain > 0 and mv.nbytes > self._grain):
+            # A v1 record: a plugin that hashes while it writes (the native
+            # fs engine) returns the crc, and only the sha256 is left here.
+            write_io = WriteIO(path=path, buf=buf, want_digest=True)
+            await self._storage_write(write_io)
+            digest = write_io.digest_out
+            if digest is None:
+                digest = await loop.run_in_executor(
+                    self.pools.hash_executor(), hashing.serial_digest, mv, self._want_sha
+                )
+            elif self._want_sha:
+                sha = await loop.run_in_executor(
+                    self.pools.hash_executor(), lambda: hashlib.sha256(mv).hexdigest()
+                )
+                digest = [digest[0], digest[1], sha]
+            self.checksums[path] = digest
             return
         digest = asyncio.ensure_future(
             hashing.hash_buffer(
-                memoryview(buf), self._grain, self._want_sha, loop, self.pools.hash_executor()
+                mv, self._grain, self._want_sha, loop, self.pools.hash_executor()
             )
         )
         try:
-            await self._storage_write(path, buf)
+            await self._storage_write(WriteIO(path=path, buf=buf))
         except BaseException:
             digest.cancel()
             await asyncio.gather(digest, return_exceptions=True)
@@ -375,12 +410,97 @@ def sync_execute_write_reqs(
     return PendingIOWork(pipeline)
 
 
+def _read_digest_record(digests: Optional[Dict[str, Any]], path: str) -> Any:
+    """The sidecar record of ``path`` (v1 list or v2 dict), or None when
+    there is none or it records no size (a legacy bare crc)."""
+    if not digests:
+        return None
+    rec = digests.get(path)
+    return rec if hashing.record_size(rec) is not None else None
+
+
+async def fetch_read_io(
+    storage: StoragePlugin,
+    path: str,
+    byte_range: Optional[Tuple[int, int]],
+    into: Optional[memoryview] = None,
+) -> ReadIO:
+    """One storage fetch of ``path`` (optionally ranged, optionally into
+    the caller's buffer): the one fetch of the read pipeline, the broadcast
+    and the swarm restores."""
+    read_io = ReadIO(path=path, byte_range=byte_range, into=into)
+    await storage.read(read_io)
+    return read_io
+
+
+def _verify_checker(
+    want: Any, byte_range: Optional[Tuple[int, int]]
+) -> Optional[Callable[[memoryview], Optional[str]]]:
+    """The check (run on an executor thread) of one fetch, or None when
+    nothing of it is verifiable: a whole object against its whole record,
+    a range of a v2 record against every chunk the range fully contains
+    (a v1 record cannot verify a range)."""
+    size = hashing.record_size(want)
+    if byte_range is None or (size is not None and tuple(byte_range) == (0, size)):
+        return lambda mv: hashing.verify_buffer(mv, want)
+    begin, end = byte_range
+    if hashing.range_verifiable(want, begin, end):
+        return lambda mv: hashing.verify_range(mv, want, begin, end)
+    return None
+
+
+async def verified_fetch(
+    storage: StoragePlugin,
+    path: str,
+    byte_range: Optional[Tuple[int, int]],
+    checker: Optional[Callable[[memoryview], Optional[str]]],
+    executor: Any,
+    into: Optional[memoryview] = None,
+    what: str = "read",
+) -> ReadIO:
+    """Fetch, and with a ``checker`` verify on ``executor``: a mismatch
+    quarantines the path's read-cache entries and re-fetches once; a
+    second mismatch raises :class:`ReadVerificationError`."""
+    read_io = await fetch_read_io(storage, path, byte_range, into)
+    if checker is None:
+        return read_io
+    loop = asyncio.get_running_loop()
+    problem = await loop.run_in_executor(executor, checker, memoryview(read_io.buf))
+    if problem is None:
+        return read_io
+    logger.warning(
+        "%s of %s failed digest verification (%s); quarantining cache "
+        "entries and re-fetching once", what, path, problem,
+    )
+    from .storage_plugins.cache import find_read_cache
+
+    cache = find_read_cache(storage)
+    if cache is not None:
+        await loop.run_in_executor(executor, cache.quarantine_path, path)
+    read_io = await fetch_read_io(storage, path, byte_range, into)
+    problem = await loop.run_in_executor(executor, checker, memoryview(read_io.buf))
+    if problem is not None:
+        raise ReadVerificationError(
+            f"{what} of {path} failed digest verification twice ({problem}); "
+            "persistent corruption at the source, aborting instead of "
+            "restoring bad bytes"
+        )
+    return read_io
+
+
 async def execute_read_reqs(
     read_reqs: List[ReadReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     executor: ThreadPoolExecutor,
-) -> None:
+    digests: Optional[Dict[str, Any]] = None,
+) -> Dict[str, float]:
+    """Run the read graph; returns ``{"bytes_read", "wall_s",
+    "requests"}``. ``digests`` (the snapshot's merged sidecars) turns on
+    verification under ``TSS_TORCH_VERIFY_READS=all``."""
+    t0 = time.monotonic()
+    verify = knobs.is_origin_read_verify_enabled() and bool(digests)
+    totals = {"bytes_read": 0}
     engine = GraphExecutor(
         memory_budget_bytes,
         caps={"io": MAX_CONCURRENT_IO, "consume": POOL_THREADS},
@@ -388,8 +508,12 @@ async def execute_read_reqs(
 
     async def fetch(_ctx, _payload, req: ReadReq):
         into = req.buffer_consumer.read_into() if req.byte_range is not None else None
-        read_io = ReadIO(path=req.path, byte_range=req.byte_range, into=into)
-        await storage.read(read_io)
+        want = _read_digest_record(digests, req.path) if verify else None
+        checker = _verify_checker(want, req.byte_range) if want is not None else None
+        read_io = await verified_fetch(
+            storage, req.path, req.byte_range, checker, executor, into
+        )
+        totals["bytes_read"] += memoryview(read_io.buf).nbytes
         return read_io.buf
 
     async def consume(_ctx, buf, req: ReadReq) -> None:
@@ -414,6 +538,11 @@ async def execute_read_reqs(
             )
         )
     await engine.run()
+    return {
+        "bytes_read": float(totals["bytes_read"]),
+        "wall_s": time.monotonic() - t0,
+        "requests": float(len(read_reqs)),
+    }
 
 
 def sync_execute_read_reqs(
@@ -421,8 +550,9 @@ def sync_execute_read_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     event_loop: asyncio.AbstractEventLoop,
-) -> None:
+    digests: Optional[Dict[str, Any]] = None,
+) -> Dict[str, float]:
     with ThreadPoolExecutor(POOL_THREADS, thread_name_prefix="tss-consume") as ex:
-        event_loop.run_until_complete(
-            execute_read_reqs(read_reqs, storage, memory_budget_bytes, ex)
+        return event_loop.run_until_complete(
+            execute_read_reqs(read_reqs, storage, memory_budget_bytes, ex, digests)
         )

@@ -56,13 +56,15 @@ import os
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from . import d2h
-from . import prepare_cache
+from . import bcast as bcast_mod
+from . import d2h, hashing, prepare_cache, scheduler
+from . import swarm as swarm_mod
 from .batcher import batch_read_requests, batch_write_requests
 from .flatten import flatten, inflate
 from .hashing import record_content_keys, record_crc
@@ -108,6 +110,7 @@ from .partitioner import (
     partition_write_reqs_with_assignment,
 )
 from .rng_state import RNGState
+from .engine import GraphExecutor, Node
 from .scheduler import (
     CHECKSUM_FILE_PREFIX,
     MAX_CONCURRENT_IO,
@@ -126,6 +129,7 @@ from .serialization import (
 )
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
+from .storage_plugins.cache import find_read_cache
 from .take_plan import (
     CachedPlan,
     TakePlan,
@@ -149,6 +153,48 @@ LAST_TAKE_CACHE: Dict[str, bool] = {}
 # Drain stats of this process's last sync take (see
 # PendingSnapshot.drain_stats).
 LAST_SYNC_DRAIN_STATS: Dict[str, float] = {}
+# This process's last restore: wall seconds, the read pipelines' totals
+# (bytes_read, read_wall_s, requests), the broadcast and swarm records
+# (``bcast.LAST_RESTORE_BCAST``, ``swarm.LAST_RESTORE_SWARM``) and the
+# origin/peer/cache byte attribution (``attribution``).
+LAST_RESTORE_STATS: Dict[str, Any] = {}
+
+
+class _RestoreModes:
+    """A restore's collective transports, decided once for every stateful
+    and every rank: the coordinator (None at world 1) and whether the
+    broadcast and the swarm are on."""
+
+    __slots__ = ("coord", "bcast", "swarm")
+
+    def __init__(self, coord: Optional[Coordinator], bcast: bool, swarm: bool) -> None:
+        self.coord = coord
+        self.bcast = bcast
+        self.swarm = swarm
+
+
+def _restore_attribution(
+    bcast_rec: Dict[str, Any],
+    swarm_rec: Dict[str, Any],
+    read_totals: Dict[str, float],
+    storage: StoragePlugin,
+) -> Dict[str, int]:
+    """Where this rank's restore bytes came from: ``origin_bytes`` (the
+    broadcast's fetches, the swarm's chunk reads, and the read pipelines'
+    fetches less what the read cache served), ``peer_bytes`` (broadcast
+    payloads and swarm chunks received) and ``cache_bytes``."""
+    cache = find_read_cache(storage)
+    cache_hit_bytes = int(cache.stats.get("hit_bytes", 0)) if cache is not None else 0
+    swarm_cache = int(swarm_rec.get("cache_bytes", 0))
+    pipeline_cache = max(0, cache_hit_bytes - swarm_cache)
+    pipeline_read = int(read_totals.get("bytes_read", 0))
+    return {
+        "origin_bytes": int(bcast_rec.get("origin_bytes", 0))
+        + int(swarm_rec.get("origin_bytes", 0))
+        + max(0, pipeline_read - pipeline_cache),
+        "peer_bytes": int(bcast_rec.get("recv_bytes", 0)) + int(swarm_rec.get("peer_bytes", 0)),
+        "cache_bytes": swarm_cache + pipeline_cache,
+    }
 
 
 class CheckpointAbortedError(RuntimeError):
@@ -648,31 +694,81 @@ class Snapshot:
 
     # --------------------------------------------------------------- restore
     def restore(
-        self, app_state: AppState, device: Any = "cuda", coordinator: Optional[Coordinator] = None
+        self,
+        app_state: AppState,
+        device: Any = "cuda",
+        coordinator: Optional[Coordinator] = None,
+        include: Optional[List[str]] = None,
     ) -> None:
         """Load every stateful of ``app_state`` from this snapshot, in place
         into live tensors where dtype and shape match. A live DTensor's
         local shard is filled from the saved bytes that overlap it, on its
-        own device, whatever sharding the snapshot was saved with."""
+        own device, whatever sharding the snapshot was saved with.
+
+        ``include``: logical-path globs (e.g. ``["model/blocks/0"]``)
+        restricting the restore to the matching subtrees: a lazy partial
+        restore reads only the byte ranges of those entries, and every
+        other leaf keeps its live value. A glob selects an entry when it
+        fnmatches its path, equals it, or names an ancestor. Every rank
+        passes the same ``include``.
+
+        With several ranks, replicated entries may be read once and shared
+        (``TSS_TORCH_BCAST_RESTORE``, ``TSS_TORCH_SWARM_RESTORE``); reads
+        are verified under ``TSS_TORCH_VERIFY_READS``. A failure on any
+        rank reaches every rank as :class:`CheckpointAbortedError`; live
+        state may then be partly loaded. ``LAST_RESTORE_STATS`` holds this
+        process's accounting of the restore."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator or self._coordinator)
         rank = coord.get_rank()
+        world = coord.get_world_size()
         barrier = self._barrier(coord, "restore", self.path)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path)
+        t0 = time.monotonic()
+        bcast_mod.reset_diagnostics()
+        swarm_mod.reset_diagnostics()
+        LAST_RESTORE_STATS.clear()
+        totals = {"bytes_read": 0.0, "read_wall_s": 0.0, "requests": 0.0}
+        modes = _RestoreModes(
+            coord if world > 1 else None,
+            knobs.is_broadcast_restore_enabled(world),
+            knobs.is_swarm_restore_enabled(world),
+        )
         phase = "restore.plan"
         try:
-            manifest = get_manifest_for_rank(self._read_metadata(storage, event_loop), rank)
+            metadata = self._read_metadata(storage, event_loop)
+            digests = self._load_digest_index(storage, metadata, event_loop)
+            self._attach_cache_digests(storage, digests)
+            manifest = get_manifest_for_rank(metadata, rank)
             phase = "restore.read"
             # RNG last, so loading other statefuls cannot perturb it.
             keys = sorted(app_state, key=lambda k: (isinstance(app_state[k], RNGState), k))
             for key in keys:
-                self._load_stateful(key, app_state[key], manifest, storage, event_loop, device)
+                stateful = app_state[key]
+                _, live = flatten(stateful.state_dict(), prefix=key)
+                state, stats = self._read_tree(
+                    key, manifest, live, storage, event_loop, device, None,
+                    include=include, modes=modes, digests=digests,
+                )
+                stateful.load_state_dict(state)
+                totals["bytes_read"] += stats["bytes_read"]
+                totals["read_wall_s"] += stats["wall_s"]
+                totals["requests"] += stats["requests"]
             phase = "restore.barrier"
             if barrier is not None:
                 barrier.arrive()
                 barrier.depart()
                 coord.note_external_barrier()
+                # Every rank has read every broadcast and swarm payload.
+                coord.collect_deferred()
+            LAST_RESTORE_STATS.update(totals)
+            LAST_RESTORE_STATS["wall_s"] = time.monotonic() - t0
+            LAST_RESTORE_STATS["bcast"] = dict(bcast_mod.LAST_RESTORE_BCAST)
+            LAST_RESTORE_STATS["swarm"] = dict(swarm_mod.LAST_RESTORE_SWARM)
+            LAST_RESTORE_STATS["attribution"] = _restore_attribution(
+                bcast_mod.LAST_RESTORE_BCAST, swarm_mod.LAST_RESTORE_SWARM, totals, storage
+            )
         except BaseException as e:
             if barrier is None:
                 raise
@@ -684,20 +780,6 @@ class Snapshot:
             storage.sync_close(event_loop)
             event_loop.close()
 
-    def _load_stateful(
-        self,
-        key: str,
-        stateful: Any,
-        manifest: Manifest,
-        storage: StoragePlugin,
-        event_loop: asyncio.AbstractEventLoop,
-        device: Any,
-    ) -> None:
-        _, live = flatten(stateful.state_dict(), prefix=key)
-        stateful.load_state_dict(
-            self._read_tree(key, manifest, live, storage, event_loop, device, None)
-        )
-
     def _read_tree(
         self,
         logical_path: str,
@@ -707,10 +789,15 @@ class Snapshot:
         event_loop: asyncio.AbstractEventLoop,
         device: Any,
         memory_budget_bytes: Optional[int],
-    ) -> Any:
-        """Read the leaf at ``logical_path``, or every leaf under it and
-        rebuild the nested value. ``live`` maps logical paths to the tensors
-        to fill in place."""
+        include: Optional[List[str]] = None,
+        modes: Optional["_RestoreModes"] = None,
+        digests: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[Any, Dict[str, float]]:
+        """Read the leaf at ``logical_path``, or every leaf under it, and
+        rebuild the nested value; returns it with the read pipeline's
+        stats. ``live`` maps logical paths to the tensors to fill in place;
+        leaves ``include`` leaves out keep them. ``modes`` (several ranks)
+        sends replicated entries through the broadcast or the swarm."""
         prefix = f"{logical_path}/"
         scoped = {
             p: e for p, e in manifest.items() if p == logical_path or p.startswith(prefix)
@@ -719,33 +806,81 @@ class Snapshot:
             raise KeyError(f"{logical_path!r} not found in snapshot {self.path!r}")
         budget = memory_budget_bytes or knobs.get_memory_budget_bytes()
         loaded: Dict[str, Any] = {}
+        entries = {p: e for p, e in scoped.items() if not is_container_entry(e)}
+        if include:
+            selected = {p: e for p, e in entries.items() if _matches_include(p, include)}
+            for p in entries:
+                if p not in selected and p in live:
+                    loaded[p] = live[p]
+            entries = selected
         h2d = d2h.HostToDevice()
         read_reqs: List[ReadReq] = []
         finalizers: List[Callable[[], None]] = []
+        bcast_items: List[bcast_mod.BroadcastItem] = []
+        swarm_items: List[swarm_mod.SwarmItem] = []
+        swarm_need: Dict[str, List[frozenset]] = {}
         frame_tables = _fetch_frame_tables(
-            [(e, live.get(p)) for p, e in scoped.items() if not is_container_entry(e)],
-            storage,
-            event_loop,
-            budget,
+            [(e, live.get(p)) for p, e in entries.items()], storage, event_loop, budget
         )
-        for p, entry in scoped.items():
-            if is_container_entry(entry):
+        # Direct shard sub-reads align to the sidecars' hash chunks only
+        # where something uses whole chunks: verification of every read, or
+        # a read cache's chunk tier. Otherwise alignment only reads more.
+        align = digests if knobs.is_origin_read_verify_enabled() or find_read_cache(storage) else None
+        coord = modes.coord if modes is not None else None
+        for p, entry in entries.items():
+            target = live.get(p)
+            mode = "direct"
+            if coord is not None:
+                mode = bcast_mod.select_restore_mode(
+                    entry, target, modes.bcast, modes.swarm, digests
+                )
+            if mode == "reshard":
+                need = swarm_mod.plan_reshard_need(entry, target, digests, coord.get_world_size())
+                if need is not None:
+                    reqs, fin = _prepare_restore_one(
+                        p, entry, target, loaded, device, None, h2d, frame_tables, digests
+                    )
+                    swarm_need.update(need)
+                    swarm_items.append(
+                        swarm_mod.SwarmItem(
+                            p, reqs, fin, paths=[s.tensor.location for s in entry.shards]
+                        )
+                    )
+                    continue
+                mode = "direct"
+            if mode in ("bcast", "swarm"):
+                # No budget split: the same reads on every rank.
+                reqs, fin = _prepare_restore_one(
+                    p, entry, target, loaded, device, None, h2d, frame_tables, digests
+                )
+                item_cls = bcast_mod.BroadcastItem if mode == "bcast" else swarm_mod.SwarmItem
+                (bcast_items if mode == "bcast" else swarm_items).append(item_cls(p, reqs, fin))
                 continue
             reqs, fin = _prepare_restore_one(
-                p, entry, live.get(p), loaded, device, budget, h2d, frame_tables
+                p, entry, target, loaded, device, budget, h2d, frame_tables, align
             )
             read_reqs.extend(reqs)
             if fin is not None:
                 finalizers.append(fin)
-        read_reqs = batch_read_requests(read_reqs, max_merged_bytes=budget)
-        sync_execute_read_reqs(read_reqs, storage, budget, event_loop)
+        if bcast_items or swarm_items:
+            with ThreadPoolExecutor(
+                scheduler.POOL_THREADS, thread_name_prefix="tss-collective"
+            ) as executor:
+                bcast_mod.run_broadcast(bcast_items, storage, coord, event_loop, executor, digests)
+                swarm_mod.run_swarm(
+                    swarm_items, storage, coord, event_loop, executor, digests, swarm_need or None
+                )
+        read_reqs = batch_read_requests(
+            read_reqs, max_merged_bytes=budget, merge_large=find_read_cache(storage) is not None
+        )
+        stats = sync_execute_read_reqs(read_reqs, storage, budget, event_loop, digests)
         for fin in finalizers:
             fin()
         h2d.finish()
         containers = {p: e for p, e in scoped.items() if is_container_entry(e)}
         if not containers and logical_path in loaded:
-            return loaded[logical_path]
-        return inflate(containers, loaded, prefix=logical_path)
+            return loaded[logical_path], stats
+        return inflate(containers, loaded, prefix=logical_path), stats
 
     # ----------------------------------------------------------- read_object
     def read_object(
@@ -766,10 +901,11 @@ class Snapshot:
         storage = url_to_storage_plugin(self.path)
         try:
             rank_str, _, logical_path = path.partition("/")
-            manifest = get_manifest_for_rank(
-                self._read_metadata(storage, event_loop), int(rank_str)
-            )
-            return self._read_tree(
+            metadata = self._read_metadata(storage, event_loop)
+            digests = self._load_digest_index(storage, metadata, event_loop)
+            self._attach_cache_digests(storage, digests)
+            manifest = get_manifest_for_rank(metadata, int(rank_str))
+            value, _ = self._read_tree(
                 logical_path,
                 manifest,
                 {logical_path: obj_out},
@@ -777,10 +913,56 @@ class Snapshot:
                 event_loop,
                 device,
                 memory_budget_bytes,
+                digests=digests,
             )
+            return value
         finally:
             storage.sync_close(event_loop)
             event_loop.close()
+
+    def _load_digest_index(
+        self,
+        storage: StoragePlugin,
+        metadata: SnapshotMetadata,
+        event_loop: asyncio.AbstractEventLoop,
+    ) -> Optional[Dict[str, Any]]:
+        """The merged sidecars ``{path: record}``, when a reader uses them:
+        the read cache (content keys, hit checks) or read verification
+        (any ``TSS_TORCH_VERIFY_READS`` but ``off``). None otherwise, or
+        when they cannot be read: reads then go unverified, never fail."""
+        if not knobs.get_read_cache_dir() and knobs.get_verify_reads_mode() == "off":
+            return None
+        try:
+            merged, _ = _read_checksum_sidecars(storage, metadata.world_size, event_loop)
+        except Exception:  # noqa: BLE001 - degrade, never fail the restore
+            logger.warning(
+                "could not read the checksum sidecars; reads go unverified", exc_info=True
+            )
+            return None
+        return merged or None
+
+    @staticmethod
+    def _attach_cache_digests(storage: StoragePlugin, digests: Optional[Dict[str, Any]]) -> None:
+        """Hand a read cache in the plugin stack ``{path: (size, content
+        key, crc32, chunk info)}`` from the sidecars, making its entries
+        content-addressed and its hits checkable."""
+        if not digests or not knobs.get_read_cache_dir():
+            return
+        cache = find_read_cache(storage)
+        if cache is None:
+            return
+        index = {}
+        for p, v in digests.items():
+            size = hashing.record_size(v)
+            if size is not None:
+                index[p] = (
+                    size,
+                    hashing.record_cache_key(v),
+                    hashing.record_crc(v),
+                    hashing.record_chunk_info(v),
+                )
+        if index:
+            cache.attach_digest_index(index)
 
     # ---------------------------------------------------------------- verify
     def verify(self) -> Dict[str, str]:
@@ -829,6 +1011,147 @@ class Snapshot:
         finally:
             storage.sync_close(event_loop)
             event_loop.close()
+
+    # ----------------------------------------------------------------- scrub
+    def scrub(self, repair: bool = False) -> Dict[str, Any]:
+        """Deep integrity audit of this snapshot and, with ``repair=True``,
+        self-healing. Every object the manifest names is read (through the
+        budgeted read engine) and checked against the sidecars: its size,
+        then per chunk for a v2 record (naming the bad chunks), else its
+        sha256, else its crc32. Every framed payload's ``.ftab`` must
+        parse and its frames sum to the payload's length. Returns::
+
+            {"entries": {path: {"status", "detail"}}, "objects", "bytes",
+             "problems", "corrupt", "repaired", "quarantined", "clean"}
+
+        Statuses: ``ok``, ``corrupt``, ``missing``, ``unreadable``,
+        ``unverified`` (no readable sidecar covers it), ``ftab-mismatch``,
+        and with ``repair=True`` ``repaired`` or ``quarantined``. Repair
+        rewrites a corrupt or missing object from a copy this scrub
+        verified with the same (size, content key) in the sidecars (another
+        rank's copy of a replicated value, or a deduped twin), patching
+        only the bad chunks of a v2 record; a corrupt object with no such
+        copy moves to ``<path>.quarantined``, so a later restore fails on
+        it rather than load it, and any read-cache entry of it is removed.
+        One process, no collectives."""
+        event_loop = asyncio.new_event_loop()
+        storage = url_to_storage_plugin(self.path)
+        try:
+            return self._scrub_impl(storage, event_loop, repair)
+        finally:
+            storage.sync_close(event_loop)
+            event_loop.close()
+
+    def _scrub_impl(
+        self, storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop, repair: bool
+    ) -> Dict[str, Any]:
+        metadata = self._read_metadata(storage, event_loop)
+        expected, unreadable = _read_checksum_sidecars(storage, metadata.world_size, event_loop)
+        locations = sorted(_manifest_storage_locations(metadata.manifest))
+        entries: Dict[str, Dict[str, str]] = {}
+        sizes: Dict[str, int] = {}
+        scanned = [0]
+        # (size, content key) -> paths this scrub verified: repair sources.
+        clean_by_content: Dict[Tuple[int, str], List[str]] = {}
+        corrupt_chunks: Dict[str, List[int]] = {}
+
+        def record(path: str, status: str, detail: str = "") -> None:
+            entries[path] = {"status": status, "detail": detail}
+
+        def digest_of(path: str) -> Any:
+            rec = expected.get(path)
+            return rec if isinstance(rec, int) or hashing.record_size(rec) is not None else None
+
+        def check(path: str, want: Any, data: memoryview) -> None:
+            sizes[path] = data.nbytes
+            scanned[0] += data.nbytes
+            if want is None:
+                record(path, "unverified", _uncovered_problem(path, unreadable))
+                return
+            size_want = hashing.record_size(want)
+            if size_want is not None and data.nbytes != size_want:
+                record(path, "corrupt", f"size {data.nbytes} != recorded {size_want}")
+                return
+            info = hashing.record_chunk_info(want)
+            if info is not None:
+                bad = hashing.find_bad_chunks(data, want)
+                if bad:
+                    corrupt_chunks[path] = bad
+                    kind = "sha256" if info[1] is not None else "crc32"
+                    record(path, "corrupt", f"chunk {kind} mismatch at chunk(s) {bad} (grain {info[0]})")
+                    return
+            else:
+                sha_want = hashing.record_whole_sha(want)
+                if sha_want:
+                    got = hashlib.sha256(data).hexdigest()
+                    if got != sha_want:
+                        record(path, "corrupt", f"sha256 {got} != recorded {sha_want}")
+                        return
+                crc_want = hashing.record_crc(want)
+                got_crc = zlib.crc32(data)
+                if isinstance(crc_want, int) and got_crc != crc_want:
+                    record(path, "corrupt", f"crc32 {got_crc} != recorded {crc_want}")
+                    return
+            record(path, "ok")
+            if size_want is not None:
+                for key in hashing.record_content_keys(want):
+                    clean_by_content.setdefault((size_want, key), []).append(path)
+
+        budget = knobs.get_memory_budget_bytes()
+        engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO})
+        hash_pool = ThreadPoolExecutor(scheduler.POOL_THREADS, thread_name_prefix="tss-scrub")
+
+        async def scan(path: str, want: Any) -> None:
+            read_io = ReadIO(path=path)
+            try:
+                await storage.read(read_io)
+            except FileNotFoundError:
+                record(path, "missing")
+                return
+            except Exception as e:  # noqa: BLE001 - reported
+                record(path, "unreadable", repr(e))
+                return
+            data = memoryview(read_io.buf).cast("B")
+            await asyncio.get_running_loop().run_in_executor(hash_pool, check, path, want, data)
+
+        for path in locations:
+            want = digest_of(path)
+            size = hashing.record_size(want)
+            engine.add(
+                Node(
+                    "verify",
+                    lambda ctx, _p, path=path, want=want: scan(path, want),
+                    cost_bytes=min(size if size is not None else budget // 8, budget),
+                    pool="io",
+                    path=path,
+                )
+            )
+        try:
+            event_loop.run_until_complete(engine.run())
+        finally:
+            hash_pool.shutdown()
+        event_loop.run_until_complete(
+            _scrub_ftabs(storage, _framed_locations(metadata.manifest), sizes, record)
+        )
+        for r, err in sorted(unreadable.items()):
+            record(f"{CHECKSUM_FILE_PREFIX}{r}", "unreadable", f"sidecar unreadable ({err})")
+        repaired = quarantined = 0
+        if repair:
+            repaired, quarantined = event_loop.run_until_complete(
+                _scrub_repair(storage, entries, digest_of, clean_by_content, corrupt_chunks)
+            )
+        corrupt = sum(1 for e in entries.values() if e["status"] == "corrupt")
+        problems = sum(1 for e in entries.values() if e["status"] not in ("ok", "repaired"))
+        return {
+            "entries": entries,
+            "objects": len(locations),
+            "bytes": scanned[0],
+            "problems": problems,
+            "corrupt": corrupt,
+            "repaired": repaired,
+            "quarantined": quarantined,
+            "clean": problems == 0,
+        }
 
     # -------------------------------------------------------------- metadata
     @property
@@ -930,6 +1253,180 @@ def _read_checksum_sidecars(
         except Exception as e:  # noqa: BLE001 - reported to the caller
             unreadable[rank] = repr(e)
     return merged, unreadable
+
+
+def _matches_include(path: str, globs: List[str]) -> bool:
+    """Whether a lazy restore's include list selects a logical path: a glob
+    that fnmatches it, equals it, or names an ancestor (``"model/encoder"``
+    selects its whole subtree)."""
+    for g in globs:
+        g = g.rstrip("/")
+        if path == g or path.startswith(f"{g}/") or fnmatch.fnmatch(path, g):
+            return True
+    return False
+
+
+def _uncovered_problem(location: str, unreadable: Dict[int, str]) -> str:
+    """Why no sidecar covers ``location``: a per-rank object names its
+    rank's sidecar when that one was unreadable; an object any rank may
+    have written says which sidecars could not be read."""
+    owner, _, _ = location.partition("/")
+    if owner.isdigit():
+        if int(owner) in unreadable:
+            return "unverified (this rank's checksum sidecar was unreadable)"
+        return "unverified (no checksum recorded)"
+    if unreadable:
+        ranks = ",".join(str(r) for r in sorted(unreadable))
+        return (
+            "unverified (uncovered by any readable sidecar; the sidecar of "
+            f"rank(s) {ranks} was unreadable and may cover this object)"
+        )
+    return "unverified (no checksum recorded)"
+
+
+def _framed_locations(manifest: Manifest) -> Set[str]:
+    """Locations with a ``.ftab`` table: framed payloads and member-framed
+    slabs."""
+
+    def has_table(sub: Any) -> bool:
+        return bool(getattr(sub, "frame_bytes", None)) or getattr(sub, "raw_range", None) is not None
+
+    out: Set[str] = set()
+    for entry in manifest.values():
+        if getattr(entry, "location", None) and has_table(entry):
+            out.add(entry.location)
+        for chunk in getattr(entry, "chunks", None) or []:
+            if has_table(chunk.tensor):
+                out.add(chunk.tensor.location)
+        for shard in getattr(entry, "shards", None) or []:
+            if has_table(shard.tensor):
+                out.add(shard.tensor.location)
+    return out
+
+
+async def _scrub_ftabs(
+    storage: StoragePlugin, framed: Set[str], sizes: Dict[str, int], record: Callable[..., None]
+) -> None:
+    """Each table must parse and its frames sum to its payload's length."""
+    sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+
+    async def check_one(loc: str) -> None:
+        ftab_path = loc + FRAME_TABLE_SUFFIX
+        async with sem:
+            read_io = ReadIO(path=ftab_path)
+            try:
+                await storage.read(read_io)
+            except FileNotFoundError:
+                record(ftab_path, "missing", f"frame table of {loc}")
+                return
+            except Exception as e:  # noqa: BLE001 - reported
+                record(ftab_path, "unreadable", repr(e))
+                return
+        try:
+            parsed = json.loads(bytes(read_io.buf).decode())
+            frame_sizes = [int(x) for x in parsed["sizes"]]
+            if parsed.get("member_framed") and len(frame_sizes) != len(parsed["raw_sizes"]):
+                raise ValueError(f"{len(frame_sizes)} frames vs {len(parsed['raw_sizes'])} raw sizes")
+        except Exception as e:  # noqa: BLE001 - a rotten table
+            record(ftab_path, "ftab-mismatch", f"unparseable: {e!r}")
+            return
+        payload_size = sizes.get(loc)
+        if payload_size is not None and sum(frame_sizes) != payload_size:
+            record(
+                ftab_path,
+                "ftab-mismatch",
+                f"frames sum to {sum(frame_sizes)} but payload is {payload_size} bytes",
+            )
+        else:
+            record(ftab_path, "ok")
+
+    await asyncio.gather(*(check_one(loc) for loc in sorted(framed)))
+
+
+async def _scrub_repair(
+    storage: StoragePlugin,
+    entries: Dict[str, Dict[str, str]],
+    digest_of: Callable[[str], Any],
+    clean_by_content: Dict[Tuple[int, str], List[str]],
+    corrupt_chunks: Dict[str, List[int]],
+) -> Tuple[int, int]:
+    """Rewrite corrupt or missing objects from a verified copy of the same
+    content (only the bad chunks' extents for a v2 record), re-verifying
+    the result; move corrupt objects without one to ``<path>.quarantined``.
+    A crc-only record cannot prove a content match: never repaired.
+    Returns (repaired, quarantined)."""
+    cache = find_read_cache(storage)
+    repaired = quarantined = 0
+    targets = [
+        p for p, e in entries.items()
+        if e["status"] in ("corrupt", "missing") and digest_of(p) is not None
+    ]
+    for path in sorted(targets):
+        status = entries[path]["status"]
+        rec = digest_of(path)
+        size_want = hashing.record_size(rec)
+        sources: List[str] = []
+        if size_want is not None:
+            for key in hashing.record_content_keys(rec):
+                for src in clean_by_content.get((size_want, key), []):
+                    if src != path and src not in sources:
+                        sources.append(src)
+        bad = corrupt_chunks.get(path)
+        info = hashing.record_chunk_info(rec)
+        healed = False
+        for src in sources:
+            try:
+                if bad and info is not None and status == "corrupt":
+                    cur = ReadIO(path=path)
+                    await storage.read(cur)
+                    data = bytearray(memoryview(cur.buf).cast("B"))
+                    if len(data) != size_want:
+                        raise ValueError(f"object is {len(data)} bytes now, recorded {size_want}")
+                    grain = info[0]
+                    for k in bad:
+                        b, e = k * grain, min((k + 1) * grain, size_want)
+                        rio = ReadIO(path=src, byte_range=(b, e))
+                        await storage.read(rio)
+                        data[b:e] = memoryview(rio.buf).cast("B")
+                    how = f"chunk(s) {bad} patched from {src}"
+                else:
+                    rio = ReadIO(path=src)
+                    await storage.read(rio)
+                    data = bytes(memoryview(rio.buf).cast("B"))
+                    how = f"rewritten from {src}"
+                if hashing.verify_buffer(memoryview(data), rec) is not None:
+                    continue  # the source rotted since the scan
+                await storage.write(WriteIO(path=path, buf=bytes(data)))
+            except Exception:  # noqa: BLE001 - try the next source
+                logger.warning("scrub repair of %s from %s failed", path, src, exc_info=True)
+                continue
+            prior = entries[path]["detail"] or status
+            entries[path] = {"status": "repaired", "detail": f"{how} (was: {prior})"}
+            repaired += 1
+            healed = True
+            break
+        if healed:
+            if cache is not None:
+                cache.quarantine_path(path)
+            continue
+        if status != "corrupt":
+            continue  # missing, and no copy: nothing to move aside
+        try:
+            read_io = ReadIO(path=path)
+            await storage.read(read_io)
+            await storage.write(WriteIO(path=f"{path}.quarantined", buf=bytes(read_io.buf)))
+            await storage.delete(path)
+        except Exception:  # noqa: BLE001 - reported, the scrub goes on
+            logger.warning("could not quarantine corrupt object %s", path, exc_info=True)
+            continue
+        if cache is not None:
+            cache.quarantine_path(path)
+        entries[path] = {
+            "status": "quarantined",
+            "detail": f"moved to {path}.quarantined ({entries[path]['detail']})",
+        }
+        quarantined += 1
+    return repaired, quarantined
 
 
 def _manifest_storage_locations(manifest: Manifest) -> Set[str]:
@@ -1043,19 +1540,24 @@ def _prepare_restore_one(
     live: Any,
     loaded: Dict[str, Any],
     device: Any,
-    buffer_size_limit_bytes: int,
+    buffer_size_limit_bytes: Optional[int],
     h2d: d2h.HostToDevice,
     frame_tables: Optional[Dict[str, Any]] = None,
+    digests: Optional[Dict[str, Any]] = None,
 ) -> Tuple[List[ReadReq], Optional[Callable[[], None]]]:
     """Plan the reads of one entry; returns (read_reqs, finalizer). The
     finalizer (run after every read) moves a filled host buffer onto its
-    CUDA device. A compressed entry is decoded into that host buffer."""
+    CUDA device. A compressed entry is decoded into that host buffer.
+    ``digests`` aligns a sharded entry's sub-reads to the sidecars' hash
+    chunks, so each read covers whole chunks (verifiable, cacheable, and
+    the need-aware swarm's unit)."""
     frame_tables = frame_tables or {}
     if isinstance(entry, ShardedArrayEntry) or (
         is_dtensor(live) and isinstance(entry, (ArrayEntry, ChunkedArrayEntry))
     ):
         return _prepare_sharded_restore(
-            logical_path, entry, live, loaded, device, buffer_size_limit_bytes, h2d, frame_tables
+            logical_path, entry, live, loaded, device, buffer_size_limit_bytes, h2d,
+            frame_tables, digests,
         ), None
     if isinstance(entry, PrimitiveEntry):
         loaded[logical_path] = entry.get_value()
@@ -1152,9 +1654,10 @@ def _prepare_sharded_restore(
     live: Any,
     loaded: Dict[str, Any],
     device: Any,
-    buffer_size_limit_bytes: int,
+    buffer_size_limit_bytes: Optional[int],
     h2d: d2h.HostToDevice,
     frame_tables: Dict[str, Any],
+    digests: Optional[Dict[str, Any]] = None,
 ) -> List[ReadReq]:
     """Reads that fill, from the saved shards that overlap it, each target:
     the local shard of a live DTensor (in place), else the live tensor or a
@@ -1194,7 +1697,7 @@ def _prepare_sharded_restore(
         if t.device.type == "cuda":
             h2d.stream(t.device)  # on this (the caller's) thread
     return ShardedArrayIOPreparer.prepare_read(
-        saved, targets, buffer_size_limit_bytes, None, h2d, frame_tables
+        saved, targets, buffer_size_limit_bytes, digests, h2d, frame_tables
     )
 
 

@@ -4,7 +4,8 @@ A port of ``run_with_processes`` of ``torchsnapshot_tpu/test_utils.py``.
 :func:`run_with_processes` spawns ``nproc`` real processes, each running
 ``fn(rank, world_size, *args)``. The calling process hosts a
 :class:`TCPStore` and every rank installs a :class:`Coordinator` over it as
-its default; with ``process_group=True`` the calling process hosts a c10d
+its default (and sees ``LOCAL_WORLD_SIZE``, as under torchrun); with
+``process_group=True`` the calling process hosts a c10d
 store instead, on which the ranks form a gloo process group, and that store
 carries the coordination (:class:`C10dStore`). Spawned workers re-import
 the caller's module, so a script that calls this needs an
@@ -30,9 +31,13 @@ def _worker_entry(
     error_queue: "mp.Queue",
     args: tuple,
 ) -> None:
+    import os
+
     from .parallel import coordinator as coordinator_mod
     from .parallel.store import TCPStore
 
+    # The ranks share this host's disk, as torchrun would report.
+    os.environ["LOCAL_WORLD_SIZE"] = str(world_size)
     try:
         if c10d_port is not None:
             import torch.distributed as dist

@@ -4,10 +4,11 @@ A subset of ``torchsnapshot_tpu/utils/knobs.py``, with the same defaults:
 the layout and digest settings the format tests pin, batching, the
 host memory budget, the shard size, the barrier timeout, the
 collective sanitizer, compression (codec, level, frame size), the plan and
-prepared-take caches, and the streaming mode. The JAX package's tuning
-knobs (thread and I/O widths, the D2H window, device batching, the async
-device copy, checksums off) are constants here until a workload needs
-another value. The prefix differs from the JAX package's on purpose, so
+prepared-take caches, the streaming mode, the native O_DIRECT engine,
+read verification, the read cache, and the broadcast and swarm restores.
+The JAX package's tuning knobs (thread and I/O widths, the D2H window,
+device batching, the async device copy, checksums off) are constants here
+until a workload needs another value. The prefix differs from the JAX package's on purpose, so
 the two packages' settings never alias. Context-manager overrides let
 tests force chunking, batching or small hash grains on tiny tensors.
 """
@@ -37,6 +38,19 @@ _ENV_PREPARED_CACHE = _P + "PREPARED_CACHE"
 _ENV_PREPARED_CACHE_SIZE = _P + "PREPARED_CACHE_SIZE"
 _ENV_STREAM_WRITES = _P + "STREAM_WRITES"
 _ENV_STREAM_INFLIGHT = _P + "STREAM_INFLIGHT"
+_ENV_DISABLE_NATIVE_IO = _P + "DISABLE_NATIVE_IO"
+_ENV_DIRECT_IO_THRESHOLD = _P + "DIRECT_IO_THRESHOLD_BYTES"
+_ENV_DIRECT_IO_CONCURRENCY = _P + "DIRECT_IO_CONCURRENCY"
+_ENV_DIRECT_IO_CHUNK = _P + "DIRECT_IO_CHUNK_BYTES"
+_ENV_READ_CACHE_DIR = _P + "READ_CACHE_DIR"
+_ENV_READ_CACHE_BYTES = _P + "READ_CACHE_BYTES"
+_ENV_READ_CACHE_VERIFY = _P + "READ_CACHE_VERIFY"
+_ENV_VERIFY_READS = _P + "VERIFY_READS"
+_ENV_BCAST_RESTORE = _P + "BCAST_RESTORE"
+_ENV_BCAST_MAX_BYTES = _P + "BCAST_MAX_BYTES"
+_ENV_BCAST_READER_DEADLINE = _P + "BCAST_READER_DEADLINE_S"
+_ENV_SWARM_RESTORE = _P + "SWARM_RESTORE"
+_ENV_SWARM_CHUNK_DEADLINE = _P + "SWARM_CHUNK_DEADLINE_S"
 
 _FALSE = ("0", "", "false", "False", "off")
 
@@ -232,6 +246,141 @@ def get_memory_budget_bytes() -> int:
     return min(int(available * 0.6), 32 * 1024**3)
 
 
+def is_native_io_enabled() -> bool:
+    """Use the native O_DIRECT engine (``native/``) for large transfers;
+    ``TSS_TORCH_DISABLE_NATIVE_IO=1`` turns it off."""
+    return os.environ.get(_ENV_DISABLE_NATIVE_IO, "0") in _FALSE
+
+
+def get_direct_io_threshold_bytes() -> int:
+    """Writes and reads of at least this many bytes go through the native
+    engine (default 4 MiB); smaller ones stay buffered in Python."""
+    return _get_int(_ENV_DIRECT_IO_THRESHOLD, 4 * 1024 * 1024)
+
+
+# Ranks sharing this host (one disk): from LOCAL_WORLD_SIZE, which torchrun
+# and this package's launcher set, else 1.
+_local_world_size: Optional[int] = None
+
+
+def set_local_world_size(n: int) -> None:
+    global _local_world_size
+    _local_world_size = max(1, int(n))
+
+
+def get_local_world_size() -> int:
+    if _local_world_size is not None:
+        return _local_world_size
+    return max(1, _get_int("LOCAL_WORLD_SIZE", 1))
+
+
+def get_direct_io_concurrency() -> int:
+    """Concurrent O_DIRECT transfers per storage plugin. The default, 2,
+    is divided by the ranks sharing the host's disk; an explicit value is
+    used as it is."""
+    val = os.environ.get(_ENV_DIRECT_IO_CONCURRENCY)
+    if val is not None:
+        return max(1, int(val))
+    return max(1, 2 // get_local_world_size())
+
+
+def get_direct_io_chunk_bytes() -> int:
+    """Bounce-buffer bytes of one native O_DIRECT transfer step."""
+    return _get_int(_ENV_DIRECT_IO_CHUNK, 64 * 1024 * 1024)
+
+
+def get_read_cache_dir() -> Optional[str]:
+    """Root of the content-addressed read-through cache
+    (``storage_plugins/cache.py``); unset (default) disables it. Its
+    on-disk layout is the JAX package's, so one directory serves both."""
+    return os.environ.get(_ENV_READ_CACHE_DIR) or None
+
+
+def get_read_cache_bytes() -> int:
+    """Byte budget of the read cache (default 10 GiB); least recently used
+    entries are evicted past it after each populate."""
+    return max(0, _get_int(_ENV_READ_CACHE_BYTES, 10 * 1024**3))
+
+
+def get_verify_reads_mode() -> str:
+    """Read-side verification against the checksum sidecars: ``auto``
+    (default: cache hits and broadcast/swarm payloads are verified, origin
+    reads of the direct pipeline are trusted), ``all`` (``1``: every
+    full-object or chunk-covering fetch is verified too, with one re-fetch
+    before :class:`~..scheduler.ReadVerificationError`), ``off`` (``0``:
+    nothing, cache hits included)."""
+    val = os.environ.get(_ENV_VERIFY_READS, "auto").lower()
+    if val in ("", "auto"):
+        return "auto"
+    return "off" if val in _FALSE else "all"
+
+
+def is_origin_read_verify_enabled() -> bool:
+    return get_verify_reads_mode() == "all"
+
+
+def is_read_cache_verify_enabled() -> bool:
+    """Verify cache hits against their recorded digests before serving
+    (default on; ``VERIFY_READS=off`` turns it off too)."""
+    if get_verify_reads_mode() == "off":
+        return False
+    return _get_bool(_ENV_READ_CACHE_VERIFY, True)
+
+
+def _collective_restore_enabled(name: str, world_size: int) -> bool:
+    if world_size <= 1:
+        return False
+    val = os.environ.get(name, "auto").lower()
+    if val in ("auto", ""):
+        # Off on every storage, where the JAX package turns it on for all but
+        # the local disk: the payloads ride the coordinator's c10d TCPStore,
+        # one server that every byte crosses twice, and on one H100 80GB HBM3
+        # (700 W) two ranks restored through it at 0.10-0.17 GB/s each
+        # against 1.16-1.42 GB/s for direct reads (chip_smoke.py phase 6).
+        return False
+    return val not in _FALSE
+
+
+def is_broadcast_restore_enabled(world_size: int) -> bool:
+    """Single-reader restore of replicated entries up to
+    ``BCAST_MAX_BYTES``: one elected rank reads each object and the bytes
+    fan out over the coordinator's store. ``auto`` (default) is off until a
+    faster channel than the store is measured; ``1``/``0`` force it."""
+    return _collective_restore_enabled(_ENV_BCAST_RESTORE, world_size)
+
+
+def get_broadcast_max_bytes() -> int:
+    """Largest replicated object restored by broadcast (default 256 MiB);
+    it bounds the store payload and the host memory of the phase."""
+    return max(1, _get_int(_ENV_BCAST_MAX_BYTES, 256 * 1024 * 1024))
+
+
+def get_bcast_reader_deadline_s() -> float:
+    """Seconds a peer polls for the elected reader's payload before it
+    re-elects the next rank in the sha1 order (default 60)."""
+    try:
+        return max(0.05, float(os.environ.get(_ENV_BCAST_READER_DEADLINE, 60.0)))
+    except ValueError:
+        return 60.0
+
+
+def is_swarm_restore_enabled(world_size: int) -> bool:
+    """Chunk-granular peer-to-peer restore of replicated objects above
+    ``BCAST_MAX_BYTES`` (and of reshards shared by several ranks): each
+    rank reads a distinct part of each object's v2 chunk grid and trades
+    the rest through the store. The same ``auto`` gate as broadcast."""
+    return _collective_restore_enabled(_ENV_SWARM_RESTORE, world_size)
+
+
+def get_swarm_chunk_deadline_s() -> float:
+    """Seconds a swarm peer polls for one chunk before it re-elects the
+    next server in the chunk's sha1 order (default 30)."""
+    try:
+        return max(0.05, float(os.environ.get(_ENV_SWARM_CHUNK_DEADLINE, 30.0)))
+    except ValueError:
+        return 30.0
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: str) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -283,3 +432,4 @@ def override_compression_frame_bytes(value: int):
 
 def override_stream_writes_mode(mode: str):
     return _override_env(_ENV_STREAM_WRITES, mode)
+

@@ -80,6 +80,22 @@ flipped byte (the object is quarantined and a restore of the copy raises),
 and runs phase 2's sync take and restore with the native engine on, off
 and on, printing its direct/buffered counts and the temp root's file
 system. It prints origin, peer and cache bytes per rank and the rates.
+Phase 7 drives continuous checkpointing: phase 5's partial fine-tune at
+the same width (8 layers, the embeddings and first 4 blocks frozen, AdamW)
+checkpointed into one bucket with ``job="ft"``, ``step=`` and
+``max_chain_len=2`` and batching on: ``async_take`` t1, sync t2,
+``async_take`` t3 and t4, sync t5, ``async_take`` t6 after the chain cache
+is dropped (its base from a catalog scan), one training step between takes
+and each ``async_take`` raced by the next step. The chains must record 0,
+1, 2, 0, 1, 2. ``catalog.retain(bucket, "last=2")`` then condemns t1-t4
+(t5's base t4 among them) and keeps t5 and t6, which restore bit-exactly
+into a fresh model, directly and through a fresh read cache (t6 reads only
+its unshared bytes from the origin); a planted torn ``*.tmp.*`` file and an
+uncommitted root are all a ``Snapshot.gc`` sweep removes
+(``dryrun.continuous_checkpoints``). It prints the chains, each delta's
+deduped bytes against the frozen bytes, stalls and rates, the retain and
+gc reports with the bucket's bytes before and after, the cache's origin
+bytes and the phase's launches (K1 and K2 must launch; K3 is not on it).
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -1181,6 +1197,57 @@ def phase6(seed, device, gen, gb, root, card):
     return launches, {"summary": summary, "scrub": scrub, "native_io": native_io}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: continuous checkpointing under the catalog, retention and gc
+# ---------------------------------------------------------------------------
+
+
+def phase7(seed, device, root, card):
+    from torchsnapshot_tpu_torch import dryrun, kernels
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(
+        vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512
+    )
+    log(f"phase7 before: disk free {shutil.disk_usage(root).free} bytes")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = dryrun.continuous_checkpoints(cfg, root, device=device, batch=4, seed=seed, frozen_blocks=4)
+    out["wall_s"] = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    if launches["pack_slab"] < 1 or launches["fork_copy"] != 4 or launches["copy_blocks"] != 0:
+        raise AssertionError(f"phase7: K1 must launch, K2 once per async take (4), K3 never: {launches}")
+    nbytes, frozen = out["state_bytes"], out["frozen_bytes"]
+    t6 = out["takes"]["t6"]["record"]
+    origin_t6 = out["t6_cached_attribution"]["origin_bytes"]
+    if origin_t6 != t6["bytes_written"]:
+        raise AssertionError(f"phase7: t6 read {origin_t6} origin bytes through the cache, its unshared bytes are {t6['bytes_written']}")
+    log(f"phase7 on {card}: state {nbytes} bytes, frozen {frozen} bytes, chain lengths {out['chain_lens']}")
+    for name, rec in out["takes"].items():
+        r = rec["record"]
+        if rec["async"]:
+            how = f"async_take stall {rec['stall_s']:.4f} s, drain {rec['drain_s']:.3f} s ({nbytes / (rec['stall_s'] + rec['drain_s']) / 1e9:.3f} GB/s)"
+        else:
+            how = f"sync take {rec['take_s']:.3f} s ({nbytes / rec['take_s'] / 1e9:.3f} GB/s)"
+        log(
+            f"phase7 {name} (step {rec['step']}) on {card}: {how}; base {r['base']}, chain {r['chain_len']}, "
+            f"deduped {r['bytes_deduped']} of {r['bytes_total']} bytes (frozen {frozen}; drain stats deduped "
+            f"{rec['drain_stats'].get('bytes_deduped')}, linked {rec['drain_stats'].get('objects_linked')}), "
+            f"cache {json.dumps(rec['cache'])}, launches {json.dumps(rec['launches'])}"
+        )
+    log(f"phase7 retain last=2 on {card}: dry run {json.dumps(out['retain_dry'])}; applied {json.dumps(out['retain_applied'])} in {out['retain_s']:.3f} s; bucket bytes (files, distinct inodes) before {out['bucket_bytes_before']}, after {out['bucket_bytes_after']}")
+    for name in ("t5", "t6"):
+        log(f"phase7 {name} restores (bit-exact, base collected) on {card}: direct {nbytes / out[name + '_restore_s'] / 1e9:.3f} GB/s, through a fresh read cache {nbytes / out[name + '_cached_restore_s'] / 1e9:.3f} GB/s, attribution {json.dumps(out[name + '_cached_attribution'])}")
+    log(f"phase7 t6 origin bytes through the cache on {card}: {origin_t6} (its unshared bytes {t6['bytes_written']}, state {nbytes})")
+    log(f"phase7 gc debris sweep on {card}: {json.dumps(out['gc'])}")
+    log(f"phase7 launches on {card}: {json.dumps(launches)}; peak device memory {out['peak_device_bytes']} bytes; takes {out['takes_wall_s']:.1f} s; wall {out['wall_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -1242,6 +1309,7 @@ def main() -> int:
             launches[f"phase5_{codec}"] = counts
         phase6_launches, serving = phase6(args.seed, device, gen, args.gb, root, card)
         launches.update(phase6_launches)
+        launches["phase7"], continuous = phase7(args.seed, device, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1255,6 +1323,9 @@ def main() -> int:
         summary = {k: v for k, v in out.items() if not k.endswith(("_phases", "_stream"))}
         log(f"phase5 {codec} summary on {card}: {json.dumps(summary)}")
     log(f"phase6 serving summary on {card}: {json.dumps(serving)}")
+    summary = {k: v for k, v in continuous.items() if k != "takes"}
+    summary["takes"] = {n: {k: v for k, v in r.items() if k != "drain_stats"} for n, r in continuous["takes"].items()}
+    log(f"phase7 continuous summary on {card}: {json.dumps(summary)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

@@ -388,6 +388,23 @@ def test_small_frozen_finetune_checkpoints(device, tmp_path):
     assert out["c2_bytes_deduped"] >= out["frozen_bytes"] and out["c2_samefile"] >= 1
 
 
+def test_small_continuous_checkpoints(device, tmp_path):
+    """``chip_smoke.py``'s phase 7 at a small size: managed chains over CUDA
+    state, retention, restores of the retained pair and the debris sweep."""
+    from torchsnapshot_tpu_torch import dryrun
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    os.environ["TSS_TORCH_DEDUP_DIGESTS"] = "1"
+    cfg = TransformerConfig(vocab_size=1024, d_model=256, n_heads=4, n_layers=4, d_ff=1024, max_seq_len=128)
+    kernels.reset_launch_counts()
+    out = dryrun.continuous_checkpoints(cfg, str(tmp_path), device=device, batch=4, frozen_blocks=2)
+    assert kernels.LAUNCHES["fork_copy"] == 4 and kernels.LAUNCHES["pack_slab"] >= 6
+    assert out["chain_lens"] == [0, 1, 2, 0, 1, 2]
+    assert out["retain_applied"]["condemned"] == ["t1", "t2", "t3", "t4"]
+    t6 = out["takes"]["t6"]["record"]
+    assert t6["bytes_deduped"] > 0 and out["t6_cached_attribution"]["origin_bytes"] == t6["bytes_written"]
+
+
 def _pinned_h2d_probe(monkeypatch_target):
     """Wrap the whole-tensor H2D (T2) to record whether each host source
     was pinned."""

@@ -182,10 +182,24 @@ def _files(d):
 @pytest.mark.parametrize("batching", [False, True], ids=["plain", "batched"])
 @pytest.mark.parametrize("chunk", [None, 200], ids=["whole", "chunked"])
 def test_same_tree_same_manifest_and_objects(tmp_path, batching, chunk):
-    jdir, tdir = take_both(tmp_path, make_tree(0), batching=batching, chunk=chunk)
+    tree = make_tree(0)
+    if not batching:
+        # A dtype with no raw form: pickled whole, or per chunk when
+        # chunked. (With batching on the JAX package's batcher cannot size
+        # such an entry and aborts the take: ROADMAP section C.)
+        tree["strs"] = np.array([f"s{i}" for i in range(64)])
+    jdir, tdir = take_both(tmp_path, tree, batching=batching, chunk=chunk)
     jmd, jnames = _normalized(_metadata(jdir))
     tmd, tnames = _normalized(_metadata(tdir))
     assert jmd == tmd
+    strs = tmd["manifest"].get("0/m/strs")
+    if strs is None:
+        assert batching
+    elif chunk is None:
+        assert (strs["type"], strs["serializer"], strs["dtype"], strs["shape"]) == ("array", "pickle", "<U3", [64])
+    else:
+        assert strs["type"] == "chunked_array" and strs["dtype"] == "<U3"
+        assert {c["tensor"]["serializer"] for c in strs["chunks"]} == {"pickle"}
     # Object files byte-identical, slab files matched through their members.
     jfiles = {jnames.get(p, p): b for p, b in _files(jdir).items()}
     tfiles = {tnames.get(p, p): b for p, b in _files(tdir).items()}
@@ -199,6 +213,81 @@ def test_same_tree_same_manifest_and_objects(tmp_path, batching, chunk):
         assert any(e["type"] == "chunked_array" for e in tmd["manifest"].values())
     if batching:
         assert any(p.startswith("batched/") for p in tfiles)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_chunked_pickled_array_restores_across_packages(tmp_path, writer):
+    """A ``<U3`` array above the chunk size is 13 pickled chunks; both
+    ``restore`` and ``read_object`` give it back exactly, whichever package
+    wrote it."""
+    arr = np.array([f"s{i}" for i in range(64)])
+    path = str(tmp_path / "s")
+    if writer == "jax":
+        with jknobs.override_max_chunk_size_bytes(64):
+            jts.Snapshot.take(path, {"m": jts.StateDict(s=arr)})
+    else:
+        with tknobs.override_max_chunk_size_bytes(64):
+            tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree({"s": arr}))})
+    entry = _metadata(path)["manifest"]["0/m/s"]
+    assert entry["type"] == "chunked_array" and len(entry["chunks"]) == 13
+    assert {c["tensor"]["serializer"] for c in entry["chunks"]} == {"pickle"}
+    out = tts.StateDict(s=None)
+    tts.Snapshot(path).restore({"m": out}, device="cpu")
+    assert out["s"].dtype == arr.dtype and out["s"].tobytes() == arr.tobytes()
+    got = tts.Snapshot(path).read_object("0/m/s", device="cpu")
+    assert got.dtype == arr.dtype and got.tobytes() == arr.tobytes()
+    live = np.empty_like(arr)
+    out = tts.StateDict(s=live)
+    tts.Snapshot(path).restore({"m": out}, device="cpu")
+    assert out["s"] is live and live.tobytes() == arr.tobytes()
+    jout = jts.StateDict(s=None)
+    jts.Snapshot(path).restore({"m": jout})
+    assert np.asarray(jout["s"]).tobytes() == arr.tobytes()
+
+
+def test_pickled_array_stays_out_of_slabs(tmp_path):
+    """With batching on, the port writes a ``<U3`` leaf as its own pickled
+    object beside the slabs (the JAX package's batcher aborts such a take),
+    and the JAX package restores it."""
+    tree = make_tree(3)
+    tree["strs"] = np.array([f"s{i}" for i in range(64)])
+    path = str(tmp_path / "s")
+    with tknobs.override_batching_enabled(True):
+        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree))})
+    manifest = _metadata(path)["manifest"]
+    assert manifest["0/m/strs"]["location"] == "0/m/strs" and manifest["0/m/strs"]["serializer"] == "pickle"
+    assert any(e.get("location", "").startswith("batched/") for e in manifest.values())
+    jout = jts.StateDict(strs=None)
+    jts.Snapshot(path).restore({"m": jout})
+    assert np.asarray(jout["strs"]).tobytes() == tree["strs"].tobytes()
+
+
+@pytest.mark.parametrize("chunk", [None, 64], ids=["whole", "chunked"])
+def test_pickled_array_on_a_prepared_hit(tmp_path, chunk):
+    """A second take of the same structure rebinds the pickled array's
+    stagers (whole, or one per chunk) to the new values."""
+    from torchsnapshot_tpu_torch import prepare_cache
+    from torchsnapshot_tpu_torch import snapshot as tsnapshot
+    from torchsnapshot_tpu_torch.parallel.coordinator import get_coordinator
+
+    prepare_cache.reset(get_coordinator())
+    env = {} if chunk is None else {"TSS_TORCH_MAX_CHUNK_SIZE_BYTES": str(chunk)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for i in range(2):
+            arr = np.array([f"v{i}{j}" for j in range(64)])
+            path = str(tmp_path / f"s{i}")
+            tts.Snapshot.async_take(path, {"m": tts.StateDict(s=arr, x=torch.ones(3))}).wait()
+            assert tsnapshot.LAST_TAKE_CACHE["prepared_cache_hit"] == (i == 1)
+            got = tts.Snapshot(path).read_object("0/m/s", device="cpu")
+            assert got.tobytes() == arr.tobytes()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 @pytest.mark.parametrize("grain", [0, 1 << 20, 64], ids=["serial", "single_chunk", "many_chunks"])

@@ -233,3 +233,35 @@ def test_a_cached_verified_restore_stays_light():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+_A13_MODULES = [
+    "torchsnapshot_tpu_torch/catalog.py",
+]
+
+
+def test_a13_modules_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert set(_A13_MODULES) <= checked
+
+
+def test_a_job_take_and_retention_stay_light():
+    """A catalog-managed chain, retention and gc load neither JAX nor the
+    JAX package."""
+    code = (
+        "import sys, tempfile, os, torch\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "from torchsnapshot_tpu_torch import catalog\n"
+        "d = tempfile.mkdtemp()\n"
+        "for i in range(3):\n"
+        "    tts.Snapshot.take(os.path.join(d, f's{i}'), {'m': tts.StateDict(x=torch.ones(2))}, job='j')\n"
+        "rep = catalog.retain(d, catalog.RetentionPolicy.parse('last=1'), dry_run=False)\n"
+        "assert rep['condemned'] == ['s0', 's1'], rep\n"
+        "assert tts.Snapshot.gc(d)['remove'] == []\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchsnapshot_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr

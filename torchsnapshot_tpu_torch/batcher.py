@@ -207,7 +207,9 @@ def batch_write_requests(
     passthrough: List[WriteReq] = []
     for req in write_reqs:
         entry = by_location.get(req.path)
-        if entry is None:
+        if entry is None or entry.serializer == Serializer.PICKLE:
+            # A pickled array has no raw size and never joins a slab (the
+            # JAX package's batcher aborts the take on one).
             passthrough.append(req)
             continue
         nbytes = array_nbytes(entry.shape, entry.dtype)

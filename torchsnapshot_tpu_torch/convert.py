@@ -5,7 +5,8 @@ tree of numpy arrays whose dtypes may come from ml_dtypes (bfloat16, the
 float8 types). numpy has no such dtypes of its own and torch cannot read
 them, so both directions go through integer views of the same width:
 bf16 through ``uint16``, fp8 through ``uint8``. Values never pass through a
-wider float. Containers (dict, list, tuple) are rebuilt; other leaves pass
+wider float. Containers (dict, list, tuple) are rebuilt; other leaves, and numpy
+arrays of a dtype with no raw form (both packages pickle those), pass
 through unchanged.
 
 Sharded state crosses as a global array: :func:`dtensor_from_numpy` cuts a
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from .io_preparers.sharded_array import contiguous_stride, placement_offsets_sizes
+from .serialization import numpy_dtype_to_string
 
 # Extension dtypes by name -> (torch dtype, same-width integer view).
 _EXT = {
@@ -54,6 +56,8 @@ def _map(tree: Any, leaf) -> Any:
 def _array_to_tensor(a: Any, device: Any) -> Any:
     if not isinstance(a, np.ndarray):
         return a
+    if a.dtype.name not in _EXT and numpy_dtype_to_string(a.dtype) is None:
+        return a  # no raw form (``<U3``, ``object``): both packages pickle it
     # copy(order="C"), not ascontiguousarray: the latter makes 0-dim 1-dim.
     a = a.copy(order="C")
     ext = _EXT.get(a.dtype.name)

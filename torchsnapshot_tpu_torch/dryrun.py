@@ -30,6 +30,11 @@ The counterpart of the JAX package's ``__graft_entry__.py``:
   fine-tune does: two async takes (a prepared-take miss, then a hit), an
   incremental take against the second, a compressed take, each restored
   bit-exactly, and a bit-identical resume.
+- :func:`continuous_checkpoints` checkpoints such a fine-tune continuously
+  into one bucket under the catalog (``job=``, managed delta chains with a
+  rebase to full), then prunes it with a retention policy, restores the
+  retained snapshots bit-exactly (directly and through a read cache) and
+  sweeps planted crash debris with ``Snapshot.gc``.
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -541,6 +546,16 @@ def frozen_names(model: torch.nn.Module, frozen_blocks: int) -> List[str]:
     return [n for n, _ in model.named_parameters() if n.startswith(prefixes)]
 
 
+def _frozen_model(cfg, device, model_seed: int, frozen_blocks: int):
+    """(model, AdamW over its trained parameters), the embeddings and the
+    first ``frozen_blocks`` blocks frozen."""
+    model = init_params(cfg, seed=model_seed, device=device)
+    frozen = set(frozen_names(model, frozen_blocks))
+    for name, p in model.named_parameters():
+        p.requires_grad_(name not in frozen)
+    return model, adamw([p for p in model.parameters() if p.requires_grad])
+
+
 def _inodes(root: str) -> Dict[str, Tuple[int, int]]:
     out = {}
     for dirpath, _, files in os.walk(root):
@@ -615,12 +630,7 @@ def _frozen_finetune(cfg, root, device, batch, seed, frozen_blocks, codec) -> Di
     tokens = lambda s: tokens_for_step(cfg, s, batch, seed, device)  # noqa: E731
 
     def build(model_seed):
-        model = init_params(cfg, seed=model_seed, device=device)
-        frozen = set(frozen_names(model, frozen_blocks))
-        for name, p in model.named_parameters():
-            p.requires_grad_(name not in frozen)
-        optimizer = adamw([p for p in model.parameters() if p.requires_grad])
-        return model, optimizer
+        return _frozen_model(cfg, device, model_seed, frozen_blocks)
 
     def allocated() -> int:
         return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
@@ -758,4 +768,236 @@ def _frozen_finetune(cfg, root, device, batch, seed, frozen_blocks, codec) -> Di
     out["step_s"] = step_s
     for c in ("c4", "c5", "c6"):
         shutil.rmtree(paths[c])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Continuous checkpointing: managed delta chains, retention and gc
+# ---------------------------------------------------------------------------
+
+# (snapshot, async?) of the continuous drive, one training step apart.
+CONTINUOUS_TAKES = (("t1", True), ("t2", False), ("t3", True), ("t4", True), ("t5", False), ("t6", True))
+
+
+def _bucket_bytes(root: str) -> Tuple[int, int]:
+    """(bytes of every file under ``root``, bytes of its distinct inodes):
+    hard-linked objects count once in the second."""
+    files, inodes = 0, {}
+    for dirpath, _, names in os.walk(root):
+        for f in names:
+            st = os.stat(os.path.join(dirpath, f))
+            files += st.st_size
+            inodes[(st.st_dev, st.st_ino)] = st.st_size
+    return files, sum(inodes.values())
+
+
+def continuous_checkpoints(
+    cfg: TransformerConfig,
+    root: str,
+    device: Any = "cuda",
+    batch: int = 4,
+    seed: int = 0,
+    frozen_blocks: int = 4,
+) -> Dict[str, Any]:
+    """Checkpoint a partial fine-tune continuously into one bucket under
+    the catalog, then prune it by policy and sweep it:
+
+    1. ``cfg``'s transformer with its embeddings and first
+       ``frozen_blocks`` blocks frozen, AdamW; one training step before
+       each take of :data:`CONTINUOUS_TAKES` (``t1``-``t6``, each with
+       ``job="ft"``, ``step=`` the training step and ``max_chain_len=2``):
+       an ``async_take`` is raced by the next step and ``wait()``-ed before
+       the next take. Before ``t6`` the chain cache is dropped, so its base
+       comes from a catalog scan. The recorded chains are 0, 1, 2, 0, 1, 2
+       (``t4`` rebases to a full snapshot);
+    2. ``catalog.retain(bucket, "last=2")`` as a dry run, then applied: it
+       condemns ``t1``-``t4`` (``t5``'s base ``t4`` among them) and keeps
+       ``t5`` and ``t6``; the catalog then holds their two records;
+    3. ``t5`` and ``t6`` restored into a fresh model and a materialised
+       optimizer, each bit-exact against device copies taken at their
+       steps; then both again, ``t5`` first, through a fresh read cache
+       (``TSS_TORCH_READ_CACHE_DIR`` under ``root``): ``t6`` reads from the
+       origin only what it did not share with ``t5``;
+    4. a torn ``*.tmp.*`` file in ``t6`` and an uncommitted root ``t7``
+       planted; ``Snapshot.gc(bucket)`` as a dry run, then applied: exactly
+       the planted files go, and ``t5`` and ``t6`` still verify clean.
+
+    Slab batching is on. Incremental dedup needs sha256 digests on every
+    take (``TSS_TORCH_DEDUP_DIGESTS``: ``auto`` is on with more than one
+    core). Deterministic algorithms on, as :func:`train_checkpoint_resume`.
+    Raises ``AssertionError`` on any mismatch; returns the measurements:
+    each take's stall or wall time, drain, launches, cache hits and
+    catalog record, the retain and gc reports with the bucket's bytes
+    before and after, restore times and the read cache's origin bytes."""
+    device = torch.device(device)
+    return _deterministic(
+        lambda: _continuous(cfg, root, device, batch, seed, frozen_blocks)
+    )
+
+
+def _continuous(cfg, root, device, batch, seed, frozen_blocks) -> Dict[str, Any]:
+    from . import catalog, kernels, prepare_cache
+    from . import snapshot as snapshot_mod
+    from .parallel.coordinator import get_coordinator
+    from .utils import knobs
+
+    prepare_cache.reset(get_coordinator())
+    bucket = os.path.join(root, "bucket")
+    catalog.invalidate_chain_cache(bucket)
+    out: Dict[str, Any] = {"takes": {}}
+    tokens = lambda s: tokens_for_step(cfg, s, batch, seed, device)  # noqa: E731
+    model, optimizer = _frozen_model(cfg, device, seed, frozen_blocks)
+    progress = StateDict(step=0)
+    app = {"model": model, "optim": optimizer, "progress": progress, "rng": RNGState()}
+    out["frozen_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters() if not p.requires_grad)
+    step_no = [0]
+    losses: List[torch.Tensor] = []
+
+    def step() -> None:
+        step_no[0] += 1
+        loss, _, _ = _timed_step(model, optimizer, tokens(step_no[0]), device)
+        losses.append(loss.cpu())
+        progress["step"] = step_no[0]
+
+    copies: Dict[str, List[Tuple[str, torch.Tensor]]] = {}
+    t_start = time.monotonic()
+    with knobs.override_batching_enabled(True):
+        step()
+        for name, is_async in CONTINUOUS_TAKES:
+            rec: Dict[str, Any] = {"step": step_no[0], "async": is_async}
+            if name in ("t5", "t6"):
+                copies[name] = [(n, t.detach().clone()) for n, t in train_state_tensors(model, optimizer)]
+            if name == "t6":
+                catalog.invalidate_chain_cache(bucket)
+            path = os.path.join(bucket, name)
+            kw = dict(job="ft", step=step_no[0], max_chain_len=2)
+            launches = dict(kernels.LAUNCHES)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.monotonic()
+            if is_async:
+                pending = Snapshot.async_take(path, app, **kw)
+                rec["stall_s"] = time.monotonic() - t0
+                rec["cache"] = dict(snapshot_mod.LAST_TAKE_CACHE)
+                step()  # races the drain
+                pending.wait()
+                rec["drain_s"] = time.monotonic() - t0 - rec["stall_s"]
+                rec["drain_stats"] = dict(pending.drain_stats)
+                del pending
+            else:
+                Snapshot.take(path, app, **kw)
+                rec["take_s"] = time.monotonic() - t0
+                rec["cache"] = dict(snapshot_mod.LAST_TAKE_CACHE)
+                rec["drain_stats"] = dict(snapshot_mod.LAST_SYNC_DRAIN_STATS)
+                step()
+            rec["launches"] = {k: v - launches.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+            out["takes"][name] = rec
+    out["takes_wall_s"] = time.monotonic() - t_start
+    out["state_bytes"] = _state_bytes(copies["t6"])
+
+    with catalog.Catalog(bucket) as cat:
+        records = {r.name: r for r in cat.load(job="ft")}
+    for name, _ in CONTINUOUS_TAKES:
+        r = records[name]
+        out["takes"][name]["record"] = {
+            "base": r.base, "chain_len": r.chain_len, "bytes_total": r.bytes_total,
+            "bytes_written": r.bytes_written, "bytes_deduped": r.bytes_deduped,
+        }
+    out["chain_lens"] = [records[n].chain_len for n, _ in CONTINUOUS_TAKES]
+    want_chains = [0, 1, 2, 0, 1, 2]
+    if out["chain_lens"] != want_chains:
+        raise AssertionError(f"chain lengths {out['chain_lens']} != {want_chains}")
+    want_bases = {"t1": None, "t2": "t1", "t3": "t2", "t4": None, "t5": "t4", "t6": "t5"}
+    bases = {n: records[n].base for n, _ in CONTINUOUS_TAKES}
+    if bases != want_bases:
+        raise AssertionError(f"bases {bases} != {want_bases}")
+    for name in ("t2", "t3", "t5", "t6"):
+        if records[name].bytes_deduped <= 0:
+            raise AssertionError(f"{name} deduped nothing against its base: {records[name]}")
+
+    # Retention: keep the last two.
+    policy = catalog.RetentionPolicy.parse("last=2")
+    out["bucket_bytes_before"] = _bucket_bytes(bucket)
+    dry = catalog.retain(bucket, policy, dry_run=True)
+    t0 = time.monotonic()
+    applied = catalog.retain(bucket, policy, dry_run=False)
+    out["retain_s"] = time.monotonic() - t0
+    out["bucket_bytes_after"] = _bucket_bytes(bucket)
+    for label, rep in (("dry", dry), ("applied", applied)):
+        out[f"retain_{label}"] = {
+            "condemned": rep["condemned"], "retained": rep["policy"]["retained"],
+            "remove": len(rep["remove"]), "remove_records": len(rep["remove_records"]),
+            "keep": len(rep["keep"]), "removed": rep["removed"],
+        }
+    if applied["condemned"] != ["t1", "t2", "t3", "t4"] or applied["policy"]["retained"] != ["t5", "t6"]:
+        raise AssertionError(f"retain condemned {applied['condemned']}, kept {applied['policy']['retained']}")
+    if dry["remove"] != applied["remove"] or applied["removed"] != len(applied["remove"]) + len(applied["remove_records"]):
+        raise AssertionError("the applied retain removed other files than its dry run named")
+    left = sorted(n for n in os.listdir(bucket) if n != catalog.CATALOG_DIR)
+    with catalog.Catalog(bucket) as cat:
+        recorded = [r.name for r in cat.load()]
+    if left != ["t5", "t6"] or recorded != ["t5", "t6"]:
+        raise AssertionError(f"after retain: roots {left}, records {recorded}")
+    catalog.validate_chain_closure(bucket, ["t5", "t6"], [])
+
+    # Restores of the retained pair, their base collected.
+    model2, optimizer2 = _frozen_model(cfg, device, seed + 1, frozen_blocks)
+    optimizer2 = init_optimizer_state(optimizer2)
+    progress2 = StateDict(step=-1)
+    app2 = {"model": model2, "optim": optimizer2, "progress": progress2, "rng": RNGState()}
+
+    def restore(name: str, what: str) -> float:
+        _, dt = _timed(lambda: Snapshot(os.path.join(bucket, name)).restore(app2, device=device), device)
+        _check_same_state(train_state_tensors(model2, optimizer2), copies[name], f"{what} of {name}")
+        if progress2["step"] != out["takes"][name]["step"]:
+            raise AssertionError(f"{name}: restored progress {progress2['step']}")
+        return dt
+
+    for name in ("t5", "t6"):
+        out[f"{name}_restore_s"] = restore(name, "restore")
+    cache_dir = os.path.join(root, "read_cache")
+    env = {"TSS_TORCH_READ_CACHE_DIR": cache_dir, "TSS_TORCH_READ_CACHE_BYTES": str(64 * 1024**3)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for name in ("t5", "t6"):
+            out[f"{name}_cached_restore_s"] = restore(name, "cached restore")
+            out[f"{name}_cached_attribution"] = dict(snapshot_mod.LAST_RESTORE_STATS["attribution"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    del copies
+
+    # The debris sweep.
+    torn = os.path.join(bucket, "t6", "0", "model", "torn.tmp.0a1b2c3d")
+    os.makedirs(os.path.dirname(torn), exist_ok=True)
+    with open(torn, "wb") as f:
+        f.write(b"\0" * 4096)
+    os.makedirs(os.path.join(bucket, "t7", "0"))
+    with open(os.path.join(bucket, "t7", "0", "partial"), "wb") as f:
+        f.write(b"\1" * 4096)
+    planted = ["t6/0/model/torn.tmp.0a1b2c3d", "t7/0/partial"]
+    before = {os.path.relpath(os.path.join(d, f), bucket) for d, _, fs in os.walk(bucket) for f in fs}
+    dry = Snapshot.gc(bucket)
+    applied = Snapshot.gc(bucket, dry_run=False)
+    after = {os.path.relpath(os.path.join(d, f), bucket) for d, _, fs in os.walk(bucket) for f in fs}
+    out["gc"] = {
+        label: {k: (len(v) if isinstance(v, list) and k in ("keep", "remove") else v)
+                for k, v in rep.items()}
+        for label, rep in (("dry", dry), ("applied", applied))
+    }
+    if dry["remove"] != planted or applied["removed"] != len(planted) or sorted(before - after) != planted:
+        raise AssertionError(f"the debris sweep named {dry['remove']}, removed {sorted(before - after)}")
+    if os.path.exists(os.path.join(bucket, "t7")):
+        raise AssertionError("the uncommitted root's directories were not pruned")
+    for name in ("t5", "t6"):
+        problems = Snapshot(os.path.join(bucket, name)).verify()
+        if problems:
+            raise AssertionError(f"verify of {name} after gc: {problems}")
+    out["losses"] = torch.stack(losses).tolist()
+    shutil.rmtree(bucket)
     return out

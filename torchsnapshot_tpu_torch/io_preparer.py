@@ -9,9 +9,11 @@ Routing (``classify``, after ``torchsnapshot_tpu/io_preparer.py``):
   some ranks only) -> the sharded path (``io_preparers/sharded_array.py``);
   a DTensor arrives here as a :class:`DTensorLeaf` (:func:`as_leaves`);
 - ``torch.Tensor`` (CPU or CUDA; an ``nn.Parameter`` is detached) and
-  numpy arrays of a plain dtype -> the per-rank array path (``<rank>/``),
-  or the replicated one when a ``replicated=`` glob names it; chunked along
-  dim 0 above ``MAX_CHUNK_SIZE_BYTES``;
+  numpy arrays -> the per-rank array path (``<rank>/``), or the replicated
+  one when a ``replicated=`` glob names it; chunked along dim 0 above
+  ``MAX_CHUNK_SIZE_BYTES``. A numpy array whose dtype has no raw form
+  (``<U3``, ``object``) is pickled, whole or per chunk, as the reference
+  writes it (``ArrayEntry(serializer="pickle")``);
 - anything else -> a pickled object.
 
 **The async capture** (:func:`capture_flattened`). Torch tensors are
@@ -46,8 +48,8 @@ import torch
 
 from . import d2h, kernels
 from .io_types import WriteReq
-from .io_preparers.array import ArrayIOPreparer
-from .io_preparers.chunked_array import ChunkedArrayIOPreparer, should_chunk
+from .io_preparers.array import ArrayIOPreparer, is_pickled_array
+from .io_preparers.chunked_array import ChunkedArrayIOPreparer, should_chunk, should_chunk_pickled
 from .io_preparers.object import ObjectIOPreparer
 from .io_preparers.sharded_array import DTensorLeaf, ShardedArrayIOPreparer, dtensor_leaf
 from .manifest import PRIMITIVE_TYPES, Manifest, PrimitiveEntry
@@ -95,7 +97,7 @@ def classify(value: Any, world_size: int = 1) -> str:
         return "sharded"
     if isinstance(value, torch.Tensor):
         return "array"
-    if isinstance(value, np.ndarray) and numpy_dtype_to_string(value.dtype):
+    if isinstance(value, np.ndarray):
         return "array"
     return "object"
 
@@ -288,6 +290,12 @@ def _prepare_leaf(
     storage_path = get_storage_path(logical_path, rank, replicated)
     if kind == "object":
         entry, reqs = ObjectIOPreparer.prepare_write(storage_path, value, replicated)
+        manifest[logical_path] = entry
+        write_reqs.extend(reqs)
+        return
+    if is_pickled_array(value):
+        preparer = ChunkedArrayIOPreparer if should_chunk_pickled(value) else ArrayIOPreparer
+        entry, reqs = preparer.prepare_pickled_write(storage_path, value, replicated)
         manifest[logical_path] = entry
         write_reqs.extend(reqs)
         return

@@ -42,6 +42,7 @@ from ..io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteR
 from ..manifest import ArrayEntry
 from ..serialization import (
     COMPRESSED,
+    Serializer,
     array_nbytes,
     codec_for_raw_serializer,
     compress_framed,
@@ -50,6 +51,7 @@ from ..serialization import (
     decode_raw_payload,
     dtype_to_string,
     ensure_codec_available,
+    numpy_dtype_to_string,
     raw_serializer_for_codec,
     tensor_as_bytes,
 )
@@ -491,7 +493,66 @@ class PickledArrayConsumer(BufferConsumer):
         return self.nbytes
 
 
+class PickledRowsConsumer(BufferConsumer):
+    """One pickled chunk of a pickled array, copied into its rows of the
+    restored array (``target``: a view of those rows)."""
+
+    def __init__(self, target: np.ndarray) -> None:
+        self.target = target
+
+    async def consume_buffer(
+        self, buf: BufferType, executor: Optional[Executor] = None
+    ) -> None:
+        np.copyto(self.target, pickle.loads(bytes(buf)), casting="no")
+
+    def get_consuming_cost_bytes(self) -> int:
+        return max(1, int(self.target.nbytes))
+
+
+class PickledArrayStager(BufferStager):
+    """A numpy array whose dtype has no raw form (``<U3``, ``object``, a
+    datetime), pickled at staging as the reference does. Staging runs
+    before ``async_take`` returns, so a later mutation cannot reach it."""
+
+    def __init__(self, arr: np.ndarray) -> None:
+        self.arr = arr
+        self.nbytes = int(arr.nbytes)
+
+    def rebind(self, arr: np.ndarray) -> None:
+        self.arr = arr
+
+    def unbind(self) -> None:
+        self.arr = None
+
+    async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
+        arr = self.arr if self.arr.flags["C_CONTIGUOUS"] else np.ascontiguousarray(self.arr)
+        return pickle.dumps(arr, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def get_staging_cost_bytes(self) -> int:
+        return self.nbytes
+
+
+def is_pickled_array(value: Any) -> bool:
+    """A numpy array the reference pickles: its dtype has no raw form."""
+    return isinstance(value, np.ndarray) and numpy_dtype_to_string(value.dtype) is None
+
+
 class ArrayIOPreparer:
+    @staticmethod
+    def prepare_pickled_write(
+        storage_path: str, arr: np.ndarray, replicated: bool = False
+    ) -> Tuple[ArrayEntry, List[WriteReq]]:
+        """The reference's pickle branch: ``ArrayEntry(serializer="pickle")``
+        recording ``str(dtype)`` and the shape."""
+        entry = ArrayEntry(
+            location=storage_path,
+            serializer=Serializer.PICKLE,
+            dtype=str(arr.dtype),
+            shape=list(arr.shape),
+            replicated=replicated,
+        )
+        return entry, [WriteReq(path=storage_path, buffer_stager=PickledArrayStager(arr))]
+
     @staticmethod
     def prepare_write(
         storage_path: str,

@@ -13,7 +13,7 @@ import abc
 import asyncio
 from concurrent.futures import Executor
 from dataclasses import dataclass
-from typing import AsyncIterator, Optional, Tuple, Union
+from typing import AsyncIterator, List, Optional, Tuple, Union
 
 BufferType = Union[bytes, bytearray, memoryview]
 
@@ -155,6 +155,20 @@ class StoragePlugin(abc.ABC):
         Returns False when unsupported or failed; the caller then writes
         the bytes. Default: unsupported."""
         return False
+
+    async def list_prefix(self, prefix: str) -> List[str]:
+        """Every object path under ``prefix`` (relative to the plugin's
+        root; ``""`` is everything), crash debris included. What
+        ``Snapshot.gc`` and the catalog scan; a plugin without it cannot be
+        collected."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support listing; Snapshot.gc "
+            "requires a plugin with list_prefix"
+        )
+
+    async def prune_empty(self) -> None:
+        """Remove the directories deletions left empty, where the backend
+        has directories (fs). Default: nothing to do."""
 
     def sync_write(
         self, write_io: WriteIO, event_loop: asyncio.AbstractEventLoop

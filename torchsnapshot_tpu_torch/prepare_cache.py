@@ -40,8 +40,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .io_preparer import _as_tensor, classify
-from .io_preparers.array import ArrayBufferStager, PollingTableStager, chunk_row_ranges
-from .io_preparers.chunked_array import should_chunk
+from .io_preparers.array import (
+    ArrayBufferStager,
+    PickledArrayStager,
+    PollingTableStager,
+    chunk_row_ranges,
+    is_pickled_array,
+)
+from .io_preparers.chunked_array import pickled_array_pieces, should_chunk
 from .io_preparers.object import ObjectBufferStager
 from .io_preparers.sharded_array import DTensorLeaf, local_unique_shards, subdivide
 from .io_types import WriteReq
@@ -109,6 +115,8 @@ class PreparedTake:
                 self.local_manifest[path] = PrimitiveEntry.from_value(value, replicated=old.replicated)
             elif kind == "object":
                 _rebind(path, [value], reqs, ObjectBufferStager, lambda s, v: s.rebind(v))
+            elif is_pickled_array(value):
+                _rebind(path, pickled_array_pieces(value), reqs, PickledArrayStager, lambda s, a: s.rebind(a))
             else:
                 pieces = _pieces_for(kind, value)
                 _rebind(path, pieces, reqs, ArrayBufferStager, lambda s, t: s.rebind(t, ready.get(t.device)))

@@ -33,6 +33,11 @@ hard-linked from the base instead of written; a compressed take writes
 ``raw_zlib``/``raw_zstd`` entries (``TSS_TORCH_COMPRESSION``), and restore
 decodes whatever each entry records.
 
+Lifecycle: a take with ``job=`` is recorded in its bucket's catalog and,
+without ``base=``, builds on the job's latest snapshot (``catalog.py``);
+:meth:`Snapshot.gc` is the one deletion path of retention and of the
+crash-debris sweep.
+
 Devices: ``take``/``async_take`` stage CUDA tensors through the CUDA path
 (D2H lanes, kernels K1 and K2); ``restore`` writes into each live tensor's
 own device, and a leaf with no live tensor lands on ``device`` (default
@@ -53,6 +58,7 @@ import hashlib
 import json
 import logging
 import os
+import re
 import threading
 import time
 import zlib
@@ -282,6 +288,9 @@ class Snapshot:
         coordinator: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
         base: Optional[str] = None,
+        job: Optional[str] = None,
+        step: Optional[int] = None,
+        max_chain_len: Optional[int] = None,
     ) -> "Snapshot":
         """Write ``app_state`` to ``path`` and return when it is committed.
         ``replicated``: globs of logical paths whose plain tensors hold the
@@ -291,10 +300,21 @@ class Snapshot:
         tree root from its sidecars) is hard-linked instead of rewritten,
         and any failure falls back to the write. The links share inodes,
         so the base may be deleted later. Near-free checkpoints when most
-        state is frozen (partial fine-tunes, embedding-heavy models)."""
+        state is frozen (partial fine-tunes, embedding-heavy models).
+
+        ``job``: record the committed snapshot in its bucket's catalog
+        (``catalog.py``: ``<parent>/.catalog/``, with ``step``, the base,
+        the chain length and the bytes written and deduped) and, without an
+        explicit ``base``, take the latest committed same-job snapshot as
+        the base, unless its chain is already ``max_chain_len`` deltas deep
+        (default ``catalog.DEFAULT_MAX_CHAIN_LEN``, 16): the take is then full.
+        ``step`` defaults to the trailing digits of the snapshot's name.
+        Rank 0 selects the base in the preflight round, so every rank uses
+        the same one."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
+        base = cls._maybe_auto_base(base, job, max_chain_len)
         plan = cls._plan_take(path, app_state, coord, replicated or [], base)
         path = plan.path
         barrier = cls._barrier(coord, "commit", path)
@@ -307,9 +327,12 @@ class Snapshot:
             LAST_SYNC_DRAIN_STATS.clear()
             LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
             phase[0] = "commit"
-            _commit(barrier, rank, metadata, storage, event_loop)
+            catalog_info = (job, step, plan.base, _chain_len_for(plan)) if job is not None else None
+            _commit(barrier, rank, metadata, storage, event_loop, path, catalog_info)
             if barrier is not None:
                 coord.note_external_barrier()
+            if catalog_info is not None:
+                _note_chain_commit(path, catalog_info)
         except BaseException as e:
             if barrier is None:
                 raise
@@ -333,16 +356,22 @@ class Snapshot:
         coordinator: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
         base: Optional[str] = None,
+        job: Optional[str] = None,
+        step: Optional[int] = None,
+        max_chain_len: Optional[int] = None,
     ) -> "PendingSnapshot":
         """Return once the state is captured: CUDA tensors and the local
         shards of DTensors forked on the card (K2), CPU tensors and objects
         copied into private buffers. The caller may then mutate every
         tensor in place; the transfer, the writes and the commit run on a
         background thread (for ``base=``, the base's digests load there
-        too)."""
+        too). ``job``, ``step``, ``max_chain_len``: the catalog, as in
+        :meth:`take`; the background commit appends the record after the
+        metadata and before the commit barrier releases."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
+        base = cls._maybe_auto_base(base, job, max_chain_len)
         plan = cls._plan_take(path, app_state, coord, replicated or [], base)
         path = plan.path
         barrier = cls._barrier(coord, "async_commit", path)
@@ -363,7 +392,23 @@ class Snapshot:
                 raise
             raise aborted from e
         return PendingSnapshot(
-            path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry
+            path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry,
+            catalog_info=(job, step, plan.base, _chain_len_for(plan)) if job is not None else None,
+        )
+
+    @classmethod
+    def _maybe_auto_base(
+        cls, base: Optional[str], job: Optional[str], max_chain_len: Optional[int]
+    ) -> Optional[str]:
+        """The catalog's auto-base sentinel for a ``job=`` take without an
+        explicit ``base=``, resolved on rank 0 in the preflight round
+        (``catalog.resolve_auto_base``). An explicit base always wins."""
+        if job is None or base is not None:
+            return base
+        from . import catalog as catalog_mod
+
+        return catalog_mod.auto_base_token(
+            job, max_chain_len if max_chain_len is not None else catalog_mod.DEFAULT_MAX_CHAIN_LEN
         )
 
     @classmethod
@@ -428,6 +473,7 @@ class Snapshot:
         return TakePlan(
             path=pf.path,
             base=pf.base,
+            base_chain_len=pf.base_chain_len,
             replicated_globs=pf.replicated_globs,
             flattened=flattened,
             manifest=manifest,
@@ -1153,6 +1199,267 @@ class Snapshot:
             "clean": problems == 0,
         }
 
+    # -------------------------------------------------------------------- gc
+    @classmethod
+    def gc(
+        cls,
+        path: str,
+        dry_run: bool = True,
+        keep_roots: Optional[Set[str]] = None,
+        roots: Optional[List[str]] = None,
+        collect_debris: bool = True,
+    ) -> Dict[str, Any]:
+        """Garbage-collect under ``path``: the one deletion path of both the
+        crash-debris sweep and the catalog's retention (``catalog.retain``).
+
+        ``path`` is one snapshot root, or a bucket whose children are
+        snapshot roots. A committed snapshot (``.snapshot_metadata``
+        present) keeps its metadata, every object its manifest references
+        with their ``.ftab`` frame tables, its ``.checksums.<rank>``
+        sidecars and its ``.telemetry/`` artifacts; everything else in it
+        (``*.tmp.*`` files of torn writes, a crashed retake's objects) is
+        debris. A child tree without metadata is debris whole: no reader
+        can see it.
+
+        ``keep_roots`` (bucket only): the keep set. A committed child root
+        it does not name, and that the bucket's catalog does not pin, is
+        condemned and deleted whole in a crash-convergent order:
+        ``.snapshot_metadata`` first, then the tree, then its catalog
+        record, so a crash leaves a record-marked zombie the next run
+        finishes. None keeps every committed root (the debris sweep).
+        Deletion unlinks paths and never rewrites a file, so a retained
+        delta's hard links to a condemned base stay whole.
+
+        ``roots``: more candidate root names than the bucket lists (a
+        ``memory://`` child lives in its own store; retention passes the
+        catalog's names). Given, only those may be condemned, so a
+        committed snapshot the caller does not know of is kept.
+
+        ``collect_debris=False`` deletes only condemned roots, zombies and
+        stale records, never a record-less uncommitted tree (possibly a
+        take in flight) or a loose file: what makes retention safe beside
+        takes. The full sweep (the default) must not run beside a take.
+
+        The ``.catalog/`` tree is never a snapshot root: records of kept
+        snapshots and pins stay, records of condemned or vanished ones go
+        after their trees.
+
+        Dry run by default. One process, no collective. Returns
+        ``{"committed", "uncommitted", "condemned": [roots], "keep",
+        "remove", "remove_records": [paths], "removed": int, "dry_run"}``
+        (paths relative to ``path``)."""
+        from . import catalog as catalog_mod
+
+        event_loop = asyncio.new_event_loop()
+        storage = url_to_storage_plugin(path)
+        sub_plugins: Dict[str, StoragePlugin] = {}
+
+        def sub_plugin(root: str) -> StoragePlugin:
+            if root not in sub_plugins:
+                sub_plugins[root] = url_to_storage_plugin(catalog_mod.join_bucket(path, root))
+            return sub_plugins[root]
+
+        try:
+            all_paths = set(event_loop.run_until_complete(storage.list_prefix("")))
+            single = SNAPSHOT_METADATA_FNAME in all_paths
+            if single and keep_roots is not None:
+                raise ValueError(
+                    f"keep_roots applies to bucket-level gc; {path} is itself a committed snapshot root"
+                )
+            cat_prefix = f"{catalog_mod.CATALOG_DIR}/"
+            # The catalog: record object -> snapshot name, pins, and files
+            # that cannot be classified (kept, fail-safe).
+            record_paths: Dict[str, List[str]] = {}
+            pinned: Set[str] = set()
+            catalog_keep: Set[str] = set()
+            if not single:
+                for p in sorted(q for q in all_paths if q.startswith(cat_prefix)):
+                    try:
+                        read_io = ReadIO(path=p)
+                        storage.sync_read(read_io, event_loop)
+                        name = str(json.loads(bytes(read_io.buf).decode())["name"])
+                    except Exception:  # noqa: BLE001 - unclassifiable
+                        catalog_keep.add(p)
+                        continue
+                    if p.startswith((f"{catalog_mod.RECORD_DIR}/", f"{catalog_mod.STEP_TELEMETRY_DIR}/")):
+                        # Step records share their snapshot's lifecycle.
+                        record_paths.setdefault(name, []).append(p)
+                    elif p.startswith(f"{catalog_mod.PIN_DIR}/"):
+                        pinned.add(name)
+                        catalog_keep.add(p)
+                    else:
+                        catalog_keep.add(p)
+
+            # Candidate roots: the listing's children, every recorded name,
+            # and the caller's.
+            if single:
+                root_names = [""]
+            else:
+                root_names = sorted(
+                    ({p.partition("/")[0] for p in all_paths if "/" in p} - {catalog_mod.CATALOG_DIR})
+                    | set(record_paths)
+                    | set(roots or [])
+                )
+
+            # Per root: its files (root-relative), and the plugin that owns
+            # them when the bucket cannot list them (memory://).
+            views: Dict[str, Dict[str, Any]] = {}
+            for root in root_names:
+                prefix = f"{root}/" if root else ""
+                if root:
+                    listed = sorted(p[len(prefix) :] for p in all_paths if p.startswith(prefix))
+                else:
+                    listed = sorted(all_paths)
+                sub: Optional[StoragePlugin] = None
+                if root and not listed:
+                    try:
+                        sub = sub_plugin(root)
+                        listed = sorted(event_loop.run_until_complete(sub.list_prefix("")))
+                    except Exception:  # noqa: BLE001 - an unlistable root
+                        listed = []
+                    if not listed:
+                        sub = None
+                views[root] = {"paths": listed, "sub": sub, "committed": SNAPSHOT_METADATA_FNAME in listed}
+
+            committed = sorted(r for r, v in views.items() if v["committed"])
+            uncommitted = sorted(r for r, v in views.items() if not v["committed"] and v["paths"])
+            keep_set = set(keep_roots) | pinned if keep_roots is not None else None
+            # Only the caller's universe may be condemned: an unreadable
+            # catalog must not hand gc an empty keep set over the bucket.
+            universe = set(roots) if roots is not None else None
+            condemned = sorted(
+                r
+                for r in committed
+                if keep_set is not None and r not in keep_set and (universe is None or r in universe)
+            )
+            # Zombies: a record names the root but its tree is uncommitted
+            # (a crash after a condemned root's metadata went). Finished in
+            # any mode.
+            zombies = sorted(r for r in uncommitted if r in record_paths)
+
+            retained = [r for r in committed if r not in condemned]
+            keep: Set[str] = set(catalog_keep)
+            observed: Set[str] = set(all_paths)
+            for root in views:
+                prefix = f"{root}/" if root else ""
+                if views[root]["sub"] is not None:
+                    observed.update(f"{prefix}{p}" for p in views[root]["paths"])
+            for root in retained:
+                v = views[root]
+                prefix = f"{root}/" if root else ""
+                meta_path = f"{prefix}{SNAPSHOT_METADATA_FNAME}"
+                if v["sub"] is not None:
+                    read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+                    v["sub"].sync_read(read_io, event_loop)
+                else:
+                    read_io = ReadIO(path=meta_path)
+                    storage.sync_read(read_io, event_loop)
+                metadata = SnapshotMetadata.from_json(bytes(read_io.buf).decode("utf-8"))
+                keep.add(meta_path)
+                for loc in _manifest_storage_locations(metadata.manifest):
+                    keep.add(f"{prefix}{loc}")
+                    keep.add(f"{prefix}{loc}{FRAME_TABLE_SUFFIX}")
+                for r in range(metadata.world_size):
+                    keep.add(f"{prefix}{CHECKSUM_FILE_PREFIX}{r}")
+                keep.update(f"{prefix}{p}" for p in v["paths"] if p.startswith(".telemetry/"))
+                keep.update(record_paths.get(root, []))
+
+            # What goes, in three crash-ordered waves (bucket paths).
+            meta_wave: List[str] = []
+            tree_wave: List[str] = []
+            record_wave: List[str] = []
+            for root in condemned:
+                prefix = f"{root}/" if root else ""
+                meta_wave.append(f"{prefix}{SNAPSHOT_METADATA_FNAME}")
+                tree_wave.extend(f"{prefix}{p}" for p in views[root]["paths"] if p != SNAPSHOT_METADATA_FNAME)
+                record_wave.extend(record_paths.get(root, []))
+            for root in zombies:
+                prefix = f"{root}/" if root else ""
+                tree_wave.extend(f"{prefix}{p}" for p in views[root]["paths"])
+                record_wave.extend(record_paths.get(root, []))
+            # Stale records: the named tree is gone (a crash between a
+            # previous run's tree and record waves).
+            for name, paths in record_paths.items():
+                if name in views and not views[name]["paths"]:
+                    record_wave.extend(paths)
+            if collect_debris:
+                zombie_set = set(zombies)
+                for root in uncommitted:
+                    if root in zombie_set:
+                        continue
+                    prefix = f"{root}/" if root else ""
+                    tree_wave.extend(f"{prefix}{p}" for p in views[root]["paths"])
+                    record_wave.extend(record_paths.get(root, []))
+                # Debris inside retained roots, and loose bucket files.
+                handled = set(condemned) | zombie_set | set(uncommitted)
+                meta_set = set(meta_wave)
+                tree_wave.extend(
+                    sorted(
+                        p
+                        for p in observed
+                        if p not in keep
+                        and not p.startswith(cat_prefix)
+                        and p.partition("/")[0] not in handled
+                        and p not in meta_set
+                    )
+                )
+            remove = sorted(set(meta_wave) | set(tree_wave))
+            removed = 0
+            if not dry_run:
+
+                def owner_of(p: str) -> Tuple[StoragePlugin, str]:
+                    root = p.partition("/")[0]
+                    v = views.get(root)
+                    if v is not None and v["sub"] is not None:
+                        return v["sub"], p[len(root) + 1 :]
+                    return storage, p
+
+                async def delete_wave(paths: List[str]) -> int:
+                    # The waves run one after another; deletes inside one
+                    # run up to the I/O width. A file already gone counts:
+                    # the goal is reached.
+                    done = [0]
+
+                    async def delete(p: str) -> None:
+                        plugin, rel = owner_of(p)
+                        try:
+                            await plugin.delete(rel)
+                        except FileNotFoundError:
+                            pass
+                        done[0] += 1
+
+                    engine = GraphExecutor(0, caps={"io": MAX_CONCURRENT_IO})
+                    for p in sorted(set(paths)):
+                        engine.add(Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", path=p))
+                    await engine.run()
+                    return done[0]
+
+                # Metadata first (each condemned snapshot stops being
+                # restorable before any data byte goes), then the trees,
+                # then the records: a record goes only once its tree has.
+                for wave in (meta_wave, tree_wave, record_wave):
+                    if wave:
+                        removed += event_loop.run_until_complete(delete_wave(wave))
+                # A crashed take may leave empty directories (fs).
+                event_loop.run_until_complete(storage.prune_empty())
+                for sub in sub_plugins.values():
+                    event_loop.run_until_complete(sub.prune_empty())
+            return {
+                "committed": committed,
+                "uncommitted": uncommitted,
+                "condemned": condemned,
+                "keep": sorted(keep & observed),
+                "remove": remove,
+                "remove_records": sorted(set(record_wave)),
+                "removed": removed,
+                "dry_run": dry_run,
+            }
+        finally:
+            for sub in sub_plugins.values():
+                sub.sync_close(event_loop)
+            storage.sync_close(event_loop)
+            event_loop.close()
+
     # -------------------------------------------------------------- metadata
     @property
     def metadata(self) -> SnapshotMetadata:
@@ -1204,16 +1511,100 @@ def _commit(
     metadata: SnapshotMetadata,
     storage: StoragePlugin,
     event_loop: asyncio.AbstractEventLoop,
+    path: str,
+    catalog_info: Optional[Tuple[str, Optional[int], Optional[str], int]] = None,
 ) -> None:
     """Rank 0 writes ``.snapshot_metadata`` once every rank's data is
     written (arrive), and every rank returns only once it is visible
-    (depart), so no rank can open the snapshot before it exists."""
+    (depart), so no rank can open the snapshot before it exists. With
+    ``catalog_info`` (``job``, ``step``, base, chain length) rank 0 appends
+    the catalog record between the two: after the metadata (a record
+    implies a committed snapshot), before any rank returns."""
     if barrier is not None:
         barrier.arrive()
     if rank == 0:
         _write_metadata(metadata, storage, event_loop)
+        if catalog_info is not None:
+            _append_catalog_record(path, storage, event_loop, metadata.world_size, *catalog_info)
     if barrier is not None:
         barrier.depart()
+
+
+def _chain_len_for(plan: TakePlan) -> int:
+    """The chain length a catalog-managed take records: 0 for a full
+    snapshot, the base's + 1 for a catalog-resolved base, and 1 for an
+    explicit base (its chain is not known on every rank alike; the
+    rebase-to-full policy governs auto-selected chains only)."""
+    if not plan.base:
+        return 0
+    if plan.base_chain_len >= 0:
+        return plan.base_chain_len + 1
+    return 1
+
+
+def _note_chain_commit(path: str, catalog_info: Tuple[str, Optional[int], Optional[str], int]) -> None:
+    """Make a just-committed ``job=`` snapshot its job's cached chain head
+    on this rank, so the next take selects it without storage I/O."""
+    from . import catalog as catalog_mod
+
+    try:
+        split = catalog_mod.split_bucket(path)
+        if split is not None:
+            catalog_mod.note_commit(split[0], catalog_info[0], split[1], catalog_info[3])
+    except Exception:  # noqa: BLE001 - a cache refresh never fails a take
+        logger.debug("chain-cache refresh failed for %s", path, exc_info=True)
+
+
+def _append_catalog_record(
+    path: str,
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    world_size: int,
+    job: str,
+    step: Optional[int],
+    base: Optional[str],
+    chain_len: int,
+) -> None:
+    """Rank 0's commit-time catalog append, fail-open: the snapshot is
+    committed already, and a failed append only drops it from the chain and
+    retention view until ``Catalog.rebuild``. The byte attribution comes
+    from the snapshot's sidecars against the base's, with no collective."""
+    from . import catalog as catalog_mod
+
+    try:
+        split = catalog_mod.split_bucket(path)
+        if split is None:
+            logger.warning("snapshot %s has no parent bucket; catalog record skipped", path)
+            return
+        bucket, name = split
+        total, written, deduped = catalog_mod.byte_attribution(storage, world_size, base, event_loop)
+        if step is None:
+            m = re.search(r"(\d+)$", name)
+            step = int(m.group(1)) if m else -1
+        base_field = None
+        if base:
+            bsplit = catalog_mod.split_bucket(base)
+            base_field = bsplit[1] if bsplit and bsplit[0] == bucket else base
+        record = catalog_mod.CatalogRecord(
+            name=name,
+            job=job,
+            step=int(step),
+            wall_time=time.time(),
+            base=base_field,
+            chain_len=chain_len,
+            world_size=world_size,
+            bytes_total=total,
+            bytes_written=written,
+            bytes_deduped=deduped,
+        )
+        with catalog_mod.Catalog(bucket, event_loop=event_loop) as cat:
+            cat.append(record)
+    except Exception:  # noqa: BLE001 - fail-open by contract
+        logger.warning(
+            "catalog record for %s could not be appended (snapshot commit unaffected)",
+            path,
+            exc_info=True,
+        )
 
 
 def _gather_manifest(
@@ -1573,7 +1964,17 @@ def _prepare_restore_one(
     first = entry.chunks[0].tensor if isinstance(entry, ChunkedArrayEntry) else entry
     if first.serializer == Serializer.PICKLE:
         if isinstance(entry, ChunkedArrayEntry):
-            raise NotImplementedError(f"{logical_path}: chunked pickled arrays")
+            # One pickled object per dim-0 chunk, each copied into its rows.
+            dtype, shape = np.dtype(entry.dtype), tuple(int(s) for s in entry.shape)
+            if not (
+                isinstance(live, np.ndarray)
+                and live.dtype == dtype
+                and live.shape == shape
+                and live.flags["WRITEABLE"]
+            ):
+                live = np.empty(shape, dtype=dtype)
+            loaded[logical_path] = live
+            return ChunkedArrayIOPreparer.prepare_pickled_read(entry, live), None
         nbytes = 1024 * 1024
         return [
             ReadReq(
@@ -1722,8 +2123,11 @@ class PendingSnapshot:
         coord: Coordinator,
         barrier: Optional[LinearBarrier],
         prepared_entry: Optional[prepare_cache.PreparedTake] = None,
+        catalog_info: Optional[Tuple[str, Optional[int], Optional[str], int]] = None,
     ) -> None:
         self.path = path
+        # (job, step, base, chain length) of a ``job=`` take.
+        self._catalog_info = catalog_info
         self._pending_io_work = pending_io_work
         self._metadata = metadata
         self._coord = coord
@@ -1746,7 +2150,9 @@ class PendingSnapshot:
         try:
             self._pending_io_work.sync_complete(event_loop)
             self._phase = "commit"
-            _commit(self._barrier, rank, self._metadata, storage, event_loop)
+            _commit(self._barrier, rank, self._metadata, storage, event_loop, self.path, self._catalog_info)
+            if self._catalog_info is not None:
+                _note_chain_commit(self.path, self._catalog_info)
         except BaseException as e:  # noqa: BLE001 - re-raised by wait()
             logger.error("async snapshot of %s failed on rank %d", self.path, rank, exc_info=True)
             if self._barrier is not None and not isinstance(e, BarrierError):

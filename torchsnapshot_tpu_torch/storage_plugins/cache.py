@@ -590,6 +590,12 @@ class CachedStoragePlugin(StoragePlugin):
         await self._run(self._invalidate_path, path)
         return await self.inner.link_in(src_abs_path, path)
 
+    async def list_prefix(self, prefix: str) -> List[str]:
+        return await self.inner.list_prefix(prefix)
+
+    async def prune_empty(self) -> None:
+        await self.inner.prune_empty()
+
     async def close(self) -> None:
         await self.inner.close()
         if self._executor is not None:

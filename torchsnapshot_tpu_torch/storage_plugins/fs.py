@@ -299,6 +299,18 @@ class FSStoragePlugin(StoragePlugin):
 
         return await self._run(work)
 
+    async def prune_empty(self) -> None:
+        """Remove the directories deletions left empty, bottom-up (a
+        collected snapshot leaves no skeleton); the root stays."""
+
+        def work() -> None:
+            for dirpath, _, _ in os.walk(self.root, topdown=False):
+                if dirpath != self.root and not os.listdir(dirpath):
+                    with contextlib.suppress(OSError):
+                        os.rmdir(dirpath)
+
+        await self._run(work)
+
     async def close(self) -> None:
         if self._executor is not None:
             self._executor.shutdown(wait=True)

@@ -17,7 +17,9 @@ constant store traffic per non-zero rank:
 2. One preflight round (:func:`preflight`: a ``gather_object`` to rank 0
    and a ``broadcast_object`` back) carries ``(path, base, globs,
    plan_token)``. Rank 0 takes its own path and base (warning on
-   divergence), intersects the globs, and decides HIT iff every rank holds
+   divergence; a catalog auto-base is resolved here, so the base may change
+   from take to take on a hit as on a miss), intersects the globs, and
+   decides HIT iff every rank holds
    a cached plan for its own fingerprint and all plans carry the same
    take-sequence token, i.e. were stored by one earlier take together.
 3. On a HIT the partition replays the cached assignment (no gather), and
@@ -145,6 +147,10 @@ class PreflightResult:
     path: str
     base: Optional[str]
     replicated_globs: List[str]
+    # The base's recorded chain length when rank 0 resolved it from the
+    # catalog (>= 0; the take's own chain is one more), else -1 (an
+    # explicit or absent base). Broadcast with the decision.
+    base_chain_len: int = -1
 
 
 @dataclass
@@ -167,6 +173,8 @@ class TakePlan:
     # The prepared-take cache entry this take acquired or stored; released
     # when its pipeline completes, success or failure.
     prepared_entry: Any = None
+    # See PreflightResult.base_chain_len.
+    base_chain_len: int = -1
 
 
 def get_plan_cache(coord: Coordinator) -> Dict[str, CachedPlan]:
@@ -215,7 +223,8 @@ def preflight(
     on every rank)."""
     globs_local = sorted(set(replicated_globs))
     if coord.get_world_size() == 1:
-        return PreflightResult(False, path, _resolve_base(base), globs_local)
+        base, base_chain = _resolve_base(base, path)
+        return PreflightResult(False, path, base, globs_local, base_chain)
     gathered = coord.gather_object((path, base, globs_local, plan_token, keys_sig), dst=0)
     decision = None
     if gathered is not None:  # rank 0
@@ -240,16 +249,27 @@ def preflight(
         if dropped:
             logger.warning("Ignoring rank-asymmetric replicated globs: %s", dropped)
         hit = tokens[0] is not None and all(t == tokens[0] for t in tokens)
-        decision = (hit, paths[0], _resolve_base(bases[0]), sorted(common))
+        # A catalog auto-base resolves here, on rank 0 only (from the chain
+        # cache, or one catalog scan); the broadcast gives every rank the
+        # resolved base and its chain length, on a hit as on a miss.
+        base0, base_chain = _resolve_base(bases[0], paths[0])
+        decision = (hit, paths[0], base0, sorted(common), base_chain)
     # Every rank issues the broadcast (the source posts, the rest read).
-    hit, canonical_path, canonical_base, common_globs = coord.broadcast_object(decision, src=0)
-    return PreflightResult(hit, canonical_path, canonical_base, common_globs)
+    hit, canonical_path, canonical_base, common_globs, base_chain = coord.broadcast_object(decision, src=0)
+    return PreflightResult(hit, canonical_path, canonical_base, common_globs, base_chain)
 
 
-def _resolve_base(base: Optional[str]) -> Optional[str]:
-    """The base a take uses. The JAX package resolves a catalog auto-base
-    here; the port has no catalog yet, so an explicit base passes through."""
-    return base
+def _resolve_base(base: Optional[str], path: str) -> Tuple[Optional[str], int]:
+    """A catalog auto-base sentinel (``Snapshot.take(job=...)``) resolved
+    into a base path and its recorded chain length; an explicit or absent
+    base passes through with chain -1 (unknown). Local storage I/O only;
+    the caller broadcasts the result."""
+    from . import catalog as catalog_mod
+
+    if base is None or not catalog_mod.is_auto_base(base):
+        return base, -1
+    resolved, chain = catalog_mod.resolve_auto_base(base, path)
+    return resolved, (chain if resolved is not None else 0)
 
 
 def gather_manifest_delta(

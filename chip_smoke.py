@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a host with one CUDA GPU::
 
-    python3 chip_smoke.py [--gb 4.0] [--seed 0]
+    python3 chip_smoke.py [--gb 4.0] [--phase3-gb 2.0] [--seed 0]
 
 Phase 0 builds the CUDA kernels from ``torchsnapshot_tpu_torch/csrc``.
 Phase 1 holds each kernel (K1 pack_slab, K2 fork_copy, K3 copy_blocks)
@@ -18,8 +18,9 @@ verify, restore into zeroed CUDA tensors, read_object, then async_take
 followed at once by an in-place ``add_(1)`` of every tensor, wait, and a
 restore that must give the values from before the mutation.
 Phase 3 drives the multi-rank path: two ranks, two processes on the one
-card (gloo process group, ``DeviceMesh("cuda", (2,))``), holding the same
-model state sharded tensor-parallel style as DTensors (``attn`` and ``up``
+card (gloo process group, ``DeviceMesh("cuda", (2,))``), holding a
+``--phase3-gb`` GB model state (2 GB since phase 8 came: cut from ``--gb``
+so the script keeps its time) sharded tensor-parallel style as DTensors (``attn`` and ``up``
 ``Shard(1)``, ``down`` ``Shard(0)``, column biases ``Shard(0)``, LayerNorm
 weights and the other biases ``Replicate()``), a per-rank step tensor,
 primitives and a pickled object: a sync take, a restore in place with the
@@ -96,6 +97,21 @@ uncommitted root are all a ``Snapshot.gc`` sweep removes
 deduped bytes against the frozen bytes, stalls and rates, the retain and
 gc reports with the bucket's bytes before and after, the cache's origin
 bytes and the phase's launches (K1 and K2 must launch; K3 is not on it).
+Phase 8 traces the port on the card: (a) phase 4's trainer (8 layers, AdamW,
+11.25 GB in 408 tensors) takes steps 1-3, ``async_take`` raced by step 4
+with ``TSS_TORCH_TRACE`` set, then a traced restore into a fresh model,
+bit-exact; the trace must parse, drop no span, hold ``take.phase`` spans
+equal to ``LAST_TAKE_PHASES``, and ``stage.d2h`` spans whose bytes are the
+state's CUDA bytes at a rate no higher than the host link's 64 GB/s; it
+prints the io node's split (the union of hashing time against the union of
+storage time) for the drain and the restore. (b) phase 3's TP state on two
+ranks (gloo), fleet beacons on, a traced take and a swapped-placement
+restore (K3), per-rank traces (``.rank1``); ``fleet-health`` must read both
+beacons and ``python -m torchsnapshot_tpu_torch stats`` merge both ranks'
+artifacts, whose byte counters must equal each rank's written bytes.
+(c) phase 2's state, three interleaved pairs of a sync take and an
+``async_take`` drain with the flight recorder and artifacts on against both
+off: medians and spread, a warning (not a failure) above 1% of the drain.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -1248,9 +1264,271 @@ def phase7(seed, device, root, card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: telemetry on the card
+# ---------------------------------------------------------------------------
+
+# The H100's host link: PCIe 5.0 x16, 128 GB/s both ways together (NVIDIA's
+# data sheet), so at most 64 GB/s one way. A stage.d2h span that closed at
+# the copy's enqueue would imply a faster rate.
+HOST_LINK_BYTES_PER_S = 64e9
+TRAINER_CFG = dict(vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512)
+
+
+def _io_split(report):
+    return {k: report[k] for k in ("hash_busy_s", "write_busy_s", "read_busy_s", "consume_busy_s")}
+
+
+def phase8a(seed, device, root, card):
+    """Phase 4's trainer, its async checkpoint and restore traced."""
+    from torchsnapshot_tpu_torch import dryrun, kernels
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(**TRAINER_CFG)
+    trace_dir = os.path.join(root, "phase8_traces")
+    os.makedirs(trace_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = dryrun.traced_checkpoint(cfg, root, trace_dir, device=device, batch=4, seed=seed)
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    take = dryrun.trace_report(out["traces"]["take"])
+    restore = dryrun.trace_report(out["traces"]["restore"])
+    if launches["pack_slab"] < 1 or launches["fork_copy"] != 1:
+        raise AssertionError(f"phase8 (a): K1 must launch and K2 once: {launches}")
+    for name, rep in (("take", take), ("restore", restore)):
+        if rep["dropped_spans"] or rep["spans_dropped_metric"]:
+            raise AssertionError(f"phase8 (a): the {name} trace dropped spans: {rep['dropped_spans']}")
+    phases = out["take_phases"]
+    if set(take["phases"]) != set(phases) or any(abs(take["phases"][k] - v) > 1e-6 for k, v in phases.items()):
+        raise AssertionError(f"phase8 (a): take.phase spans {take['phases']} != LAST_TAKE_PHASES {phases}")
+    if take["d2h_bytes"] != out["d2h_bytes"] or take["metrics"].get("d2h.bytes") != out["d2h_bytes"]:
+        raise AssertionError(f"phase8 (a): stage.d2h bytes {take['d2h_bytes']} != the state's CUDA bytes {out['d2h_bytes']}")
+    d2h_rate = take["d2h_bytes"] / take["d2h_busy_s"]
+    if d2h_rate > HOST_LINK_BYTES_PER_S:
+        raise AssertionError(f"phase8 (a): D2H at {d2h_rate / 1e9:.1f} GB/s beats the host link: a span closed at enqueue")
+    for need in ("scheduler.stage", "scheduler.io", "stage.hash_chunk", "storage.write", "capture"):
+        if not take["span_counts"].get(need):
+            raise AssertionError(f"phase8 (a): no {need} span in the take trace")
+    if not restore["span_counts"].get("scheduler.consume"):
+        raise AssertionError("phase8 (a): no scheduler.consume span in the restore trace")
+    summary = {
+        "state_bytes": out["state_bytes"],
+        "d2h_bytes": out["d2h_bytes"],
+        "async_stall_s": out["async_stall_s"],
+        "async_drain_s": out["async_drain_s"],
+        "restore_s": out["restore_s"],
+        "d2h_busy_s": take["d2h_busy_s"],
+        "d2h_gbps": d2h_rate / 1e9,
+        "take_spans": take["spans"],
+        "restore_spans": restore["spans"],
+        "drain_io_split_s": _io_split(take),
+        "restore_io_split_s": _io_split(restore),
+        "drain_stats": out["drain_stats"],
+        "wall_s": wall,
+    }
+    log(f"phase8 (a) traced trainer checkpoint on {card}: {out['n_tensors']} tensors, {out['state_bytes']} bytes "
+        f"({out['d2h_bytes']} on the card), stall {out['async_stall_s']:.4f} s, drain {out['async_drain_s']:.3f} s, "
+        f"restore {out['restore_s']:.3f} s (bit-exact), {take['spans']} + {restore['spans']} spans, none dropped, "
+        f"artifact writes {take['artifact_write_s']:.4f} / {restore['artifact_write_s']:.4f} s")
+    log(f"phase8 (a) stage.d2h on {card}: {take['d2h_bytes']} bytes over {take['d2h_busy_s']:.3f} s busy "
+        f"({d2h_rate / 1e9:.2f} GB/s, host link {HOST_LINK_BYTES_PER_S / 1e9:.0f} GB/s)")
+    log(f"phase8 (a) io node split, drain, on {card}: hashing {take['hash_busy_s']:.3f} s busy, "
+        f"storage.write {take['write_busy_s']:.3f} s busy, drain wall {out['async_drain_s']:.3f} s, "
+        f"drain stats {json.dumps(out['drain_stats'])}")
+    log(f"phase8 (a) io node split, restore, on {card}: storage.read {restore['read_busy_s']:.3f} s busy, "
+        f"hashing {restore['hash_busy_s']:.3f} s, scheduler.consume {restore['consume_busy_s']:.3f} s, "
+        f"restore wall {out['restore_s']:.3f} s")
+    log(f"phase8 (a) take span counts on {card}: {json.dumps(take['span_counts'], sort_keys=True)}")
+    log(f"phase8 (a) launches on {card}: {json.dumps(launches)}")
+    return launches, summary
+
+
+def phase8b_worker(rank, world_size, gb, seed, root, out_dir):
+    """One rank of phase 8 (b): phase 3's TP state, traced, fleet beacons on."""
+    import contextlib as ctx
+    import io
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels
+    from torchsnapshot_tpu_torch.__main__ import main as cli_main
+
+    os.environ["TSS_TORCH_FLEET_TELEMETRY"] = "1"
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = DeviceMesh("cuda", list(range(world_size)))
+    result = {"rank": rank, "launches": {}}
+    params = tp_state(gb, seed, device, mesh, "save")
+    path = os.path.join(root, "tp_traced")
+    os.environ["TSS_TORCH_TRACE"] = os.path.join(out_dir, "take.json")  # rank 1: take.json.rank1
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tts.Snapshot.take(path, {"model": tts.StateDict(params)})
+    result["launches"]["take"] = dict(kernels.LAUNCHES)
+    del params
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "swap", zeros=True))}
+    os.environ["TSS_TORCH_TRACE"] = os.path.join(out_dir, "restore.json")
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tts.Snapshot(path).restore(target)
+    torch.cuda.synchronize()
+    result["launches"]["reshard_restore"] = dict(kernels.LAUNCHES)
+    os.environ.pop("TSS_TORCH_TRACE")
+    check_tp_state(dict(target["model"]), gb, seed, device, "swap", "phase8 swapped-placement restore")
+    if result["launches"]["reshard_restore"]["copy_blocks"] < 1:
+        raise AssertionError("phase8 (b): K3 was not launched in the reshard restore")
+    del target
+    dist.barrier()
+    if rank == 0:
+        store = dist.distributed_c10d._get_default_store()._underlying_non_prefix_store
+        out = io.StringIO()
+        with ctx.redirect_stdout(out):
+            rc = cli_main(["fleet-health", f"{store.host}:{store.port}"])
+        result["fleet_health"] = {"rc": rc, "text": out.getvalue()}
+    dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase8b(gb, seed, root, card):
+    from torchsnapshot_tpu_torch import dryrun, hashing
+    from torchsnapshot_tpu_torch.telemetry import aggregate
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    out_dir = os.path.join(root, "phase8b_out")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    run_with_processes(phase8b_worker, 2, args=(gb, seed, root, out_dir), timeout_s=600, process_group=True)
+    wall = time.monotonic() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    fleet = ranks[0]["fleet_health"]
+    if fleet["rc"] != 0 or "fleet: world_size=2  beacons=2" not in fleet["text"]:
+        raise AssertionError(f"phase8 (b): fleet-health did not read both ranks' beacons: {fleet}")
+    path = os.path.join(root, "tp_traced")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchsnapshot_tpu_torch", "stats", path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 0 or "ranks_present=2" not in proc.stdout:
+        raise AssertionError(f"phase8 (b): stats failed: {proc.stdout} {proc.stderr}")
+    world, artifacts, problems = aggregate.read_snapshot_artifacts(path)
+    if problems or sorted(artifacts) != [0, 1]:
+        raise AssertionError(f"phase8 (b): artifacts {sorted(artifacts)}, problems {problems}")
+    per_rank = {}
+    for rank in range(2):
+        with open(os.path.join(path, f".checksums.{rank}")) as f:
+            local = sum(hashing.record_size(r) for r in json.load(f).values())
+        art = artifacts[rank]
+        if not (art["bytes"]["written"] == art["metrics"]["scheduler.bytes_staged"] == local):
+            raise AssertionError(f"phase8 (b): rank {rank} counters {art['bytes']} != its local bytes {local}")
+        take = dryrun.trace_report(os.path.join(out_dir, "take.json" + ("" if rank == 0 else f".rank{rank}")))
+        restore = dryrun.trace_report(os.path.join(out_dir, "restore.json" + ("" if rank == 0 else f".rank{rank}")))
+        if take["dropped_spans"] or restore["dropped_spans"] or not restore["span_counts"].get("scheduler.consume"):
+            raise AssertionError(f"phase8 (b): rank {rank} traces incomplete")
+        if take["d2h_bytes"] != local:
+            raise AssertionError(f"phase8 (b): rank {rank} stage.d2h bytes {take['d2h_bytes']} != local {local}")
+        per_rank[rank] = {
+            "local_bytes": local,
+            "take_io_split_s": _io_split(take),
+            "restore_io_split_s": _io_split(restore),
+            "launches": ranks[rank]["launches"],
+        }
+    shutil.rmtree(path)
+    log(f"phase8 (b) two ranks on {card} (gloo, one card), traced take and swapped-placement restore in {wall:.1f} s")
+    log("phase8 (b) fleet-health:\n" + fleet["text"].rstrip())
+    log("phase8 (b) stats:\n" + proc.stdout.rstrip())
+    log(f"phase8 (b) per rank on {card}: {json.dumps(per_rank)}")
+    return {f"phase8b_rank{r}_{k}": v for r in range(2) for k, v in ranks[r]["launches"].items()}, per_rank
+
+
+def phase8c(gb, device, gen, root, card):
+    """Overhead of the always-on telemetry: phase 2's state, sync take and
+    async_take drain, with the recorder and artifacts on against both off,
+    three interleaved pairs."""
+    import statistics
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels
+    from torchsnapshot_tpu_torch import telemetry
+
+    params, progress, _ = build_state(gb, device, gen)
+    app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    configs = {
+        "on": {"TSS_TORCH_RECORDER": "1", "TSS_TORCH_TELEMETRY_ARTIFACTS": "1"},
+        "off": {"TSS_TORCH_RECORDER": "0", "TSS_TORCH_TELEMETRY_ARTIFACTS": "0"},
+    }
+    times = {k: {"take_s": [], "drain_s": [], "stall_s": []} for k in configs}
+    kernels.reset_launch_counts()
+
+    def run(name, record):
+        _set_env(configs[name])
+        telemetry.recorder.reset()
+        path = os.path.join(root, f"ab_{name}")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tts.Snapshot.take(path, app)
+        take_s = time.monotonic() - t0
+        shutil.rmtree(path)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pending = tts.Snapshot.async_take(path, app)
+        stall_s = time.monotonic() - t0
+        pending.wait()
+        drain_s = time.monotonic() - t0 - stall_s
+        has_artifact = os.path.exists(os.path.join(path, ".telemetry", "rank_0.json"))
+        if has_artifact != (name == "on"):
+            raise AssertionError(f"phase8 (c): artifact present {has_artifact} with telemetry {name}")
+        shutil.rmtree(path)
+        if record:
+            times[name]["take_s"].append(take_s)
+            times[name]["stall_s"].append(stall_s)
+            times[name]["drain_s"].append(drain_s)
+
+    try:
+        run("off", False)  # warm-up: the prepared-take cache, the pools
+        for i in range(3):
+            for name in ("on", "off") if i % 2 == 0 else ("off", "on"):
+                run(name, True)
+    finally:
+        _set_env({k: None for k in configs["on"]})
+        telemetry.recorder.reset()
+    launches = dict(kernels.LAUNCHES)
+    summary = {"state_bytes": nbytes}
+    for name, t in times.items():
+        summary[name] = {
+            k: {"median": statistics.median(v), "min": min(v), "max": max(v), "runs": v} for k, v in t.items()
+        }
+    drain_on, drain_off = summary["on"]["drain_s"]["median"], summary["off"]["drain_s"]["median"]
+    summary["drain_overhead_frac"] = (drain_on - drain_off) / drain_off
+    take_on, take_off = summary["on"]["take_s"]["median"], summary["off"]["take_s"]["median"]
+    summary["take_overhead_frac"] = (take_on - take_off) / take_off
+    log(f"phase8 (c) telemetry overhead on {card}, {nbytes} bytes, 3 interleaved pairs: {json.dumps(summary)}")
+    if summary["drain_overhead_frac"] > 0.01:
+        log(f"phase8 (c) WARNING: drain median with telemetry on is {summary['drain_overhead_frac'] * 100:.1f}% "
+            "above off (the JAX package's fail-soft 1% gate; drains vary by tens of percent run to run here)")
+    return launches, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
+    parser.add_argument(
+        "--phase3-gb", type=float, default=2.0,
+        help="size of phase 3's two-rank TP state (cut from --gb, so phase 8 fits the script's time)",
+    )
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     # Phase 4 runs cuBLAS deterministically, which needs this before CUDA starts.
@@ -1302,7 +1580,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         k3_times = time_k3(device, args.gb, gen)
-        ranks = phase3(args.gb, args.seed, root, card)
+        ranks = phase3(args.phase3_gb, args.seed, root, card)
         launches["phase4"], trainer = phase4(args.seed, device, root, card)
         phase5_launches, finetune = phase5(args.seed, device, root, card)
         for codec, counts in phase5_launches.items():
@@ -1310,6 +1588,12 @@ def main() -> int:
         phase6_launches, serving = phase6(args.seed, device, gen, args.gb, root, card)
         launches.update(phase6_launches)
         launches["phase7"], continuous = phase7(args.seed, device, root, card)
+        t8 = time.monotonic()
+        launches["phase8a"], traced = phase8a(args.seed, device, root, card)
+        phase8b_launches, _ = phase8b(args.gb, args.seed, root, card)
+        launches.update(phase8b_launches)
+        launches["phase8c"], overhead = phase8c(args.gb, device, gen, root, card)
+        log(f"phase8 wall on {card}: {time.monotonic() - t8:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1326,6 +1610,8 @@ def main() -> int:
     summary = {k: v for k, v in continuous.items() if k != "takes"}
     summary["takes"] = {n: {k: v for k, v in r.items() if k != "drain_stats"} for n, r in continuous["takes"].items()}
     log(f"phase7 continuous summary on {card}: {json.dumps(summary)}")
+    log(f"phase8 traced trainer summary on {card}: {json.dumps(traced)}")
+    log(f"phase8 overhead summary on {card}: {json.dumps(overhead)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

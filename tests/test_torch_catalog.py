@@ -42,7 +42,7 @@ def _tree(step: int):
 
 
 def _tstate(step: int):
-    return {"m": tts.StateDict(from_numpy_tree(_tree(step)))}
+    return {"m": tts.StateDict(from_numpy_tree(_tree(step), device="cpu"))}
 
 
 def _jstate(step: int):

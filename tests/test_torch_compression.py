@@ -119,7 +119,7 @@ def _normalized_dir(d):
 def _take_both(tmp_path, tree):
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     jts.Snapshot.take(jdir, {"m": jts.StateDict(tree)})
-    tts.Snapshot.take(tdir, {"m": tts.StateDict(from_numpy_tree(tree))})
+    tts.Snapshot.take(tdir, {"m": tts.StateDict(from_numpy_tree(tree, device="cpu"))})
     return jdir, tdir
 
 
@@ -178,7 +178,7 @@ def _zeros_tree(tree, torch_side):
             out[k] = _zeros_tree(v, torch_side)
         elif isinstance(v, np.ndarray):
             z = np.zeros_like(v)
-            out[k] = from_numpy_tree({"z": z})["z"] if torch_side else z
+            out[k] = from_numpy_tree({"z": z}, device="cpu")["z"] if torch_side else z
         else:
             out[k] = None
     return out
@@ -212,7 +212,7 @@ def test_compressed_snapshots_restore_across_packages(tmp_path, monkeypatch, cod
         member = tts.Snapshot(path).read_object("0/m/b", device="cpu")
         framed = tts.Snapshot(path).read_object("0/m/emb", device="cpu", memory_budget_bytes=600)
     else:
-        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree))})
+        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree, device="cpu"))})
         target = jts.StateDict(_zeros_tree(tree, False))
         jts.Snapshot(path).restore({"m": target})
         member = jts.Snapshot(path).read_object("0/m/b")

@@ -540,3 +540,51 @@ def test_swarm_reshard_into_dtensors_launches_k3(device, tmp_path):
     assert all(r["peer"] > 0 for r in recs), recs
     # Each rank needs every row of both saved shards: one origin copy.
     assert sum(r["origin"] for r in recs) == 256 * 512 * 4
+
+
+# The H100's host link: PCIe 5.0 x16, 128 GB/s both ways together (NVIDIA's
+# data sheet), so at most 64 GB/s device to host. A stage.d2h span that
+# closed when its copy was enqueued, not done, would imply a faster rate.
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+def test_traced_async_take_d2h_spans_cover_the_transfers(device, tmp_path, monkeypatch):
+    import json
+
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.engine.intervals import measure, merge_intervals
+
+    trace = tmp_path / "trace.json"
+    monkeypatch.setenv("TSS_TORCH_TRACE", str(trace))
+    monkeypatch.setenv("TSS_TORCH_ENABLE_BATCHING", "1")
+    g = torch.Generator(device=device).manual_seed(0)
+    state = {
+        "w": torch.randn(4096, 2048, generator=g, device=device).to(torch.bfloat16),
+        "up": torch.randn(2048, 4096, generator=g, device=device),
+        "b": torch.randn(4096, generator=g, device=device),
+        "ln": torch.ones(2048, device=device),
+    }
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    pending = tts.Snapshot.async_take(str(tmp_path / "s"), {"m": tts.StateDict(**state)})
+    for t in state.values():
+        t.add_(1)  # races the drain
+    pending.wait()
+    with open(trace) as f:
+        obj = json.load(f)
+    spans = telemetry.spans_from_chrome_trace(obj)
+    d2h = [s for s in spans if s.name == "stage.d2h"]
+    assert d2h and sum(s.attrs["nbytes"] for s in d2h) == nbytes
+    assert telemetry.metrics_from_chrome_trace(obj)["d2h.bytes"] == nbytes
+    assert obj["otherData"]["dropped_spans"] == 0
+    busy = measure(merge_intervals([(s.ts, s.ts + s.dur) for s in d2h]))
+    assert nbytes / busy <= HOST_LINK_BYTES_PER_S, (nbytes, busy)
+    # The phase spans are exactly LAST_TAKE_PHASES (a view of them).
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+
+    phases = {}
+    for s in spans:
+        if s.cat == "take.phase":
+            phases[s.name] = phases.get(s.name, 0.0) + s.dur
+    assert phases.keys() == snapshot_mod.LAST_TAKE_PHASES.keys()
+    for k, v in phases.items():
+        assert abs(v - snapshot_mod.LAST_TAKE_PHASES[k]) < 1e-5, k

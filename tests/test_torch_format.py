@@ -131,7 +131,7 @@ def take_both(tmp_path, tree, *, batching=False, chunk=None, grain=None):
     os.environ.update(env)
     try:
         jts.Snapshot.take(jdir, {"m": jts.StateDict(tree)})
-        tts.Snapshot.take(tdir, {"m": tts.StateDict(from_numpy_tree(tree))})
+        tts.Snapshot.take(tdir, {"m": tts.StateDict(from_numpy_tree(tree, device="cpu"))})
     finally:
         for k, v in saved.items():
             if v is None:
@@ -227,7 +227,7 @@ def test_chunked_pickled_array_restores_across_packages(tmp_path, writer):
             jts.Snapshot.take(path, {"m": jts.StateDict(s=arr)})
     else:
         with tknobs.override_max_chunk_size_bytes(64):
-            tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree({"s": arr}))})
+            tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree({"s": arr}, device="cpu"))})
     entry = _metadata(path)["manifest"]["0/m/s"]
     assert entry["type"] == "chunked_array" and len(entry["chunks"]) == 13
     assert {c["tensor"]["serializer"] for c in entry["chunks"]} == {"pickle"}
@@ -253,7 +253,7 @@ def test_pickled_array_stays_out_of_slabs(tmp_path):
     tree["strs"] = np.array([f"s{i}" for i in range(64)])
     path = str(tmp_path / "s")
     with tknobs.override_batching_enabled(True):
-        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree))})
+        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree, device="cpu"))})
     manifest = _metadata(path)["manifest"]
     assert manifest["0/m/strs"]["location"] == "0/m/strs" and manifest["0/m/strs"]["serializer"] == "pickle"
     assert any(e.get("location", "").startswith("batched/") for e in manifest.values())

@@ -49,7 +49,7 @@ def _samefile(base, inc, key):
 
 
 def _restore(path, tree):
-    target = tts.StateDict(from_numpy_tree({k: _zeros(v) for k, v in tree.items()}))
+    target = tts.StateDict(from_numpy_tree({k: _zeros(v) for k, v in tree.items()}, device="cpu"))
     tts.Snapshot(path).restore({"m": target}, device="cpu")
     return target
 
@@ -88,9 +88,9 @@ def test_unchanged_objects_are_linked_changed_ones_written(tmp_path, monkeypatch
     monkeypatch.setattr("torchsnapshot_tpu_torch.batcher.SLAB_SIZE_THRESHOLD_BYTES", 128)
     tree0 = _tree(0)
     base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
-    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0))})
+    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})
     tree1 = _step(tree0)
-    app = {"m": tts.StateDict(from_numpy_tree(tree1))}
+    app = {"m": tts.StateDict(from_numpy_tree(tree1, device="cpu"))}
     if kind == "sync":
         tts.Snapshot.take(inc, app, base=base)
         stats = dict(snapshot_mod.LAST_SYNC_DRAIN_STATS)
@@ -117,9 +117,9 @@ def test_unchanged_objects_are_linked_changed_ones_written(tmp_path, monkeypatch
 def test_deleting_the_base_keeps_the_incremental_snapshot(tmp_path):
     tree0 = _tree(1)
     base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
-    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0))})
+    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})
     tree1 = _step(tree0)
-    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree1))}, base=base)
+    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree1, device="cpu"))}, base=base)
     assert _samefile(base, inc, "0/m/frozen")
     shutil.rmtree(base)
     _assert_equal(_restore(inc, tree1), tree1)
@@ -137,7 +137,7 @@ def test_port_take_against_a_jax_base_links_byte_equal_objects(tmp_path, monkeyp
     base, inc = str(tmp_path / "jax_base"), str(tmp_path / "inc")
     jts.Snapshot.take(base, {"m": jts.StateDict(tree0)})
     tree1 = _step(tree0)
-    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree1))}, base=base)
+    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree1, device="cpu"))}, base=base)
     for key in ("0/m/frozen", "0/m/small_frozen/b1"):
         assert _samefile(base, inc, key), key
     for key in ("0/m/head", "0/m/small_live/c1"):
@@ -153,10 +153,10 @@ def test_port_take_against_a_jax_base_links_byte_equal_objects(tmp_path, monkeyp
 def test_base_ignored_without_dedup_digests(tmp_path, monkeypatch, caplog):
     tree0 = _tree(3)
     base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
-    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0))})
+    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})
     monkeypatch.setenv("TSS_TORCH_DEDUP_DIGESTS", "0")
     with caplog.at_level(logging.WARNING, logger="torchsnapshot_tpu_torch.snapshot"):
-        tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0))}, base=base)
+        tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))}, base=base)
     assert any("ignored" in r.getMessage() for r in caplog.records)
     assert not _samefile(base, inc, "0/m/frozen")
     assert snapshot_mod.LAST_SYNC_DRAIN_STATS["objects_linked"] == 0
@@ -169,11 +169,11 @@ def test_a_base_without_digests_or_metadata_writes_everything(tmp_path, monkeypa
     tree0 = _tree(4)
     no_sha, inc = str(tmp_path / "no_sha"), str(tmp_path / "inc")
     monkeypatch.setenv("TSS_TORCH_DEDUP_DIGESTS", "0")
-    tts.Snapshot.take(no_sha, {"m": tts.StateDict(from_numpy_tree(tree0))})
+    tts.Snapshot.take(no_sha, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})
     monkeypatch.setenv("TSS_TORCH_DEDUP_DIGESTS", "1")
     with caplog.at_level(logging.WARNING, logger="torchsnapshot_tpu_torch.snapshot"):
-        tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0))}, base=no_sha)
-        tts.Snapshot.take(inc + "2", {"m": tts.StateDict(from_numpy_tree(tree0))}, base=str(tmp_path / "nowhere"))
+        tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))}, base=no_sha)
+        tts.Snapshot.take(inc + "2", {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))}, base=str(tmp_path / "nowhere"))
     messages = " ".join(r.getMessage() for r in caplog.records)
     assert "no sha256 dedup identities" in messages and "no committed metadata" in messages
     assert not _samefile(no_sha, inc, "0/m/frozen")
@@ -209,9 +209,9 @@ def test_v2_records_dedup_against_v1_base(tmp_path, monkeypatch):
     tree0 = {"x": np.arange(4096, dtype=np.float32), "y": np.ones(4, np.float32)}
     base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
     monkeypatch.setenv("TSS_TORCH_HASH_CHUNK_BYTES", "0")
-    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0))})
+    tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})
     monkeypatch.setenv("TSS_TORCH_HASH_CHUNK_BYTES", "1024")
-    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0))}, base=base)
+    tts.Snapshot.take(inc, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))}, base=base)
     assert _samefile(base, inc, "0/m/x") and _samefile(base, inc, "0/m/y")
 
 

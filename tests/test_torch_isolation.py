@@ -265,3 +265,81 @@ def test_a_job_take_and_retention_stay_light():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+_A16_MODULES = [
+    "torchsnapshot_tpu_torch/telemetry/__init__.py",
+    "torchsnapshot_tpu_torch/telemetry/core.py",
+    "torchsnapshot_tpu_torch/telemetry/metrics.py",
+    "torchsnapshot_tpu_torch/telemetry/export.py",
+    "torchsnapshot_tpu_torch/telemetry/progress.py",
+    "torchsnapshot_tpu_torch/telemetry/artifact.py",
+    "torchsnapshot_tpu_torch/telemetry/aggregate.py",
+    "torchsnapshot_tpu_torch/telemetry/recorder.py",
+    "torchsnapshot_tpu_torch/telemetry/steprecord.py",
+    "torchsnapshot_tpu_torch/telemetry/fleet.py",
+    "torchsnapshot_tpu_torch/telemetry/health.py",
+    "torchsnapshot_tpu_torch/utils/rss_profiler.py",
+    "torchsnapshot_tpu_torch/__main__.py",
+]
+
+
+@pytest.mark.parametrize("module", _A16_MODULES)
+def test_a16_modules_are_held_to_the_import_rules(module):
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert module in checked
+
+
+def test_telemetry_modules_import_no_torch():
+    """As in the JAX package, the telemetry layer is stdlib-only at import
+    (every layer imports it, so it must not pull torch in first)."""
+    code = (
+        "import sys, types\n"
+        "# A bare package: the port's __init__ (which imports torch) stays out.\n"
+        "stub = types.ModuleType('torchsnapshot_tpu_torch')\n"
+        "stub.__path__ = ['torchsnapshot_tpu_torch']\n"
+        "sys.modules['torchsnapshot_tpu_torch'] = stub\n"
+        "import torchsnapshot_tpu_torch.telemetry as t\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_a_traced_take_and_the_cli_stay_light(tmp_path):
+    """A take with a trace, its artifact, and the CLI over it load no JAX."""
+    code = (
+        "import sys, os, torch\n"
+        f"os.environ['TSS_TORCH_TRACE'] = {str(tmp_path / 'trace.json')!r}\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "from torchsnapshot_tpu_torch.__main__ import main\n"
+        f"p = {str(tmp_path / 's')!r}\n"
+        "tts.Snapshot.take(p, {'m': tts.StateDict(x=torch.ones(2))})\n"
+        "assert main(['stats', p]) == 0 and main(['ls', p]) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'torchsnapshot_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.exists(tmp_path / "trace.json")
+
+
+def test_from_numpy_tree_defaults_to_the_card():
+    """The default device is CUDA; on a host without it the call raises the
+    port's "not available" error instead of returning CPU tensors."""
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.convert import from_numpy_tree
+
+    tree = {"a": np.ones(3, np.float32), "b": {"c": np.arange(2)}}
+    if torch.cuda.is_available():
+        out = from_numpy_tree(tree)
+        assert out["a"].device.type == "cuda" and out["b"]["c"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from_numpy_tree(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from_numpy_tree({})  # refused before any array is converted
+    out = from_numpy_tree(tree, device="cpu")
+    assert out["a"].device.type == "cpu" and out["b"]["c"].dtype == torch.int64

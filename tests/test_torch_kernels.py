@@ -80,7 +80,7 @@ def _reference_pack(arrays):
 def test_pack_slab_plain_matches_reference(dtype):
     np_dtype = dict(_PACKABLE)[dtype]
     arrays = _members(np_dtype, seed=3)
-    tensors = from_numpy_tree(arrays)
+    tensors = from_numpy_tree(arrays, device="cpu")
     assert all(t.dtype == dtype for t in tensors)
     got = kernels.pack_slab_plain(tensors)
     assert got.dtype == torch.uint8
@@ -109,7 +109,7 @@ def test_pack_slab_refuses_unpackable_dtype():
 
 @pytest.mark.parametrize("dtype", [t for t, _ in _PACKABLE], ids=str)
 def test_fork_copy_plain_is_bitwise_and_unaliased(dtype):
-    tensors = from_numpy_tree(_members(dict(_PACKABLE)[dtype], seed=4))
+    tensors = from_numpy_tree(_members(dict(_PACKABLE)[dtype], seed=4), device="cpu")
     tensors.append(tensors[3].t())  # strided view
     copies = kernels.fork_copy(tensors)
     assert kernels.LAUNCHES["fork_copy"] == 0
@@ -178,7 +178,7 @@ def _k3_inputs(np_dtype, case, seed):
 
 
 def _as_tensor(a):
-    return from_numpy_tree(a)
+    return from_numpy_tree(a, device="cpu")
 
 
 def _bytes_of(t):

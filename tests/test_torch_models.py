@@ -306,10 +306,10 @@ def _restore_jax_ep8(rank, world_size, path, want):
     box = ttrain.Box(tree)
     tts.Snapshot(path).restore({"moe": ttrain.PyTreeStateful(box)}, device="cpu")
     got = box.value
-    assert dryrun.same_bits(got["gate"]["kernel"], convert.from_numpy_tree(want["gate"]["kernel"]))
+    assert dryrun.same_bits(got["gate"]["kernel"], convert.from_numpy_tree(want["gate"]["kernel"], device="cpu"))
     for k in ("w_up", "w_down"):
         assert got[k].to_local().shape[0] == 4
-        assert _same_local(got[k], convert.from_numpy_tree(want[k])), k
+        assert _same_local(got[k], convert.from_numpy_tree(want[k], device="cpu")), k
 
 
 def test_jax_ep8_snapshot_restores_into_port_ep2_dtensors(tmp_path):

@@ -288,7 +288,7 @@ def test_port_snapshot_restores_through_jax(libs, tmp_path, monkeypatch, verify)
     tree = _tree()
     path = str(tmp_path / "port")
     native.reset_io_counts()
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     assert native.io_counts()["direct_writes"] > 0
     target = {k: np.zeros_like(v) for k, v in tree.items() if k != "step"}
     target["step"] = 0
@@ -305,7 +305,7 @@ def test_sidecars_identical_with_engine_on(libs, tmp_path, monkeypatch):
     monkeypatch.setenv("TSS_TORCH_DIRECT_IO_THRESHOLD_BYTES", "65536")
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_DIRECT_IO_THRESHOLD_BYTES", "65536")
     tree = _tree()
-    tts.Snapshot.take(str(tmp_path / "p"), {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(str(tmp_path / "p"), {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     jts.Snapshot.take(str(tmp_path / "j"), {"m": jts.StateDict(**tree)})
     assert (tmp_path / "p" / ".checksums.0").read_bytes() == (tmp_path / "j" / ".checksums.0").read_bytes()
     for name in ("w", "e"):

@@ -279,7 +279,7 @@ def _np_state(seed):
 
 def _state(seed):
     np_state = _np_state(seed)
-    state = from_numpy_tree({k: v for k, v in np_state.items() if k != "t_T"})
+    state = from_numpy_tree({k: v for k, v in np_state.items() if k != "t_T"}, device="cpu")
     state["t"] = torch.from_numpy(np_state["t_T"]).t()  # a strided view
     return state
 

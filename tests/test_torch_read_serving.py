@@ -87,14 +87,16 @@ def test_memory_round_trip_matches_jax():
     from torchsnapshot_tpu_torch.storage_plugins.memory import SHARED_ROOTS as port_roots
 
     tree = _tree(1)
-    tts.Snapshot.take("memory://serving-rt", {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take("memory://serving-rt", {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     jts.Snapshot.take("memory://serving-rt", {"m": jts.StateDict(**tree)})
     port_objs = port_roots["serving-rt"].objects
-    # The JAX package's telemetry artifact has no counterpart yet.
-    jax_objs = {k: v for k, v in jax_roots["serving-rt"].objects.items() if not k.startswith(".telemetry/")}
+    jax_objs = jax_roots["serving-rt"].objects
+    # Both packages write the per-rank telemetry artifact; only its
+    # contents (timings, pids, versions) differ.
+    assert ".telemetry/rank_0.json" in port_objs
     assert set(port_objs) == set(jax_objs)
     for p in port_objs:
-        if p != ".snapshot_metadata":
+        if p != ".snapshot_metadata" and not p.startswith(".telemetry/"):
             assert port_objs[p] == jax_objs[p], p
     _assert_tree_equal(_port_restore("memory://serving-rt", tree), tree)
     got = tts.Snapshot("memory://serving-rt").read_object("0/m/ids", device="cpu")
@@ -134,7 +136,7 @@ def test_corrupt_object_raises_under_all_in_both_packages(tmp_path, monkeypatch,
     if writer == "jax":
         jts.Snapshot.take(path, {"m": jts.StateDict(**tree)})
     else:
-        tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+        tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     _flip(os.path.join(path, "0/m/emb"), 100)
     monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "all")
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_VERIFY_READS", "all")
@@ -209,7 +211,7 @@ def _jax_restore(path, tree):
 def test_cache_filled_by_one_package_serves_the_other(tmp_path, monkeypatch, filler):
     tree = _tree(4)
     path = str(tmp_path / "s")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     cache_dir = str(tmp_path / "cache")
     monkeypatch.setenv("TSS_TORCH_READ_CACHE_DIR", cache_dir)
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_READ_CACHE_DIR", cache_dir)
@@ -291,7 +293,7 @@ def test_cache_layout_and_results_match_jax(tmp_path):
 def test_corrupt_cache_entry_falls_back_to_origin(tmp_path, monkeypatch):
     tree = _tree(6)
     path = str(tmp_path / "s")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     cache_dir = str(tmp_path / "cache")
     monkeypatch.setenv("TSS_TORCH_READ_CACHE_DIR", cache_dir)
     _port_restore(path, tree)
@@ -319,7 +321,7 @@ def test_include_entry_sets_match_jax():
 def test_include_reads_only_the_subtree(tmp_path):
     tree = _tree(7)
     path = str(tmp_path / "s")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     target = tts.StateDict(**_zeros_like(tree))
     live_emb = target["emb"].clone().fill_(5)
     target["emb"].copy_(live_emb)
@@ -358,7 +360,7 @@ def _digests_of_take(tmp_path, grain):
     tree = _tree(8)
     path = str(tmp_path / "g")
     with knobs.override_hash_chunk_bytes(grain):
-        tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))}, replicated=["**"])
+        tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))}, replicated=["**"])
     return json.load(open(os.path.join(path, ".checksums.0")))
 
 
@@ -513,7 +515,7 @@ def _port_serving_worker(rank, world_size, root):
 
     tree = _serving_tree()
     path = _os.path.join(root, "port")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))}, replicated=["**"])
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))}, replicated=["**"])
     out = {}
     for mode, env in [("bcast", {"BCAST_RESTORE": "1", "SWARM_RESTORE": "0"}), ("swarm", {"BCAST_RESTORE": "0", "SWARM_RESTORE": "1"})]:
         for k, v in env.items():
@@ -586,7 +588,7 @@ def _stalled_reader_worker(rank, world_size, root, mode):
 
     tree = _serving_tree()
     path = _os.path.join(root, "s")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))}, replicated=["**"])
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))}, replicated=["**"])
     if rank == 1:
         # A reader that has gone silent: its data reads stall far past the
         # deadline (the JAX package injects this through faults.py).
@@ -642,7 +644,7 @@ def test_scrub_reports_equal_the_jax_packages(tmp_path, monkeypatch, repair):
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_HASH_CHUNK_BYTES", "4096")
     tree = _scrub_tree()
     p, j = str(tmp_path / "p"), str(tmp_path / "j")
-    tts.Snapshot.take(p, {"s": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(p, {"s": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     jts.Snapshot.take(j, {"s": jts.StateDict(**tree)})
     assert tts.Snapshot(p).scrub()["clean"] and jts.Snapshot(j).scrub()["clean"]
     for root in (p, j):
@@ -867,7 +869,7 @@ def test_cached_restore_of_slabs_with_large_members_reads_no_origin_bytes(tmp_pa
     rng = np.random.default_rng(12)
     tree = {f"t{i}": rng.standard_normal(384 * 1024).astype(np.float32) for i in range(3)}  # 1.5 MiB each
     path = str(tmp_path / "s")
-    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree))})
+    tts.Snapshot.take(path, {"m": tts.StateDict(**from_numpy_tree(tree, device="cpu"))})
     assert any(loc.startswith("batched/") for loc in json.load(open(os.path.join(path, ".checksums.0"))))
     monkeypatch.setenv("TSS_TORCH_READ_CACHE_DIR", str(tmp_path / "cache"))
     for expect_origin in (True, False):

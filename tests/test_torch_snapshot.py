@@ -82,12 +82,12 @@ def test_jax_writes_port_restores(tmp_path, batching, chunk):
     expected["dev"] = np.asarray(tree["dev"])
     # Live targets: zeroed tensors for half of the leaves (in-place path),
     # nothing for the rest (fresh tensors on the CPU).
-    live = {k: torch.zeros_like(v) for k, v in from_numpy_tree(expected).items()
+    live = {k: torch.zeros_like(v) for k, v in from_numpy_tree(expected, device="cpu").items()
             if isinstance(v, torch.Tensor) and k in ("w", "b", "i64", "flag", "dev")}
     live_ids = {k: id(v) for k, v in live.items()}
     target = tts.StateDict(live)
     tts.Snapshot(path).restore({"m": target}, device="cpu")
-    _assert_tree_bits_equal(dict(target), from_numpy_tree(expected))
+    _assert_tree_bits_equal(dict(target), from_numpy_tree(expected, device="cpu"))
     for k, i in live_ids.items():
         assert id(target[k]) == i, f"{k} was not restored in place"
 
@@ -97,7 +97,7 @@ def test_port_writes_jax_restores(tmp_path, batching, chunk):
     tree = make_tree(11)
     path = str(tmp_path / "ckpt")
     with _knobs(batching, chunk):
-        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree))})
+        tts.Snapshot.take(path, {"m": tts.StateDict(from_numpy_tree(tree, device="cpu"))})
     target = jts.StateDict()
     jts.Snapshot(path).restore({"m": target})
     _assert_tree_bits_equal(dict(target), tree)
@@ -106,7 +106,7 @@ def test_port_writes_jax_restores(tmp_path, batching, chunk):
 
 @_MODES
 def test_port_round_trip_and_verify(tmp_path, batching, chunk):
-    tree = from_numpy_tree(make_tree(12))
+    tree = from_numpy_tree(make_tree(12), device="cpu")
     tree["view"] = torch.arange(30, dtype=torch.float32).reshape(5, 6).t()  # non-contiguous
     tree["param"] = torch.nn.Parameter(torch.ones(4, 2))
     path = str(tmp_path / "ckpt")

@@ -117,11 +117,11 @@ def test_jax_pytree_snapshot_restores_into_the_port(tmp_path):
     tree = _numpy_tree(1)
     path = str(tmp_path / "jax")
     jts.Snapshot.take(path, {"ts": jtrain.PyTreeStateful(jtrain.Box(jax.tree.map(jnp.asarray, tree)))})
-    target = Box(_zeros_like(convert.from_numpy_tree(tree)))
+    target = Box(_zeros_like(convert.from_numpy_tree(tree, device="cpu")))
     tts.Snapshot(path).restore({"ts": PyTreeStateful(target)}, device="cpu")
-    _assert_same_leaves(target.value, convert.from_numpy_tree(tree))
+    _assert_same_leaves(target.value, convert.from_numpy_tree(tree, device="cpu"))
     port_path = str(tmp_path / "port")
-    tts.Snapshot.take(port_path, {"ts": PyTreeStateful(Box(convert.from_numpy_tree(tree)))})
+    tts.Snapshot.take(port_path, {"ts": PyTreeStateful(Box(convert.from_numpy_tree(tree, device="cpu")))})
     leaves = lambda m: sorted(k for k, e in m.items() if e.type not in ("dict", "list"))  # noqa: E731
     assert leaves(tts.Snapshot(port_path).get_manifest()) == leaves(jts.Snapshot(path).get_manifest())
 
@@ -129,7 +129,7 @@ def test_jax_pytree_snapshot_restores_into_the_port(tmp_path):
 def test_port_pytree_snapshot_restores_into_jax(tmp_path):
     tree = _numpy_tree(2)
     path = str(tmp_path / "port")
-    tts.Snapshot.take(path, {"ts": PyTreeStateful(Box(convert.from_numpy_tree(tree)))})
+    tts.Snapshot.take(path, {"ts": PyTreeStateful(Box(convert.from_numpy_tree(tree, device="cpu")))})
     target = jtrain.Box(jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), tree))
     jts.Snapshot(path).restore({"ts": jtrain.PyTreeStateful(target)})
     for a, b in zip(jax.tree_util.tree_leaves(target.value), jax.tree_util.tree_leaves(tree)):

@@ -31,11 +31,12 @@ from __future__ import annotations
 
 import asyncio
 import threading
+import time
 import uuid
 from concurrent.futures import Executor
 from typing import Dict, List, Optional, Tuple
 
-from . import d2h, kernels
+from . import d2h, kernels, telemetry
 from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayBufferStager, PollingTableStager
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
@@ -65,9 +66,10 @@ def _collect_array_entries(entries: List[Entry]) -> Dict[str, ArrayEntry]:
 class BatchedBufferStager(BufferStager):
     """Stages all members of one slab and concatenates their bytes."""
 
-    def __init__(self, members: List[Tuple[WriteReq, int, int]]) -> None:
+    def __init__(self, members: List[Tuple[WriteReq, int, int]], path: str = "") -> None:
         self.members = members  # (member write req, begin, end) in the slab
         self.total = members[-1][2] if members else 0
+        self.path = path  # the slab's storage path, for its stage.d2h span
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         slab = bytearray(self.total)
@@ -103,9 +105,15 @@ class DeviceBatchedBufferStager(BatchedBufferStager):
                 stagers[0].ready,
                 lambda stream: kernels.pack_slab(tensors, stream=stream),
                 tensors,
+                path=self.path,
             )
         else:
+            # On the host the pack is the slab's whole serialization.
+            t0 = time.monotonic()
             host = kernels.pack_slab(tensors)
+            times = d2h.current_times()
+            if times is not None:
+                times.record("serialize", t0, time.monotonic(), path=self.path, nbytes=host.numel())
         if host.numel() != self.total:
             raise RuntimeError(
                 f"Device-packed slab is {host.numel()} bytes, planned {self.total}"
@@ -139,9 +147,13 @@ class CompressedSlabStager(BufferStager):
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         try:
             raw = await self.inner.stage_buffer(executor)
+            times = d2h.current_times()
 
             def work() -> bytes:
+                t0 = time.monotonic()
                 payload, sizes = compress_member_framed(raw, self.member_sizes, self.serializer, self.level)
+                if times is not None:
+                    times.record("serialize", t0, time.monotonic(), path=self.inner.path, nbytes=len(payload))
                 with self._frame_lock:
                     self.frame_sizes = sizes
                 return payload
@@ -227,6 +239,8 @@ def batch_write_requests(
         else:
             passthrough.append(req)
     if len(small) + len(small_compressed) <= 1:
+        telemetry.counter_add("batcher.write_members", 0)
+        telemetry.counter_add("batcher.write_slabs", 0)
         return write_reqs
 
     batched: List[WriteReq] = []
@@ -256,7 +270,7 @@ def batch_write_requests(
                         entry.byte_range = [begin, end]
                 stager: BufferStager = (
                     DeviceBatchedBufferStager if _device_packable(slab) else BatchedBufferStager
-                )(slab)
+                )(slab, slab_path)
                 defer = all(req.defer_staging for req, _, _ in slab)
                 if compressed:
                     for req, _, _ in slab:
@@ -294,6 +308,13 @@ def batch_write_requests(
     pack(small, compressed=False)
     for serializer in (Serializer.RAW_ZSTD, Serializer.RAW_ZLIB):
         pack([m for m in small_compressed if m[1].serializer == serializer], compressed=True)
+    # How much was coalesced: members per slab (``.ftab`` objects aside).
+    slabs = len({r.path for r in batched if not r.path.endswith(FRAME_TABLE_SUFFIX)})
+    coalesced = len(write_reqs) - len(passthrough)
+    telemetry.counter_add("batcher.write_members", coalesced)
+    telemetry.counter_add("batcher.write_slabs", slabs)
+    if slabs:
+        telemetry.gauge_set("batcher.write_coalescing_ratio", coalesced / slabs)
     return passthrough + batched
 
 
@@ -380,4 +401,6 @@ def batch_read_requests(
                 run = []
             run.append(req)
         close_run()
+    telemetry.counter_add("batcher.read_reqs_in", len(read_reqs))
+    telemetry.counter_add("batcher.read_reqs_merged", len(read_reqs) - len(out))
     return out

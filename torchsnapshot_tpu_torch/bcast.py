@@ -32,12 +32,14 @@ re-elections and direct fallbacks.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import logging
 import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from . import telemetry
 from .io_preparer import is_dtensor
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
@@ -218,9 +220,31 @@ class _BcastSession:
         want = _read_digest_record(self.digests, path) if self.verify else None
         checker = _verify_checker(want, byte_range) if want is not None else None
         read_io = await verified_fetch(
-            self.storage, path, byte_range, checker, self.executor, what="broadcast read"
+            self.storage, path, byte_range, checker, self.executor, what="broadcast read",
+            failure_counter="bcast.verify_failures",
         )
         return bytes(memoryview(read_io.buf).cast("B"))
+
+
+@contextlib.asynccontextmanager
+async def stall_watchdog(tracker: "telemetry.ProgressTracker", rank: int, occupancy):
+    """With ``TSS_TORCH_STALL_WARN_S`` set, a watchdog over a collective
+    restore's waits: payload arrivals count as progress, so a silent
+    fleet-wide wait is warned about once (``scheduler.stall_warnings``)."""
+    warn_s = knobs.get_stall_warn_s()
+    task = None
+    if warn_s > 0:
+        watchdog = telemetry.StallWatchdog(
+            tracker, warn_s, occupancy=occupancy, rank=rank,
+            on_fire=lambda: telemetry.counter_add("scheduler.stall_warnings", 1),
+        )
+        task = asyncio.ensure_future(watchdog.run())
+    try:
+        yield
+    finally:
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
 
 
 async def _poll(session: _BcastSession, idx: int, attempt: int, deadline: float, poll_s: float):
@@ -271,6 +295,9 @@ def run_broadcast(
     # order[] has world distinct ranks; more attempts would wrap back.
     max_attempts = 1 + min(REELECT_MAX, world - 1)
     poll_s = max(0.01, min(0.05, deadline_s / 10.0))
+    tracker = telemetry.ProgressTracker()
+    tracker.set_totals(requests=len(keys), bytes_=0)
+    pending_count = [len(keys)]
 
     async def fetch_assigned() -> None:
         sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
@@ -309,12 +336,21 @@ def run_broadcast(
                     raise
                 await session.post(idx, attempt, _OK + data)
                 fetched[key] = data
+                tracker.note_staged(len(data))
                 return data, "fetched"
-            payload = await _poll(session, idx, attempt, time.monotonic() + deadline_s, poll_s)
+            # A fleet wait edge: this rank waits on the elected reader.
+            wait_site = f"bcast.obtain:{idx}"
+            telemetry.fleet.note_blocked(wait_site, [reader])
+            try:
+                payload = await _poll(session, idx, attempt, time.monotonic() + deadline_s, poll_s)
+            finally:
+                telemetry.fleet.clear_blocked(wait_site)
             if payload is not None and payload[:1] == _OK:
+                tracker.note_staged(len(payload) - 1)
                 return payload[1:], "received"
             if payload is None:
                 if attempt + 1 < max_attempts:
+                    telemetry.counter_add("bcast.reelections")
                     LAST_RESTORE_BCAST["reelections"] += 1
                     logger.warning(
                         "broadcast reader rank %d missed the %.1fs deadline for %s; "
@@ -326,31 +362,42 @@ def run_broadcast(
                 reader, key[0], payload[1:].decode(errors="replace"),
             )
             break
+        telemetry.counter_add("bcast.direct_fallbacks")
         LAST_RESTORE_BCAST["direct_fallbacks"] += 1
-        return await session.fetch_verified(key), "direct"
+        data = await session.fetch_verified(key)
+        tracker.note_staged(len(data))
+        return data, "direct"
 
     async def drive() -> None:
-        await fetch_assigned()
-        obtained: Dict[Key, Tuple[bytes, str]] = {}
-        per_object = LAST_RESTORE_BCAST["per_object"]
-        for item in items:
-            for req in item.reqs:
-                key = (req.path, tuple(req.byte_range) if req.byte_range is not None else None)
-                if key not in obtained:
-                    obtained[key] = await obtain(key)
+        async with stall_watchdog(tracker, rank, lambda: {"bcast_wait": pending_count[0]}):
+            await fetch_assigned()
+            obtained: Dict[Key, Tuple[bytes, str]] = {}
+            per_object = LAST_RESTORE_BCAST["per_object"]
+            for item in items:
+                for req in item.reqs:
+                    key = (req.path, tuple(req.byte_range) if req.byte_range is not None else None)
+                    if key not in obtained:
+                        obtained[key] = await obtain(key)
+                        pending_count[0] -= 1
+                        tracker.note_request_done()
+                        data, how = obtained[key]
+                        rec = per_object.setdefault(key[0], {"origin_bytes": 0, "peer_bytes": 0})
+                        rec["peer_bytes" if how == "received" else "origin_bytes"] += len(data)
                     data, how = obtained[key]
-                    rec = per_object.setdefault(key[0], {"origin_bytes": 0, "peer_bytes": 0})
-                    rec["peer_bytes" if how == "received" else "origin_bytes"] += len(data)
-                data, how = obtained[key]
-                if how == "received":
-                    LAST_RESTORE_BCAST["received"].append(key[0])
-                    LAST_RESTORE_BCAST["recv_bytes"] += len(data)
-                await req.buffer_consumer.consume_buffer(memoryview(data), executor)
-            if item.finalize is not None:
-                item.finalize()
+                    if how == "received":
+                        telemetry.counter_add("bcast.recv_bytes", len(data))
+                        LAST_RESTORE_BCAST["received"].append(key[0])
+                        LAST_RESTORE_BCAST["recv_bytes"] += len(data)
+                    await req.buffer_consumer.consume_buffer(memoryview(data), executor)
+                if item.finalize is not None:
+                    item.finalize()
 
+    telemetry.counter_add("bcast.entries", len(items))
     LAST_RESTORE_BCAST["entries"] += len(items)
     event_loop.run_until_complete(drive())
     if fetched:
+        origin_bytes = sum(len(v) for v in fetched.values())
+        telemetry.counter_add("bcast.origin_reads", len(fetched))
+        telemetry.counter_add("bcast.origin_bytes", origin_bytes)
         LAST_RESTORE_BCAST["origin_reads"].extend(sorted(k[0] for k in fetched))
-        LAST_RESTORE_BCAST["origin_bytes"] += sum(len(v) for v in fetched.values())
+        LAST_RESTORE_BCAST["origin_bytes"] += origin_bytes

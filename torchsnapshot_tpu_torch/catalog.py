@@ -57,6 +57,7 @@ import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+from . import telemetry
 from .io_types import ReadIO, StoragePlugin, WriteIO
 from .manifest import SNAPSHOT_METADATA_FNAME, SnapshotMetadata
 from .storage_plugin import url_to_storage_plugin
@@ -67,9 +68,10 @@ logger = logging.getLogger(__name__)
 CATALOG_DIR = ".catalog"
 RECORD_DIR = f"{CATALOG_DIR}/records"
 PIN_DIR = f"{CATALOG_DIR}/pins"
-# The JAX package's per-step telemetry records: collected with their
-# snapshot's record.
+# Per-step telemetry records (``telemetry/steprecord.py``), collected with
+# their snapshot's record, and the per-rank rollout (restore) records.
 STEP_TELEMETRY_DIR = f"{CATALOG_DIR}/telemetry"
+ROLLOUT_TELEMETRY_DIR = f"{CATALOG_DIR}/rollouts"
 
 # Depth at which a ``job=`` take without ``max_chain_len=`` rebases to a
 # full snapshot (the JAX package's default).
@@ -144,6 +146,21 @@ def record_path(job: str, name: str, step: int) -> str:
 
 def pin_path(name: str) -> str:
     return f"{PIN_DIR}/{_name_key(name)}.json"
+
+
+def step_record_path(job: str, name: str, step: int) -> str:
+    """One snapshot's step-telemetry record: :func:`record_path`'s layout
+    under :data:`STEP_TELEMETRY_DIR`."""
+    return f"{STEP_TELEMETRY_DIR}/{_slug(job)}/{max(0, int(step)):020d}-{_name_key(name)}.json"
+
+
+def rollout_record_path(job: str, name: str, step: Optional[int], rank: int) -> str:
+    """One rank's rollout record of a restore, under
+    :data:`ROLLOUT_TELEMETRY_DIR` (per rank: no barrier elects a merger)."""
+    return (
+        f"{ROLLOUT_TELEMETRY_DIR}/{_slug(job)}/"
+        f"{max(0, int(step or 0)):020d}-{_name_key(name)}_r{int(rank)}.json"
+    )
 
 
 def _run(coro, loop: Optional[asyncio.AbstractEventLoop]):
@@ -266,10 +283,13 @@ class Catalog:
         chain and retention view, never the commit beside it."""
         path = record_path(record.job, record.name, record.step)
         try:
-            self._storage.sync_write(WriteIO(path=path, buf=record.to_json().encode()), self._loop)
+            with telemetry.span("catalog.append", cat="catalog", path=path):
+                self._storage.sync_write(WriteIO(path=path, buf=record.to_json().encode()), self._loop)
             record.path = path
+            telemetry.counter_add("catalog.appends")
             return True
         except Exception:  # noqa: BLE001 - fail-open by contract
+            telemetry.counter_add("catalog.append_failures")
             logger.warning(
                 "catalog append for %s under %s failed (snapshot commit "
                 "unaffected; Catalog.rebuild can reconstruct the record)",
@@ -285,21 +305,110 @@ class Catalog:
         are skipped with a warning; ``job=`` filters on the record body."""
         prefix = RECORD_DIR if job is None else f"{RECORD_DIR}/{_slug(job)}"
         self.last_scan_skipped = 0
-        paths = _run(self._storage.list_prefix(prefix), self._loop)
-        by_name: Dict[str, CatalogRecord] = {}
-        for p in sorted(paths):
-            if not p.endswith(".json"):
+        with telemetry.span("catalog.scan", cat="catalog", path=prefix):
+            paths = _run(self._storage.list_prefix(prefix), self._loop)
+            by_name: Dict[str, CatalogRecord] = {}
+            for p in sorted(paths):
+                if not p.endswith(".json"):
+                    continue
+                rec = self._read_record(p)
+                if rec is None:
+                    self.last_scan_skipped += 1
+                    continue
+                if job is not None and rec.job != job:
+                    continue
+                prev = by_name.get(rec.name)
+                if prev is None or rec.order_key >= prev.order_key:
+                    by_name[rec.name] = rec
+        records = sorted(by_name.values(), key=lambda r: r.order_key)
+        telemetry.counter_add("catalog.records_scanned", len(records))
+        return records
+
+    # -- step telemetry and rollout records ------------------------------------
+    def _write_json(self, path: str, payload: bytes, kind: str) -> bool:
+        """One fail-open record write (span ``catalog.<kind>_append``,
+        counters ``catalog.<kind>_appends`` / ``_append_failures``): a
+        missed record loses one point of a trend line, never the commit or
+        restore beside it."""
+        try:
+            with telemetry.span(f"catalog.{kind}_append", cat="catalog", path=path):
+                self._storage.sync_write(WriteIO(path=path, buf=payload), self._loop)
+            telemetry.counter_add(f"catalog.{kind}_appends")
+            return True
+        except Exception:  # noqa: BLE001 - fail-open by contract
+            telemetry.counter_add(f"catalog.{kind}_append_failures")
+            logger.warning("%s record %s under %s not written (unaffected)", kind, path, self.bucket_url, exc_info=True)
+            return False
+
+    def _read_json_records(self, prefix: str, span: str, parse) -> List[Dict[str, Any]]:
+        """Every readable record under ``prefix`` (sorted paths); an
+        unreadable one is skipped with a warning."""
+        out: List[Dict[str, Any]] = []
+        with telemetry.span(span, cat="catalog", path=prefix):
+            try:
+                paths = _run(self._storage.list_prefix(prefix), self._loop)
+            except FileNotFoundError:
+                return []
+            for p in sorted(paths):
+                if not p.endswith(".json"):
+                    continue
+                try:
+                    read_io = ReadIO(path=p)
+                    self._storage.sync_read(read_io, self._loop)
+                    out.append(parse(bytes(read_io.buf)))
+                except Exception:  # noqa: BLE001 - degrade, never fail
+                    logger.warning("unreadable record %s under %s (skipped)", p, self.bucket_url, exc_info=True)
+        return out
+
+    def append_step_telemetry(self, record: Dict[str, Any]) -> bool:
+        """Write one step-telemetry record (``steprecord.build_step_record``)
+        beside the snapshot's catalog record; fail-open."""
+        from .telemetry import steprecord
+
+        path = step_record_path(str(record.get("job", "")), str(record.get("name", "")), int(record.get("step", 0)))
+        return self._write_json(path, steprecord.dumps_step_record(record), "step")
+
+    def load_step_telemetry(self, job: Optional[str] = None) -> List[Dict[str, Any]]:
+        """The step series: every readable record in step order, one per
+        snapshot name (the latest wins); ``job=`` filters on the body."""
+        from .telemetry import steprecord
+
+        prefix = STEP_TELEMETRY_DIR if job is None else f"{STEP_TELEMETRY_DIR}/{_slug(job)}"
+        by_name: Dict[str, Dict[str, Any]] = {}
+        for rec in self._read_json_records(prefix, "catalog.step_scan", steprecord.parse_step_record):
+            if job is not None and rec.get("job") != job:
                 continue
-            rec = self._read_record(p)
-            if rec is None:
-                self.last_scan_skipped += 1
-                continue
-            if job is not None and rec.job != job:
-                continue
-            prev = by_name.get(rec.name)
-            if prev is None or rec.order_key >= prev.order_key:
-                by_name[rec.name] = rec
-        return sorted(by_name.values(), key=lambda r: r.order_key)
+            key = str(rec.get("name"))
+            prev = by_name.get(key)
+            if prev is None or (rec.get("step", 0), rec.get("created_unix", 0.0)) >= (
+                prev.get("step", 0),
+                prev.get("created_unix", 0.0),
+            ):
+                by_name[key] = rec
+        return sorted(by_name.values(), key=lambda r: (r.get("step", 0), r.get("created_unix", 0.0)))
+
+    def append_rollout_record(self, record: Dict[str, Any]) -> bool:
+        """Write one rank's rollout record
+        (``steprecord.build_rollout_record``); fail-open."""
+        from .telemetry import steprecord
+
+        path = rollout_record_path(
+            str(record.get("job", "")), str(record.get("name", "")), record.get("step"), int(record.get("rank", 0) or 0)
+        )
+        return self._write_json(path, steprecord.dumps_rollout_record(record), "rollout")
+
+    def load_rollout_telemetry(self, job: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Every readable rollout record, in (step, rank, created) order;
+        per-rank records are not merged."""
+        from .telemetry import steprecord
+
+        prefix = ROLLOUT_TELEMETRY_DIR if job is None else f"{ROLLOUT_TELEMETRY_DIR}/{_slug(job)}"
+        out = [
+            r
+            for r in self._read_json_records(prefix, "catalog.rollout_scan", steprecord.parse_rollout_record)
+            if job is None or r.get("job") == job
+        ]
+        return sorted(out, key=lambda r: (r.get("step") or 0, r.get("rank", 0), r.get("created_unix", 0.0)))
 
     def _read_record(self, path: str) -> Optional[CatalogRecord]:
         try:
@@ -752,6 +861,7 @@ def retain(
         "by_job": plan.by_job,
     }
     if not dry_run:
+        telemetry.counter_add("gc.roots_condemned", len(plan.condemned))
         invalidate_chain_cache(bucket_url)
     return report
 

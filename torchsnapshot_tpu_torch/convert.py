@@ -27,6 +27,7 @@ from typing import Any, Dict, Sequence
 import numpy as np
 import torch
 
+from .d2h import require_cuda
 from .io_preparers.sharded_array import contiguous_stride, placement_offsets_sizes
 from .serialization import numpy_dtype_to_string
 
@@ -81,8 +82,14 @@ def _tensor_to_array(t: Any) -> Any:
     return raw.view(np.dtype(getattr(ml_dtypes, ext[0])))
 
 
-def from_numpy_tree(tree: Any, device: Any = "cpu") -> Any:
-    """numpy (and ml_dtypes) arrays -> torch tensors on ``device``."""
+def from_numpy_tree(tree: Any, device: Any = "cuda") -> Any:
+    """numpy (and ml_dtypes) arrays -> torch tensors on ``device``: the
+    current CUDA device by default, like every entry point of the port;
+    pass ``device="cpu"`` for the CPU. A CUDA request on a host without
+    CUDA raises (``d2h.require_cuda``) rather than return CPU tensors."""
+    device = require_cuda(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return _map(tree, lambda a: _array_to_tensor(a, device))
 
 

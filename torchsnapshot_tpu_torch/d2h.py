@@ -29,7 +29,14 @@ process (:func:`side_stream`).
 
 The write pipeline activates a :class:`StagingContext` through a
 ``contextvars.ContextVar`` around staging-task creation, so a stager finds
-the pipeline's lanes with one :func:`get_active` call.
+the pipeline's lanes with one :func:`get_active` call, and its
+:class:`StageTimes`: the d2h, serialize and hash sub-stream intervals of
+the staging stream, each exported as a ``stage.<kind>`` span when a
+telemetry session is on. A transfer's ``stage.d2h`` interval starts when
+its lane begins to enqueue it and ends when the lane's wait on the copy's
+event returns: the transfer, never its enqueue alone. The session rides
+into the lane threads explicitly (executor threads do not inherit
+context); telemetry adds no synchronisation of its own.
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from __future__ import annotations
 import asyncio
 import contextvars
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,6 +98,45 @@ def ready_event(device: torch.device) -> torch.cuda.Event:
     return ev
 
 
+class StageTimes:
+    """Thread-safe record of the staging sub-stream intervals (d2h,
+    serialize, hash), called from the event loop and from lane, staging and
+    hash threads alike. The session is captured at construction, since
+    those threads do not inherit the activating context."""
+
+    KINDS = ("d2h", "serialize", "hash")
+
+    def __init__(self, tm: Optional[Any] = None) -> None:
+        self._tm = tm
+        self._lock = threading.Lock()
+        self._intervals: Dict[str, List[Tuple[float, float]]] = {k: [] for k in self.KINDS}
+
+    def record(
+        self,
+        kind: str,
+        t0: float,
+        t1: float,
+        path: str = "",
+        nbytes: int = 0,
+        span: Optional[str] = None,
+    ) -> None:
+        """One interval of ``kind``; its span is ``stage.<kind>`` unless
+        ``span`` names another (a parallel hash chunk is a
+        ``stage.hash_chunk`` in the hash sub-stream)."""
+        with self._lock:
+            self._intervals[kind].append((t0, t1))
+        tm = self._tm
+        if tm is not None:
+            tm.add_span(span or f"stage.{kind}", "stage", t0, t1 - t0, {"path": path, "nbytes": nbytes})
+            if kind == "d2h":
+                tm.metrics.counter("d2h.bytes").add(nbytes)
+                tm.metrics.histogram("d2h.seconds").observe(t1 - t0)
+
+    def intervals(self) -> Dict[str, List[Tuple[float, float]]]:
+        with self._lock:
+            return {k: list(v) for k, v in self._intervals.items()}
+
+
 class TransferLanes:
     def __init__(self, lanes: int = _LANES, window_bytes: int = _WINDOW_BYTES) -> None:
         self._executor = ThreadPoolExecutor(max_workers=lanes, thread_name_prefix="tss-d2h")
@@ -116,9 +163,12 @@ class TransferLanes:
         wait: Optional[torch.cuda.Event],
         enqueue: Callable[[torch.cuda.Stream], torch.Tensor],
         sources: Sequence[torch.Tensor],
+        times: Optional[StageTimes] = None,
+        path: str = "",
     ) -> torch.Tensor:
         self._admit(nbytes)
         try:
+            t0 = time.monotonic()
             stream = side_stream(device, "d2h")
             with torch.cuda.stream(stream):
                 if wait is not None:
@@ -131,14 +181,17 @@ class TransferLanes:
                 # producer's stream while this stream still reads it.
                 t.record_stream(stream)
             done.synchronize()
+            if times is not None:
+                times.record("d2h", t0, time.monotonic(), path=path, nbytes=nbytes)
             return host
         finally:
             self._release(nbytes)
 
     async def to_host(
-        self, src: torch.Tensor, wait: Optional[torch.cuda.Event] = None
+        self, src: torch.Tensor, wait: Optional[torch.cuda.Event] = None, path: str = ""
     ) -> torch.Tensor:
-        """A pinned, C-contiguous host copy of CUDA tensor ``src``."""
+        """A pinned, C-contiguous host copy of CUDA tensor ``src`` (a
+        ``stage.d2h`` of ``path``)."""
 
         def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
             dense = src if src.is_contiguous() else kernels.gather(src, stream)
@@ -148,7 +201,7 @@ class TransferLanes:
 
         nbytes = src.numel() * src.element_size()
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._run, src.device, nbytes, wait, enqueue, [src]
+            self._executor, self._run, src.device, nbytes, wait, enqueue, [src], current_times(), path
         )
 
     async def run_to_host(
@@ -158,6 +211,7 @@ class TransferLanes:
         wait: Optional[torch.cuda.Event],
         produce: Callable[[torch.cuda.Stream], torch.Tensor],
         sources: Sequence[torch.Tensor],
+        path: str = "",
     ) -> torch.Tensor:
         """Run ``produce(stream)`` (which enqueues device work on the lane's
         copy stream and returns a device tensor of ``nbytes``) and copy its
@@ -170,7 +224,7 @@ class TransferLanes:
             return host
 
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._run, device, nbytes, wait, enqueue, sources
+            self._executor, self._run, device, nbytes, wait, enqueue, sources, current_times(), path
         )
 
     def shutdown(self) -> None:
@@ -178,8 +232,9 @@ class TransferLanes:
 
 
 class StagingContext:
-    def __init__(self, lanes: TransferLanes) -> None:
+    def __init__(self, lanes: TransferLanes, times: Optional[StageTimes] = None) -> None:
         self.lanes = lanes
+        self.times = times
 
 
 _ACTIVE: contextvars.ContextVar[Optional[StagingContext]] = contextvars.ContextVar(
@@ -200,6 +255,12 @@ def get_active() -> StagingContext:
     if ctx is None:
         raise RuntimeError("CUDA staging runs inside a write pipeline")
     return ctx
+
+
+def current_times() -> Optional[StageTimes]:
+    """The active pipeline's :class:`StageTimes`, or None outside one."""
+    ctx = _ACTIVE.get()
+    return ctx.times if ctx is not None else None
 
 
 def host_to_device(

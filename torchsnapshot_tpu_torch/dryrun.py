@@ -35,6 +35,10 @@ The counterpart of the JAX package's ``__graft_entry__.py``:
   rebase to full), then prunes it with a retention policy, restores the
   retained snapshots bit-exactly (directly and through a read cache) and
   sweeps planted crash debris with ``Snapshot.gc``.
+- :func:`traced_checkpoint` runs the trainer's async checkpoint and its
+  restore under ``TSS_TORCH_TRACE``, and :func:`trace_report` reads a
+  trace back: span counts, the D2H bytes and their busy time, and the io
+  node's split between hashing and storage.
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -63,7 +67,7 @@ from .models.transformer import (
     shard_module,
     shard_params,
 )
-from .parallel.store import Store
+from .parallel.store import Store, in_telemetry_op
 from .rng_state import RNGState
 from .snapshot import Snapshot
 from .state_dict import StateDict
@@ -162,7 +166,9 @@ def cert_store_ops(rank: int, world_size: int) -> Dict[str, int]:
 class _CountingStore(Store):
     """Delegates to ``inner`` and counts the operations that one thread
     issues through it: a blocking ``get`` is one operation however long it
-    polls."""
+    polls. Telemetry-plane operations (fleet beacons, under
+    ``store.telemetry_op_scope``) are not coordination and are not
+    counted."""
 
     def __init__(self, inner: Store, thread_id: int) -> None:
         self.inner = inner
@@ -170,7 +176,7 @@ class _CountingStore(Store):
         self._thread_id = thread_id
 
     def _count(self, op: str) -> None:
-        if threading.get_ident() == self._thread_id:
+        if threading.get_ident() == self._thread_id and not in_telemetry_op():
             self.counts[op] = self.counts.get(op, 0) + 1
 
     def set(self, key: str, value: bytes) -> None:
@@ -1000,4 +1006,123 @@ def _continuous(cfg, root, device, batch, seed, frozen_blocks) -> Dict[str, Any]
             raise AssertionError(f"verify of {name} after gc: {problems}")
     out["losses"] = torch.stack(losses).tolist()
     shutil.rmtree(bucket)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: a traced async checkpoint and its restore
+# ---------------------------------------------------------------------------
+
+
+def _union_s(spans, names) -> float:
+    """Seconds covered by the union of the spans named ``names``."""
+    from .engine.intervals import measure, merge_intervals
+
+    return measure(merge_intervals([(s.ts, s.ts + s.dur) for s in spans if s.name in names]))
+
+
+def trace_report(trace_path: str) -> Dict[str, Any]:
+    """What a Chrome trace written by the port says: span counts by name,
+    dropped spans, the ``take.phase`` durations, the ``stage.d2h`` bytes
+    and the union of their busy time, and the io node's split (the union
+    of ``stage.hash`` and ``stage.hash_chunk`` time against the union of
+    ``storage.write`` and of ``storage.read`` time)."""
+    import json as json_mod
+
+    from . import telemetry
+
+    with open(trace_path) as f:
+        obj = json_mod.load(f)
+    spans = telemetry.spans_from_chrome_trace(obj)
+    metrics = telemetry.metrics_from_chrome_trace(obj)
+    counts: Dict[str, int] = {}
+    phases: Dict[str, float] = {}
+    for sp in spans:
+        counts[sp.name] = counts.get(sp.name, 0) + 1
+        if sp.cat == "take.phase":
+            phases[sp.name] = phases.get(sp.name, 0.0) + sp.dur
+    d2h = [sp for sp in spans if sp.name == "stage.d2h"]
+    return {
+        "spans": len(spans),
+        "span_counts": counts,
+        "dropped_spans": int((obj.get("otherData") or {}).get("dropped_spans", 0)),
+        "spans_dropped_metric": int(metrics.get("telemetry.spans_dropped", 0)),
+        "phases": phases,
+        "d2h_bytes": sum(int(sp.attrs.get("nbytes", 0)) for sp in d2h),
+        "d2h_busy_s": _union_s(spans, {"stage.d2h"}),
+        "hash_busy_s": _union_s(spans, {"stage.hash", "stage.hash_chunk"}),
+        "write_busy_s": _union_s(spans, {"storage.write", "storage.write_stream"}),
+        "read_busy_s": _union_s(spans, {"storage.read"}),
+        "consume_busy_s": _union_s(spans, {"scheduler.consume"}),
+        "artifact_write_s": _union_s(spans, {"telemetry.artifact_write"}),
+        "metrics": metrics,
+    }
+
+
+def traced_checkpoint(
+    cfg: TransformerConfig,
+    root: str,
+    trace_dir: str,
+    device: Any = "cuda",
+    batch: int = 4,
+    seed: int = 0,
+) -> Dict[str, Any]:
+    """The trainer's async checkpoint under ``TSS_TORCH_TRACE``: steps 1-3,
+    ``async_take`` of the train state (trace ``<trace_dir>/take.json``)
+    raced by step 4, ``wait()``, then a restore into a fresh model and
+    optimizer (trace ``<trace_dir>/restore.json``), bit-exact against a
+    device copy of the step-3 state. Returns the stall, drain and restore
+    times, ``LAST_TAKE_PHASES``, the state's bytes and its CUDA bytes (what
+    crosses D2H), and the two trace paths."""
+    device = torch.device(device)
+    return _deterministic(lambda: _traced_checkpoint(cfg, root, trace_dir, device, batch, seed))
+
+
+def _traced_checkpoint(cfg, root, trace_dir, device, batch, seed) -> Dict[str, Any]:
+    from . import snapshot as snapshot_mod
+
+    out: Dict[str, Any] = {}
+    tokens = lambda s: tokens_for_step(cfg, s, batch, seed, device)  # noqa: E731
+    model = init_params(cfg, seed=seed, device=device)
+    optimizer = adamw(model.parameters())
+    progress = StateDict(step=0)
+    app = {"model": model, "optim": optimizer, "progress": progress, "rng": RNGState()}
+    for s in range(1, 4):
+        train_step(model, optimizer, tokens(s))
+        progress["step"] = s
+    state = train_state_tensors(model, optimizer)
+    out["state_bytes"] = _state_bytes(state)
+    out["d2h_bytes"] = sum(t.numel() * t.element_size() for _, t in state if t.device.type == "cuda")
+    out["n_tensors"] = len(state)
+    copy = [(n, t.detach().clone()) for n, t in state]
+    path = os.path.join(root, "traced")
+    traces = {"take": os.path.join(trace_dir, "take.json"), "restore": os.path.join(trace_dir, "restore.json")}
+    prev = os.environ.get("TSS_TORCH_TRACE")
+    try:
+        os.environ["TSS_TORCH_TRACE"] = traces["take"]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.monotonic()
+        pending = Snapshot.async_take(path, app)
+        out["async_stall_s"] = time.monotonic() - t0
+        out["take_phases"] = dict(snapshot_mod.LAST_TAKE_PHASES)
+        train_step(model, optimizer, tokens(4))  # races the drain
+        progress["step"] = 4
+        pending.wait()
+        out["async_drain_s"] = time.monotonic() - t0 - out["async_stall_s"]
+        out["drain_stats"] = dict(pending.drain_stats)
+        model2 = init_params(cfg, seed=seed + 1, device=device)
+        optimizer2 = init_optimizer_state(adamw(model2.parameters()))
+        app2 = {"model": model2, "optim": optimizer2, "progress": StateDict(step=-1), "rng": RNGState()}
+        os.environ["TSS_TORCH_TRACE"] = traces["restore"]
+        _, out["restore_s"] = _timed(lambda: Snapshot(path).restore(app2, device=device), device)
+    finally:
+        if prev is None:
+            os.environ.pop("TSS_TORCH_TRACE", None)
+        else:
+            os.environ["TSS_TORCH_TRACE"] = prev
+    _check_same_state(train_state_tensors(model2, optimizer2), copy, "traced restore of the step-3 snapshot")
+    out["restore_stats"] = {k: v for k, v in snapshot_mod.LAST_RESTORE_STATS.items() if not isinstance(v, dict)}
+    out["traces"] = traces
+    shutil.rmtree(path)
     return out

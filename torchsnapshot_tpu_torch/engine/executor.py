@@ -16,6 +16,14 @@ One executor drives one operation's graph (see ``graph.py``):
 - **Abort**: the first failing node cancels every task in flight, awaits
   them, credits every outstanding reservation and re-raises, so the budget
   is balanced on every path.
+- **Telemetry**: each finished node (or a sub-step a node records itself,
+  such as a streamed chunk) is one ``(t0, t1)`` interval of its stream,
+  and, when a session was active at construction, the span
+  ``<span_prefix>.<kind>`` with ``path``, ``nbytes`` and ``rank``: the
+  drain stats and the trace are one record. The wait loop feeds the flight
+  recorder and the fleet beacons (:meth:`GraphExecutor.introspect`), and
+  with a progress tracker and ``TSS_TORCH_STALL_WARN_S`` a watchdog warns
+  once per stall.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
+from .. import telemetry
+from ..utils import knobs
 from .graph import Node
 from .intervals import Interval
 
@@ -49,17 +59,29 @@ class Budget:
 
 
 class NodeContext:
-    """What a running node body may do to its chain's reservation."""
+    """What a running node body may do to its chain's reservation, and the
+    bytes and sub-step intervals it reports."""
 
-    def __init__(self, budget: Budget, reservation: int) -> None:
-        self._budget = budget
+    def __init__(self, engine: "GraphExecutor", reservation: int) -> None:
+        self._engine = engine
+        self._budget = engine.budget
         self.reservation = reservation
+        self.nbytes: Optional[int] = None
 
     def recost(self, nbytes: int) -> None:
         """Correct the chain's reservation to ``nbytes`` (the real size of
         the staged buffer that rides the edge to the next node)."""
         self._budget.debit(nbytes - self.reservation)
         self.reservation = nbytes
+
+    def note_bytes(self, nbytes: int) -> None:
+        """The bytes this node's span reports (default: its reservation)."""
+        self.nbytes = nbytes
+
+    def record_interval(self, kind: str, t0: float, stream: str, path: str = "", nbytes: int = 0) -> None:
+        """One sub-step of a self-recording node (a streamed chunk's
+        staging or append), from ``t0`` to now."""
+        self._engine.record_interval(kind, t0, time.monotonic(), stream, path, nbytes)
 
 
 class GraphExecutor:
@@ -68,8 +90,24 @@ class GraphExecutor:
         budget_bytes: int,
         caps: Dict[str, Optional[int]],
         task_context: Optional[Callable[[], Any]] = None,
+        *,
+        kind: str = "engine",
+        span_prefix: str = "scheduler",
+        rank: int = 0,
+        progress: Optional[Any] = None,
+        bytes_done: Optional[Callable[[], int]] = None,
     ) -> None:
         self.budget = Budget(budget_bytes)
+        self.kind = kind
+        self.rank = rank
+        self._span_prefix = span_prefix
+        # Captured here: the engine's tasks and executor threads do not all
+        # run in the activating context.
+        self._tm = telemetry.get_active()
+        self._progress = progress
+        self._bytes_done = bytes_done or (lambda: 0)
+        self.admitted = 0
+        self.budget_hwm = 0
         self._caps = caps  # pool -> max concurrent nodes (None: unbounded)
         self._task_context = task_context or contextlib.nullcontext
         self._pending: Deque[Node] = deque()
@@ -98,8 +136,9 @@ class GraphExecutor:
         return cap is None or self._busy.get(pool, 0) < cap
 
     def _start(self, node: Node, payload: Any, reservation: int) -> None:
-        ctx = NodeContext(self.budget, reservation)
+        ctx = NodeContext(self, reservation)
         self._busy[node.pool] = self._busy.get(node.pool, 0) + 1
+        self.admitted += 1
         with self._task_context():
             task = asyncio.ensure_future(self._execute(node, ctx, payload))
         self._inflight[task] = (node, ctx)
@@ -110,7 +149,67 @@ class GraphExecutor:
             return await node.run(ctx, payload)
         finally:
             if node.stream is not None:
-                self.intervals[node.stream].append((t0, time.monotonic()))
+                nbytes = ctx.nbytes if ctx.nbytes is not None else ctx.reservation
+                self.record_interval(node.kind, t0, time.monotonic(), node.stream, node.path, nbytes)
+
+    def record_interval(
+        self, kind: str, t0: float, t1: float, stream: str, path: str = "", nbytes: int = 0
+    ) -> None:
+        """One finished node or sub-step: its interval joins ``stream``'s,
+        and with a session the span ``<span_prefix>.<kind>`` records it."""
+        if stream in self.intervals:
+            self.intervals[stream].append((t0, t1))
+        tm = self._tm
+        if tm is not None:
+            tm.add_span(
+                f"{self._span_prefix}.{kind}",
+                self._span_prefix,
+                t0,
+                t1 - t0,
+                {"path": path, "nbytes": nbytes, "rank": self.rank},
+            )
+
+    def occupancy(self) -> Dict[str, int]:
+        occ = {"pending": len(self._pending), "deferred": len(self._deferred)}
+        occ.update(self._busy)
+        occ["ready"] = len(self._ready)
+        return occ
+
+    def introspect(self) -> Dict[str, Any]:
+        """One flight-recorder sample of this engine (values only)."""
+        return {
+            "engine": self.kind,
+            "rank": self.rank,
+            "occupancy": self.occupancy(),
+            "bytes_done": self._bytes_done(),
+            "admitted": self.admitted,
+            "budget_total": self.budget.total,
+            "budget_available": self.budget.available,
+            "budget_hwm": self.budget_hwm,
+            "paused": False,
+        }
+
+    def _spawn_watchdog(self) -> Optional[asyncio.Task]:
+        """A stall watchdog around one run, when the engine has a progress
+        tracker and ``TSS_TORCH_STALL_WARN_S`` is positive."""
+        if self._progress is None:
+            return None
+        warn_s = knobs.get_stall_warn_s()
+        if warn_s <= 0:
+            return None
+
+        def on_fire() -> None:
+            telemetry.counter_add("scheduler.stall_warnings", 1)
+            telemetry.fleet.note_anomaly("stall_warning")
+            telemetry.recorder.record_event(
+                "engine.stall_warning",
+                {"engine": self.kind, "rank": self.rank, "occupancy": self.occupancy(), "bytes_done": self._bytes_done()},
+            )
+
+        watchdog = telemetry.StallWatchdog(
+            self._progress, warn_s, occupancy=self.occupancy, rank=self.rank, on_fire=on_fire
+        )
+        return asyncio.ensure_future(watchdog.run())
 
     def _admit(self) -> None:
         # Successors first: they already hold their chain's reservation.
@@ -128,10 +227,12 @@ class GraphExecutor:
                 break
             self._pending.popleft()
             self.budget.debit(node.cost_bytes)
+            self.budget_hwm = max(self.budget_hwm, self.budget.total - self.budget.available)
             self._start(node, None, node.cost_bytes)
 
     async def run(self, until: Optional[Callable[[], bool]] = None) -> None:
         """Run until the graph is drained, or until ``until()`` holds."""
+        watchdog = self._spawn_watchdog()
         try:
             while not (until is not None and until()):
                 self._admit()
@@ -140,6 +241,8 @@ class GraphExecutor:
                 done, _ = await asyncio.wait(
                     list(self._inflight), return_when=asyncio.FIRST_COMPLETED
                 )
+                telemetry.recorder.sample_engine(self)
+                telemetry.fleet.sample_engine(self)
                 for task in done:
                     node, ctx = self._inflight.pop(task)
                     self._busy[node.pool] -= 1
@@ -153,6 +256,10 @@ class GraphExecutor:
         except BaseException:
             await self.abort()
             raise
+        finally:
+            if watchdog is not None:
+                watchdog.cancel()
+                await asyncio.gather(watchdog, return_exceptions=True)
 
     async def abort(self) -> None:
         """Cancel and await everything in flight; credit every reservation."""

@@ -22,8 +22,11 @@ from __future__ import annotations
 import asyncio
 import functools
 import hashlib
+import time
 import zlib
 from typing import Any, List, Optional, Sequence, Tuple
+
+from . import telemetry
 
 
 # ---------------------------------------------------------------------------
@@ -406,23 +409,30 @@ def verify_range(mv: memoryview, rec: Any, begin: int, end: int) -> Optional[str
 # ---------------------------------------------------------------------------
 
 
-def serial_digest(mv: memoryview, want_sha: bool) -> list:
+def serial_digest(mv: memoryview, want_sha: bool, times: Optional[Any] = None, path: str = "") -> list:
     """The v1 serial fold: ``[crc32, size, sha256-hex | None]`` of one
-    buffer in a single pass (objects <= one hash chunk, and grain 0)."""
+    buffer in a single pass (objects <= one hash chunk, and grain 0).
+    ``times`` (a ``d2h.StageTimes``) records it as one ``stage.hash``."""
+    t0 = time.monotonic()
     mv = memoryview(mv).cast("B")
     sha = None
     if want_sha:
         h = hashlib.sha256()
         h.update(mv)
         sha = h.hexdigest()
-    return [zlib.crc32(mv), mv.nbytes, sha]
+    out = [zlib.crc32(mv), mv.nbytes, sha]
+    if times is not None:
+        times.record("hash", t0, time.monotonic(), path=path, nbytes=mv.nbytes)
+    return out
 
 
 def _hash_chunk_parts(
-    parts: List[memoryview], want_sha: bool
+    parts: List[memoryview], want_sha: bool, times: Optional[Any] = None, path: str = ""
 ) -> Tuple[int, int, Optional[str]]:
     """One grain-chunk's (crc32, nbytes, sha256-hex) — the executor thunk.
-    ``parts`` are ordered views that together cover exactly the chunk."""
+    ``parts`` are ordered views that together cover exactly the chunk;
+    ``times`` records it as one ``stage.hash_chunk``."""
+    t0 = time.monotonic()
     crc = 0
     n = 0
     sha = hashlib.sha256() if want_sha else None
@@ -431,6 +441,8 @@ def _hash_chunk_parts(
         n += p.nbytes
         if sha is not None:
             sha.update(p)
+    if times is not None:
+        times.record("hash", t0, time.monotonic(), path=path, nbytes=n, span="stage.hash_chunk")
     return crc, n, (sha.hexdigest() if sha is not None else None)
 
 
@@ -446,13 +458,14 @@ def _combine_results(
     if len(results) == 1:
         crc, n, sha = results[0]
         return [crc, n, sha]
+    t0 = time.monotonic()
     crc, total = results[0][0], results[0][1]
     for c, n, _sha in results[1:]:
         crc = crc32_combine(crc, c, n)
         total += n
     shas = [r[2] for r in results]
     have_shas = all(s is not None for s in shas)
-    return {
+    rec = {
         "v": 2,
         "crc": crc,
         "size": total,
@@ -462,6 +475,9 @@ def _combine_results(
         "crcs": [r[0] for r in results],
         "sha": None,
     }
+    telemetry.counter_add("hash.chunks", len(results))
+    telemetry.counter_add("hash.combine_s", time.monotonic() - t0)
+    return rec
 
 
 class ChunkHasher:
@@ -481,6 +497,8 @@ class ChunkHasher:
         loop: asyncio.AbstractEventLoop,
         executor,
         max_inflight: int = 8,
+        times: Optional[Any] = None,
+        path: str = "",
     ) -> None:
         if grain <= 0:
             raise ValueError("ChunkHasher needs a positive grain")
@@ -492,6 +510,8 @@ class ChunkHasher:
         self._filled = 0
         self._futures: List[asyncio.Future] = []
         self._sem = asyncio.Semaphore(max(1, max_inflight))
+        self._times = times
+        self._path = path
 
     async def feed(self, buf) -> None:
         mv = memoryview(buf).cast("B")
@@ -508,7 +528,7 @@ class ChunkHasher:
         parts, self._parts, self._filled = self._parts, [], 0
         await self._sem.acquire()
         fut = self._loop.run_in_executor(
-            self._executor, _hash_chunk_parts, parts, self._want_sha
+            self._executor, _hash_chunk_parts, parts, self._want_sha, self._times, self._path
         )
         fut.add_done_callback(lambda _f: self._sem.release())
         self._futures.append(fut)
@@ -538,10 +558,17 @@ class SerialStreamHasher:
     producing ``[crc, size, sha]``."""
 
     def __init__(
-        self, want_sha: bool, loop: asyncio.AbstractEventLoop, executor
+        self,
+        want_sha: bool,
+        loop: asyncio.AbstractEventLoop,
+        executor,
+        times: Optional[Any] = None,
+        path: str = "",
     ) -> None:
         self._loop = loop
         self._executor = executor
+        self._times = times
+        self._path = path
         self._sha = hashlib.sha256() if want_sha else None
         self._crc = 0
         self._total = 0
@@ -550,9 +577,13 @@ class SerialStreamHasher:
         mv = memoryview(buf).cast("B")
 
         def fold() -> int:
+            t0 = time.monotonic()
             if self._sha is not None:
                 self._sha.update(mv)
-            return zlib.crc32(mv, self._crc)
+            out = zlib.crc32(mv, self._crc)
+            if self._times is not None:
+                self._times.record("hash", t0, time.monotonic(), path=self._path, nbytes=mv.nbytes)
+            return out
 
         self._crc = await self._loop.run_in_executor(self._executor, fold)
         self._total += mv.nbytes
@@ -569,13 +600,18 @@ class SerialStreamHasher:
 
 
 def make_stream_hasher(
-    grain: int, want_sha: bool, loop: asyncio.AbstractEventLoop, executor
+    grain: int,
+    want_sha: bool,
+    loop: asyncio.AbstractEventLoop,
+    executor,
+    times: Optional[Any] = None,
+    path: str = "",
 ):
     """The stream-side hasher of one storage object: chunk-parallel at a
     positive grain, the serial v1 fold at grain 0."""
     if grain > 0:
-        return ChunkHasher(grain, want_sha, loop, executor)
-    return SerialStreamHasher(want_sha, loop, executor)
+        return ChunkHasher(grain, want_sha, loop, executor, times=times, path=path)
+    return SerialStreamHasher(want_sha, loop, executor, times=times, path=path)
 
 
 async def hash_buffer(
@@ -585,20 +621,32 @@ async def hash_buffer(
     loop: asyncio.AbstractEventLoop,
     executor,
     want_whole_sha: bool = False,
+    times: Optional[Any] = None,
+    path: str = "",
 ):
     """Digest one whole buffer: chunk-parallel on ``executor`` above one
     grain, the single-job serial fold otherwise. Gives the same record as
     feeding the same bytes through :func:`make_stream_hasher`.
     ``want_whole_sha`` also records the whole-object sha256 of a v2 record
     (one job beside the chunk jobs), for an incremental take whose base
-    recorded v1 identities."""
+    recorded v1 identities. ``times`` (a ``d2h.StageTimes``, passed in
+    because executor threads do not inherit the session) records each job
+    as a ``stage.hash`` or ``stage.hash_chunk`` span of ``path``."""
     mv = memoryview(mv).cast("B")
     if grain <= 0 or mv.nbytes <= grain:
-        return await loop.run_in_executor(executor, serial_digest, mv, want_sha)
+        return await loop.run_in_executor(executor, serial_digest, mv, want_sha, times, path)
     whole = None
     if want_whole_sha:
-        whole = loop.run_in_executor(executor, lambda: hashlib.sha256(mv).hexdigest())
-    hasher = ChunkHasher(grain, want_sha, loop, executor)
+
+        def whole_sha() -> str:
+            t0 = time.monotonic()
+            out = hashlib.sha256(mv).hexdigest()
+            if times is not None:
+                times.record("hash", t0, time.monotonic(), path=path, nbytes=mv.nbytes)
+            return out
+
+        whole = loop.run_in_executor(executor, whole_sha)
+    hasher = ChunkHasher(grain, want_sha, loop, executor, times=times, path=path)
     try:
         await hasher.feed(mv)
         rec = await hasher.finalize()

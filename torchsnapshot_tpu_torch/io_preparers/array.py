@@ -83,6 +83,14 @@ def chunk_row_ranges(
     return ranges
 
 
+def _note_serialize(t0: float, path: str, nbytes: int) -> None:
+    """One ``stage.serialize`` interval, from ``t0`` to now, when a write
+    pipeline with telemetry is active."""
+    times = d2h.current_times()
+    if times is not None:
+        times.record("serialize", t0, time.monotonic(), path=path, nbytes=nbytes)
+
+
 def _host_view(t: torch.Tensor) -> memoryview:
     return memoryview(t.reshape(-1).view(torch.uint8).numpy())
 
@@ -157,17 +165,31 @@ class ArrayBufferStager(BufferStager):
         those bytes are what gets written after ``async_take`` returns;
         compressed output and a slab member's bytes are private anyway."""
         if t.device.type == "cuda":
-            host = await d2h.get_active().lanes.to_host(t, self.ready)
-            return _host_view(host)
-        return await self._cpu_bytes(t, executor, self.is_async_snapshot and not (self._compressed or self.stage_raw))
+            host = await d2h.get_active().lanes.to_host(t, self.ready, path=self.entry.location)
+            t0 = time.monotonic()
+            view = _host_view(host)
+        else:
+            t0 = time.monotonic()
+            view = await self._cpu_bytes(t, executor, self.is_async_snapshot and not (self._compressed or self.stage_raw))
+        if not self._compressed:
+            # RAW: the view (or an async take's private host copy) is the
+            # whole serialization; a compressed entry's is its codec.
+            _note_serialize(t0, self.entry.location, view.nbytes)
+        return view
 
     async def _compress(self, view, executor: Optional[Executor], frame_bytes: Optional[int]):
         serializer, level = self.entry.serializer, self.compression_level
+        times = d2h.current_times()
 
         def work():
+            t0 = time.monotonic()
             if frame_bytes:
-                return compress_framed(view, serializer, level, frame_bytes)
-            return compress_payload(view, serializer, level), None
+                out = compress_framed(view, serializer, level, frame_bytes)
+            else:
+                out = compress_payload(view, serializer, level), None
+            if times is not None:
+                times.record("serialize", t0, time.monotonic(), path=self.entry.location, nbytes=len(out[0]))
+            return out
 
         if executor is None:
             return work()
@@ -215,14 +237,15 @@ class ArrayBufferStager(BufferStager):
                 yield await self._cpu_bytes(t[r0:r1], executor, False)
             return
         lanes = d2h.get_active().lanes
-        nxt = asyncio.ensure_future(lanes.to_host(t[ranges[0][0] : ranges[0][1]], self.ready))
+        path = self.entry.location
+        nxt = asyncio.ensure_future(lanes.to_host(t[ranges[0][0] : ranges[0][1]], self.ready, path=path))
         try:
             for i in range(len(ranges)):
                 cur = nxt
                 nxt = None
                 if i + 1 < len(ranges):
                     r0, r1 = ranges[i + 1]
-                    nxt = asyncio.ensure_future(lanes.to_host(t[r0:r1], self.ready))
+                    nxt = asyncio.ensure_future(lanes.to_host(t[r0:r1], self.ready, path=path))
                 yield _host_view(await cur)
         finally:
             if nxt is not None:

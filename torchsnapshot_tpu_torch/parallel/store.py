@@ -21,6 +21,7 @@ leader never commits.
 from __future__ import annotations
 
 import abc
+import contextlib
 import pickle
 import socket
 import socketserver
@@ -30,9 +31,32 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..collective_tracer import active_tracer
+from ..telemetry import fleet
 from ..utils import knobs
 
 _DEFAULT_TIMEOUT_S = 300.0
+
+_TELEMETRY_OP = threading.local()
+
+
+@contextlib.contextmanager
+def telemetry_op_scope():
+    """Mark the store operations the calling thread issues inside as
+    telemetry-plane traffic (fleet beacons and their reads): real store
+    round trips, but rate-limited diagnostics rather than per-take
+    coordination, so counts of the coordination plane
+    (``dryrun.counting_store_ops``) leave them out."""
+    prev = getattr(_TELEMETRY_OP, "on", False)
+    _TELEMETRY_OP.on = True
+    try:
+        yield
+    finally:
+        _TELEMETRY_OP.on = prev
+
+
+def in_telemetry_op() -> bool:
+    """True inside :func:`telemetry_op_scope` on the calling thread."""
+    return getattr(_TELEMETRY_OP, "on", False)
 
 
 class Store(abc.ABC):
@@ -174,6 +198,13 @@ class C10dStore(Store):
 
     def _k(self, key: str) -> str:
         return f"{self._ns}/{key}"
+
+    def unprefixed(self) -> "C10dStore":
+        """The same server without the process group's own key prefixes
+        (``default_pg/``, the group name): keys any client of the raw
+        ``host:port`` finds under ``tss/`` (the fleet beacons)."""
+        raw = getattr(self._store, "_underlying_non_prefix_store", None)
+        return C10dStore(raw, self._ns) if raw is not None else self
 
     def set(self, key: str, value: bytes) -> None:
         k = self._k(key)
@@ -469,12 +500,21 @@ class LinearBarrier:
         """Ranks whose arrival markers for ``phase`` are absent: the peers
         everyone still waits on ([] on any store failure)."""
         try:
-            vals = self._store.try_get_many([f"{phase}/r{r}" for r in range(self._world_size)])
+            # A diagnostic probe, not coordination.
+            with telemetry_op_scope():
+                vals = self._store.try_get_many([f"{phase}/r{r}" for r in range(self._world_size)])
         except Exception:  # noqa: BLE001 - attribution is best-effort
             return []
         return [r for r, v in enumerate(vals) if v is None and r != self._rank]
 
     def _phase(self, phase: str, timeout_s: float) -> None:
+        wait_site = f"barrier.{phase}:{self._barrier_id}"
+        try:
+            self._wait_phase(phase, timeout_s, wait_site)
+        finally:
+            fleet.clear_blocked(wait_site)
+
+    def _wait_phase(self, phase: str, timeout_s: float, wait_site: str) -> None:
         tracer = active_tracer()
         if tracer is not None:
             tracer.record(f"barrier.{phase}", self._barrier_id)
@@ -494,6 +534,11 @@ class LinearBarrier:
                 self._store.get(f"{phase}/done", timeout_s=poll_s)
             except TimeoutError:
                 poll_s = 1.0
+                # A poll round passed: the fleet beacons name the ranks this
+                # rank waits on, and stay fresh while it waits.
+                if fleet.enabled():
+                    fleet.note_blocked(wait_site, self._missing_ranks(phase))
+                    fleet.heartbeat()
                 if time.monotonic() > deadline:
                     missing = self._missing_ranks(phase)
                     detail = ""

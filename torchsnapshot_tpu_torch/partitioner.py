@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from . import telemetry
 from .io_preparers.array import FRAME_TABLE_SUFFIX
 from .io_types import WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, Manifest, is_replicated
@@ -96,6 +97,7 @@ def partition_write_reqs_with_assignment(
             raise CodecDivergenceError(codecs)
         loads: List[int] = [load for load, _ in gathered]
         assignment = greedy_assignment(loads, [(_estimate(r), r.path) for r in replicated_reqs])
+        _record_balance_metrics(loads, rank)
         for partner, payload in partners.items():
             assignment[partner] = assignment.get(payload, 0)
     missing = [r.path for r in replicated_reqs + partner_reqs if r.path not in assignment]
@@ -109,6 +111,19 @@ def partition_write_reqs_with_assignment(
         )
     mine = [r for r in replicated_reqs + partner_reqs if assignment[r.path] == rank]
     return other_reqs + mine, assignment
+
+
+def _record_balance_metrics(loads: List[int], rank: int) -> None:
+    """The replicated writes' byte balance across ranks: the slowest rank
+    gates the commit barrier."""
+    if telemetry.get_active() is None:
+        return
+    telemetry.gauge_set("partitioner.local_load_bytes", loads[rank])
+    telemetry.gauge_set("partitioner.load_max_bytes", max(loads))
+    telemetry.gauge_set("partitioner.load_min_bytes", min(loads))
+    mean = sum(loads) / len(loads) if loads else 0
+    if mean > 0:
+        telemetry.gauge_set("partitioner.load_balance", max(loads) / mean)
 
 
 def consolidate_replicated_entries(global_manifest: Manifest) -> None:

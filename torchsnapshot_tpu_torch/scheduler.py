@@ -24,6 +24,17 @@ fetch is verified on the host before it is consumed (so before any H2D):
 a whole object against its record, a range against the v2 chunks it
 covers. A mismatch quarantines any read-cache entry of the path and
 re-fetches once; a second one raises :class:`ReadVerificationError`.
+
+Telemetry: the engine records one interval per node (and per streamed
+chunk), which is both the drain statistics and, with a session active,
+the ``scheduler.stage`` / ``scheduler.io`` / ``scheduler.stream_chunk`` /
+``scheduler.read_io`` / ``scheduler.consume`` spans; the staging
+sub-streams (``stage.d2h``, ``stage.serialize``, ``stage.hash``) come from
+the pipeline's :class:`~.d2h.StageTimes`. A write pipeline feeds a
+:class:`~.telemetry.ProgressTracker` (``PendingSnapshot.progress()``,
+the ``progress.*`` gauges, the fleet beacons and the stall watchdog) and
+ends with the ``scheduler.*`` counters; :meth:`PendingIOWork.telemetry_io_summary`
+is what the persisted artifact takes from it.
 """
 
 from __future__ import annotations
@@ -38,9 +49,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from . import d2h, hashing, stream_select
+from . import d2h, hashing, stream_select, telemetry
 from .engine import GraphExecutor, Node
-from .engine.intervals import stream_stats
+from .engine.intervals import clip_merged, measure, merge_intervals, stream_stats
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
 from .utils import knobs
 
@@ -61,6 +72,17 @@ _STAGE_POOLS = ("staging", "streaming")
 # threads, and storage operations in flight per pipeline.
 POOL_THREADS = 4
 MAX_CONCURRENT_IO = 16
+
+
+def _chunk_size_bucket(nbytes: int) -> str:
+    """Size bucket of the per-chunk append-latency histograms."""
+    if nbytes <= 1 << 20:
+        return "le1m"
+    if nbytes <= 8 << 20:
+        return "le8m"
+    if nbytes <= 64 << 20:
+        return "le64m"
+    return "gt64m"
 
 
 class PipelinePools:
@@ -124,13 +146,34 @@ class _WritePipeline:
         self._base_needs_whole_sha = False
         self.bytes_deduped = 0
         self.objects_linked = 0
+        self.bytes_staged = 0
         self._staging_ctx: Optional[d2h.StagingContext] = None
+        # The session is captured here: the drain of an async take runs on
+        # its commit thread, and staging and hashing on executor threads.
+        self._tm = telemetry.get_active()
+        self.times = d2h.StageTimes(tm=self._tm)
+        # Live progress: totals start as the staging-cost estimates and
+        # converge on the staged bytes.
+        self.progress = telemetry.ProgressTracker()
+        self.progress.set_totals(
+            requests=len(write_reqs),
+            bytes_=sum(r.buffer_stager.get_staging_cost_bytes() for r in write_reqs),
+        )
+        telemetry.fleet.set_progress(self.progress)
         self._engine = GraphExecutor(
             memory_budget_bytes,
             caps={"staging": None, "streaming": MAX_CONCURRENT_IO, "io": MAX_CONCURRENT_IO},
             task_context=self._staging_scope,
+            kind="write",
+            span_prefix="scheduler",
+            rank=rank,
+            progress=self.progress,
+            bytes_done=lambda: self.bytes_staged,
         )
+        # Accounting windows (one per run): the capture point, the drain.
+        self.windows: List[Tuple[float, float]] = []
         self.drain_stats: Dict[str, float] = {}
+        self.pipeline_stats: Dict[str, float] = {}
         # Big requests first: they dominate the critical path and admit
         # small ones into the leftover budget.
         for req in sorted(write_reqs, key=lambda r: -r.buffer_stager.get_staging_cost_bytes()):
@@ -141,7 +184,7 @@ class _WritePipeline:
         """Makes the pipeline's transfer lanes visible to stagers (and the
         tasks they spawn) through ``d2h.get_active()``."""
         if self._staging_ctx is None:
-            self._staging_ctx = d2h.StagingContext(self.pools.transfer_lanes())
+            self._staging_ctx = d2h.StagingContext(self.pools.transfer_lanes(), self.times)
         token = d2h.activate(self._staging_ctx)
         try:
             yield
@@ -168,12 +211,12 @@ class _WritePipeline:
             self._engine.add(
                 Node(
                     "stream",
-                    lambda ctx, _p, req=req: self._stream_one(req),
+                    lambda ctx, _p, req=req: self._stream_one(ctx, req),
                     # Admitted at its steady-state footprint: the stream's
-                    # depth in chunks.
+                    # depth in chunks. It records its chunks' intervals
+                    # itself (staging: stream_chunk, appends: io).
                     cost_bytes=min(cost, self._stream_inflight * self._stream_chunk),
                     pool="streaming",
-                    stream="io",
                     path=req.path,
                     deferred=req.defer_staging,
                 )
@@ -195,10 +238,18 @@ class _WritePipeline:
 
     async def _stage_one(self, ctx, req: WriteReq):
         t0 = time.monotonic()
+        cost = req.buffer_stager.get_staging_cost_bytes()
         buf = await req.buffer_stager.stage_buffer(self.pools.staging_executor())
         stream_select.note_whole_stage(self._label, time.monotonic() - t0)
-        ctx.recost(memoryview(buf).nbytes)
+        nbytes = memoryview(buf).nbytes
+        ctx.recost(nbytes)
+        self.bytes_staged += nbytes
+        self.progress.note_staged(nbytes, estimate=cost)
         return buf
+
+    def _note_written(self, nbytes: int) -> None:
+        self.progress.note_written(nbytes)
+        self.progress.note_request_done()
 
     async def _storage_write(self, write_io: WriteIO) -> None:
         """One whole-buffer write, timed into the streaming scorecard."""
@@ -250,6 +301,10 @@ class _WritePipeline:
         return True
 
     async def _write_one(self, path: str, buf) -> None:
+        await self._write_object(path, buf)
+        self._note_written(memoryview(buf).nbytes)
+
+    async def _write_object(self, path: str, buf) -> None:
         loop = asyncio.get_running_loop()
         if not self._base_resolved:
             await self._resolve_base()
@@ -257,7 +312,7 @@ class _WritePipeline:
             # The digest decides link or write, so it comes first.
             digest = await hashing.hash_buffer(
                 memoryview(buf), self._grain, self._want_sha, loop, self.pools.hash_executor(),
-                want_whole_sha=self._base_needs_whole_sha,
+                want_whole_sha=self._base_needs_whole_sha, times=self.times, path=path,
             )
             self.checksums[path] = digest
             if not await self._link_from_base(path, digest):
@@ -272,18 +327,24 @@ class _WritePipeline:
             digest = write_io.digest_out
             if digest is None:
                 digest = await loop.run_in_executor(
-                    self.pools.hash_executor(), hashing.serial_digest, mv, self._want_sha
+                    self.pools.hash_executor(), hashing.serial_digest, mv, self._want_sha, self.times, path
                 )
             elif self._want_sha:
-                sha = await loop.run_in_executor(
-                    self.pools.hash_executor(), lambda: hashlib.sha256(mv).hexdigest()
-                )
+                times = self.times
+
+                def sha256() -> str:
+                    t0 = time.monotonic()
+                    out = hashlib.sha256(mv).hexdigest()
+                    times.record("hash", t0, time.monotonic(), path=path, nbytes=mv.nbytes)
+                    return out
+
+                sha = await loop.run_in_executor(self.pools.hash_executor(), sha256)
                 digest = [digest[0], digest[1], sha]
             self.checksums[path] = digest
             return
         digest = asyncio.ensure_future(
             hashing.hash_buffer(
-                mv, self._grain, self._want_sha, loop, self.pools.hash_executor()
+                mv, self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=path
             )
         )
         try:
@@ -294,14 +355,15 @@ class _WritePipeline:
             raise
         self.checksums[path] = await digest
 
-    async def _stream_one(self, req: WriteReq) -> None:
+    async def _stream_one(self, ctx, req: WriteReq) -> None:
         """Stage chunks and append them in order: the next chunk's staging
         overlaps this chunk's append (a one-chunk queue between the two);
         a failure aborts the storage stream, so no partial object lands."""
         loop = asyncio.get_running_loop()
         hasher = hashing.make_stream_hasher(
-            self._grain, self._want_sha, loop, self.pools.hash_executor()
+            self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=req.path
         )
+        totals = {"bytes": 0, "chunks": 0}
         stream = await self.storage.write_stream(req.path)
         # One chunk in staging, one being appended, the rest queued.
         queue: asyncio.Queue = asyncio.Queue(maxsize=max(1, self._stream_inflight - 2))
@@ -316,7 +378,11 @@ class _WritePipeline:
                         buf = await agen.__anext__()
                     except StopAsyncIteration:
                         break
+                    nbytes = memoryview(buf).nbytes
+                    ctx.record_interval("stream_chunk", t0, "stage", req.path, nbytes)
                     stream_select.note_stream_stage(self._label, time.monotonic() - t0)
+                    self.progress.note_staged(nbytes)
+                    totals["chunks"] += 1
                     await queue.put(buf)
             finally:
                 await agen.aclose()
@@ -328,14 +394,25 @@ class _WritePipeline:
                 if buf is end:
                     return
                 await hasher.feed(buf)
+                nbytes = memoryview(buf).nbytes
                 t0 = time.monotonic()
                 await stream.append(buf)
-                stream_select.note_streamed(self._label, memoryview(buf).nbytes, time.monotonic() - t0)
+                append_s = time.monotonic() - t0
+                ctx.record_interval("io", t0, "io", req.path, nbytes)
+                stream_select.note_streamed(self._label, nbytes, append_s)
+                if self._tm is not None:
+                    self._tm.metrics.histogram(
+                        f"storage.{self._label}.append_s.{_chunk_size_bucket(nbytes)}"
+                    ).observe(append_s)
+                totals["bytes"] += nbytes
+                self.progress.note_written(nbytes)
 
         tasks = [asyncio.ensure_future(produce()), asyncio.ensure_future(consume())]
         try:
             await asyncio.gather(*tasks)
+            t0 = time.monotonic()
             await stream.commit()
+            ctx.record_interval("io", t0, "io", req.path, 0)
         except BaseException:
             for t in tasks:
                 t.cancel()
@@ -343,16 +420,25 @@ class _WritePipeline:
             hasher.abort()
             await stream.abort()
             raise
+        self.bytes_staged += totals["bytes"]
+        # A streamed request learns its size at its end.
+        self.progress.adjust_total_bytes(totals["bytes"] - req.buffer_stager.get_staging_cost_bytes())
+        self.progress.note_request_done()
+        telemetry.counter_add("scheduler.stream_chunks", totals["chunks"])
         self.checksums[req.path] = await hasher.finalize()
 
     async def run_until_staged(self) -> None:
         """Run until every non-deferred request's bytes are held privately
         (the capture point of an async take)."""
+        t0 = time.monotonic()
         try:
             await self._engine.run(until=lambda: self._engine.unfinished_in(_STAGE_POOLS) == 0)
         except BaseException:
             self.pools.shutdown()
             raise
+        finally:
+            self.windows.append((t0, time.monotonic()))
+        self._publish_progress()
 
     async def run_to_completion(self) -> None:
         t0 = time.monotonic()
@@ -362,7 +448,9 @@ class _WritePipeline:
             sidecar = f"{CHECKSUM_FILE_PREFIX}{self.rank}"
             if self.checksums:
                 payload = json.dumps(self.checksums, sort_keys=True).encode()
+                t_io = time.monotonic()
                 await self.storage.write(WriteIO(path=sidecar, buf=payload))
+                self._engine.record_interval("io", t_io, time.monotonic(), "io", sidecar, len(payload))
             else:
                 # No object this take: a stale sidecar from an earlier take
                 # at this path would make verify() report corruption.
@@ -370,13 +458,37 @@ class _WritePipeline:
                     await self.storage.delete(sidecar)
         finally:
             self.pools.shutdown()
-        self.drain_stats = stream_stats(
-            [(t0, time.monotonic())],
-            self._engine.intervals["stage"],
-            self._engine.intervals["io"],
-        )
+            self.windows.append((t0, time.monotonic()))
+        drain_window = self.windows[-1]
+        stage, io = self._engine.intervals["stage"], self._engine.intervals["io"]
+        self.drain_stats = stream_stats([drain_window], stage, io)
+        self.pipeline_stats = stream_stats(self.windows, stage, io)
+        # stage_busy decomposed into its sub-streams (lanes overlap them,
+        # so their sum may exceed stage_busy_s).
+        for kind, ivs in self.times.intervals().items():
+            merged = merge_intervals(ivs)
+            self.drain_stats[f"stage_{kind}_s"] = measure(clip_merged(merged, *drain_window))
+            self.pipeline_stats[f"stage_{kind}_s"] = sum(
+                measure(clip_merged(merged, w0, w1)) for w0, w1 in self.windows
+            )
         self.drain_stats["bytes_deduped"] = self.bytes_deduped
         self.drain_stats["objects_linked"] = self.objects_linked
+        self._publish_progress()
+        telemetry.gauge_max("scheduler.budget_hwm_bytes", self._engine.budget_hwm)
+        telemetry.counter_add("scheduler.bytes_staged", self.bytes_staged)
+        if self.bytes_deduped:
+            telemetry.counter_add("scheduler.bytes_deduped", self.bytes_deduped)
+
+    def _publish_progress(self) -> None:
+        """The progress counters as gauges of the session (and so of the
+        persisted artifact)."""
+        tm = self._tm
+        if tm is None:
+            return
+        p = self.progress
+        tm.metrics.gauge("progress.bytes_staged").set(p.bytes_staged)
+        tm.metrics.gauge("progress.bytes_written").set(p.bytes_written)
+        tm.metrics.gauge("progress.requests_done").set(p.requests_done)
 
 
 class PendingIOWork:
@@ -390,7 +502,43 @@ class PendingIOWork:
 
     @property
     def drain_stats(self) -> Dict[str, float]:
+        """Stream overlap of the drain (the run after the capture point):
+        ``wall_s``, ``stage_busy_s``, ``io_busy_s``, ``overlap_s``,
+        ``idle_s``, the ``stage_<kind>_s`` sub-streams, and the dedup
+        counts; derived from the intervals the trace's spans record."""
         return dict(self._pipeline.drain_stats)
+
+    @property
+    def pipeline_stats(self) -> Dict[str, float]:
+        """The same over the whole pipeline (capture point and drain)."""
+        return dict(self._pipeline.pipeline_stats)
+
+    def progress_snapshot(self) -> Dict[str, Any]:
+        """Counters with rates and an ETA (``ProgressTracker.snapshot``)."""
+        return self._pipeline.progress.snapshot()
+
+    def telemetry_io_summary(self) -> Dict[str, Any]:
+        """What the persisted artifact takes from this pipeline once it is
+        complete: overlap stats, merged intervals and accounting windows
+        (monotonic seconds; the artifact rebases them), byte and request
+        counts."""
+        p = self._pipeline
+        counters = p.progress.counters()
+        return {
+            "pipeline_stats_s": {k: v for k, v in p.pipeline_stats.items() if k.endswith("_s")},
+            "drain_stats_s": {k: v for k, v in p.drain_stats.items() if k.endswith("_s")},
+            "bytes": {
+                "staged": p.bytes_staged,
+                "written": counters["bytes_written"],
+                "total": counters["bytes_total"],
+                "deduped": p.bytes_deduped,
+            },
+            "requests": {"done": counters["requests_done"], "total": counters["requests_total"]},
+            "windows": list(p.windows),
+            "stage_intervals": merge_intervals(p._engine.intervals["stage"]),
+            "io_intervals": merge_intervals(p._engine.intervals["io"]),
+            "stage_substreams": {k: merge_intervals(v) for k, v in p.times.intervals().items()},
+        }
 
 
 def sync_execute_write_reqs(
@@ -457,10 +605,12 @@ async def verified_fetch(
     executor: Any,
     into: Optional[memoryview] = None,
     what: str = "read",
+    failure_counter: str = "scheduler.read_verify_failures",
 ) -> ReadIO:
     """Fetch, and with a ``checker`` verify on ``executor``: a mismatch
     quarantines the path's read-cache entries and re-fetches once; a
-    second mismatch raises :class:`ReadVerificationError`."""
+    second mismatch raises :class:`ReadVerificationError`. Each mismatch
+    counts in ``failure_counter``."""
     read_io = await fetch_read_io(storage, path, byte_range, into)
     if checker is None:
         return read_io
@@ -468,6 +618,7 @@ async def verified_fetch(
     problem = await loop.run_in_executor(executor, checker, memoryview(read_io.buf))
     if problem is None:
         return read_io
+    telemetry.counter_add(failure_counter)
     logger.warning(
         "%s of %s failed digest verification (%s); quarantining cache "
         "entries and re-fetching once", what, path, problem,
@@ -480,6 +631,7 @@ async def verified_fetch(
     read_io = await fetch_read_io(storage, path, byte_range, into)
     problem = await loop.run_in_executor(executor, checker, memoryview(read_io.buf))
     if problem is not None:
+        telemetry.counter_add(failure_counter)
         raise ReadVerificationError(
             f"{what} of {path} failed digest verification twice ({problem}); "
             "persistent corruption at the source, aborting instead of "
@@ -504,16 +656,21 @@ async def execute_read_reqs(
     engine = GraphExecutor(
         memory_budget_bytes,
         caps={"io": MAX_CONCURRENT_IO, "consume": POOL_THREADS},
+        kind="read",
+        span_prefix="scheduler",
+        bytes_done=lambda: totals["bytes_read"],
     )
 
-    async def fetch(_ctx, _payload, req: ReadReq):
+    async def fetch(ctx, _payload, req: ReadReq):
         into = req.buffer_consumer.read_into() if req.byte_range is not None else None
         want = _read_digest_record(digests, req.path) if verify else None
         checker = _verify_checker(want, req.byte_range) if want is not None else None
         read_io = await verified_fetch(
             storage, req.path, req.byte_range, checker, executor, into
         )
-        totals["bytes_read"] += memoryview(read_io.buf).nbytes
+        nbytes = memoryview(read_io.buf).nbytes
+        totals["bytes_read"] += nbytes
+        ctx.note_bytes(nbytes)
         return read_io.buf
 
     async def consume(_ctx, buf, req: ReadReq) -> None:
@@ -522,7 +679,7 @@ async def execute_read_reqs(
     for req in sorted(read_reqs, key=lambda r: -r.buffer_consumer.get_consuming_cost_bytes()):
         engine.add(
             Node(
-                "read",
+                "read_io",
                 lambda ctx, p, req=req: fetch(ctx, p, req),
                 cost_bytes=req.buffer_consumer.get_consuming_cost_bytes(),
                 pool="io",
@@ -538,6 +695,8 @@ async def execute_read_reqs(
             )
         )
     await engine.run()
+    telemetry.counter_add("scheduler.bytes_read", totals["bytes_read"])
+    telemetry.gauge_max("scheduler.budget_hwm_bytes", engine.budget_hwm)
     return {
         "bytes_read": float(totals["bytes_read"]),
         "wall_s": time.monotonic() - t0,

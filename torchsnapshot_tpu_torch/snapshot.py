@@ -44,6 +44,14 @@ own device, and a leaf with no live tensor lands on ``device`` (default
 ``"cuda"``); ``read_object`` returns tensors on ``device`` (default
 ``"cuda"``). A CUDA request on a host without CUDA raises.
 
+Telemetry (``telemetry/``): every take, async_take and restore records a
+session when ``_telemetry=`` is given, ``TSS_TORCH_TRACE`` is set, or the
+per-rank artifact (``.telemetry/rank_<k>.json``, on by default) is
+persisted; the span and metric names are the JAX package's. The
+diagnostics ``LAST_TAKE_PHASES``, ``LAST_TAKE_CACHE``,
+``LAST_SYNC_DRAIN_STATS`` and ``LAST_RESTORE_STATS`` are views of what
+the session records: the phase spans and the engine's intervals.
+
 Error contracts: restoring a path that was never taken raises
 ``FileNotFoundError``; a missing path raises ``KeyError``; an app-state
 value without ``state_dict``/``load_state_dict`` raises ``TypeError``.
@@ -52,6 +60,7 @@ value without ``state_dict``/``load_state_dict`` raises ``TypeError``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import fnmatch
 import hashlib
@@ -69,7 +78,7 @@ import numpy as np
 import torch
 
 from . import bcast as bcast_mod
-from . import d2h, hashing, prepare_cache, scheduler
+from . import d2h, hashing, prepare_cache, scheduler, telemetry
 from . import swarm as swarm_mod
 from .batcher import batch_read_requests, batch_write_requests
 from .flatten import flatten, inflate
@@ -151,19 +160,133 @@ from .version import __version__
 logger = logging.getLogger(__name__)
 
 # Wall seconds of the planning phases of this process's last take or
-# async_take (the async stall is their sum), for diagnostics.
+# async_take (the async stall is their sum) and of the stage.prepare.*
+# sub-spans inside them: a view of the take's ``take.phase`` spans.
 LAST_TAKE_PHASES: Dict[str, float] = {}
 # Whether this process's last take hit the plan cache and the
-# prepared-take cache.
+# prepared-take cache: a view of the ``preflight`` phase span's
+# ``plan_cache_hit`` and of the ``stage.prepare.cache_hit`` span.
 LAST_TAKE_CACHE: Dict[str, bool] = {}
 # Drain stats of this process's last sync take (see
-# PendingSnapshot.drain_stats).
+# PendingSnapshot.drain_stats): derived from the engine's intervals, which
+# are the trace's scheduler.stage and scheduler.io spans.
 LAST_SYNC_DRAIN_STATS: Dict[str, float] = {}
 # This process's last restore: wall seconds, the read pipelines' totals
 # (bytes_read, read_wall_s, requests), the broadcast and swarm records
 # (``bcast.LAST_RESTORE_BCAST``, ``swarm.LAST_RESTORE_SWARM``) and the
 # origin/peer/cache byte attribution (``attribution``).
 LAST_RESTORE_STATS: Dict[str, Any] = {}
+
+
+def _begin_telemetry(
+    explicit: Optional[telemetry.Telemetry],
+) -> Tuple[Optional[telemetry.Telemetry], Optional[telemetry.Telemetry]]:
+    """A session for one operation: ``_telemetry=`` wins, else one is made
+    when a trace is asked for or artifacts are on (the artifact needs the
+    metrics). Returns (session, the previously active session)."""
+    tm = explicit
+    if tm is None and (knobs.get_trace_path() or knobs.is_telemetry_artifacts_enabled()):
+        tm = telemetry.Telemetry()
+    prev = telemetry.activate(tm) if tm is not None else None
+    return tm, prev
+
+
+def _finish_telemetry(
+    tm: Optional[telemetry.Telemetry], prev: Optional[telemetry.Telemetry], rank: int
+) -> None:
+    """Close a session: reactivate the previous one, publish it as
+    ``Snapshot.last_telemetry``, and write the trace when
+    ``TSS_TORCH_TRACE`` is set (rank N appends ``.rankN``). A failed trace
+    write is a warning, never a failed operation."""
+    if tm is None:
+        return
+    tm.rank = rank
+    telemetry.deactivate(tm, prev)
+    if tm.buffer.dropped:
+        tm.metrics.counter("telemetry.spans_dropped").add(tm.buffer.dropped)
+    Snapshot.last_telemetry = tm
+    trace_path = knobs.get_trace_path()
+    if trace_path:
+        path = trace_path if rank == 0 else f"{trace_path}.rank{rank}"
+        try:
+            rec = telemetry.recorder.get_recorder()
+            samples = rec.snapshot() if rec is not None else None
+            telemetry.write_chrome_trace(tm, path, recorder_samples=samples)
+        except Exception:  # noqa: BLE001 - diagnostics must not fail the op
+            logger.warning("failed to write telemetry trace to %s", path, exc_info=True)
+
+
+_artifact_build_warned = False
+
+
+def _persist_op_artifact(
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    rank: int,
+    world_size: int,
+    op: str,
+    tm: Optional[telemetry.Telemetry],
+    phase_spans: Any = None,
+    io_summary: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Write this rank's artifact into the snapshot, fail-open: after the
+    drain and before the commit barrier (a restore: before its final
+    barrier), so a committed snapshot carries every rank's."""
+    global _artifact_build_warned
+    if not knobs.is_telemetry_artifacts_enabled():
+        return
+    from .storage_plugin import write_telemetry_artifact
+
+    try:
+        payload = telemetry.artifact.dumps_artifact(
+            telemetry.artifact.build_artifact(
+                op=op, rank=rank, world_size=world_size, tm=tm, phase_spans=phase_spans, io_summary=io_summary
+            )
+        )
+    except Exception:  # noqa: BLE001 - diagnostics must not fail the op
+        level = logging.DEBUG if _artifact_build_warned else logging.WARNING
+        _artifact_build_warned = True
+        logger.log(level, "failed to build the telemetry artifact of %s (snapshot unaffected)", op, exc_info=True)
+        return
+    write_telemetry_artifact(storage, event_loop, telemetry.artifact.artifact_path(rank, op), payload)
+
+
+def _add_span(name: str, cat: str, t0: float, **attrs: Any) -> None:
+    """A span from ``t0`` to now, when a session is active."""
+    tm = telemetry.get_active()
+    if tm is not None:
+        tm.add_span(name, cat, t0, time.monotonic() - t0, attrs)
+
+
+@contextlib.contextmanager
+def _barrier_stall_guard(rank: int):
+    """With ``TSS_TORCH_STALL_WARN_S`` set, a watchdog thread around a
+    blocking barrier hold: a tracker that never moves fires once, and its
+    warning names the peers the fleet beacons say this rank waits on."""
+    warn_s = knobs.get_stall_warn_s()
+    if warn_s <= 0:
+        yield
+        return
+    watchdog = telemetry.StallWatchdog(telemetry.ProgressTracker(), warn_s, rank=rank)
+    thread, stop = telemetry.watchdog_thread(watchdog)
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)
+
+
+def _take_views(tracker: telemetry.PhaseTracker) -> None:
+    """``LAST_TAKE_PHASES`` and ``LAST_TAKE_CACHE`` from the take's phase
+    spans."""
+    LAST_TAKE_PHASES.clear()
+    LAST_TAKE_PHASES.update(tracker.durations)
+    names = {sp.name for sp in tracker.spans}
+    LAST_TAKE_CACHE.clear()
+    LAST_TAKE_CACHE.update(
+        plan_cache_hit=any(sp.attrs.get("plan_cache_hit") for sp in tracker.spans if sp.name == "preflight"),
+        prepared_cache_hit="stage.prepare.cache_hit" in names,
+    )
 
 
 class _RestoreModes:
@@ -234,6 +357,7 @@ def _abort_exception(
     peer's earlier report names that peer, and the result is a
     :class:`CheckpointAbortedError`. A KeyboardInterrupt or SystemExit is
     reported but comes back as itself."""
+    telemetry.counter_add("snapshot.abort")
     if isinstance(e, CheckpointAbortedError):
         return e
     if isinstance(e, BarrierError):
@@ -247,7 +371,15 @@ def _abort_exception(
         return e
     if isinstance(e, TimeoutError):
         missing = list(getattr(e, "missing_ranks", None) or [])
-        return CheckpointAbortedError(path, missing[0] if missing else None, phase, repr(e))
+        culprit = missing[0] if missing else None
+        detail = repr(e)
+        if culprit is not None:
+            # The fleet beacons (when on) say what the missing rank was doing.
+            with contextlib.suppress(Exception):
+                last_phase = telemetry.fleet.peer_phase(culprit)
+                if last_phase:
+                    detail = f"{detail} (last beaconed phase: {last_phase})"
+        return CheckpointAbortedError(path, culprit, phase, detail)
     return CheckpointAbortedError(path, rank, phase, repr(e))
 
 
@@ -264,6 +396,10 @@ class Snapshot:
     # issues the same operations in the same order, so the barrier ids
     # derived from them agree across ranks.
     _op_seq = 0
+
+    # The telemetry session of this process's last take, async_take (once
+    # committed) or restore that had one.
+    last_telemetry: Optional[telemetry.Telemetry] = None
 
     def __init__(self, path: str, coordinator: Optional[Coordinator] = None) -> None:
         self.path = path
@@ -291,6 +427,7 @@ class Snapshot:
         job: Optional[str] = None,
         step: Optional[int] = None,
         max_chain_len: Optional[int] = None,
+        _telemetry: Optional[telemetry.Telemetry] = None,
     ) -> "Snapshot":
         """Write ``app_state`` to ``path`` and return when it is committed.
         ``replicated``: globs of logical paths whose plain tensors hold the
@@ -310,40 +447,58 @@ class Snapshot:
         (default ``catalog.DEFAULT_MAX_CHAIN_LEN``, 16): the take is then full.
         ``step`` defaults to the trailing digits of the snapshot's name.
         Rank 0 selects the base in the preflight round, so every rank uses
-        the same one."""
+        the same one.
+
+        ``_telemetry``: a :class:`telemetry.Telemetry` session to record the
+        take's spans and metrics into; the session is also published as
+        ``Snapshot.last_telemetry``."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
         base = cls._maybe_auto_base(base, job, max_chain_len)
-        plan = cls._plan_take(path, app_state, coord, replicated or [], base)
-        path = plan.path
-        barrier = cls._barrier(coord, "commit", path)
-        event_loop = asyncio.new_event_loop()
-        storage = url_to_storage_plugin(path)
-        phase = ["plan"]
+        tm, tm_prev = _begin_telemetry(_telemetry)
+        telemetry.fleet.note_op("take")
         try:
-            pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
-            pending.sync_complete(event_loop)
-            LAST_SYNC_DRAIN_STATS.clear()
-            LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
-            phase[0] = "commit"
-            catalog_info = (job, step, plan.base, _chain_len_for(plan)) if job is not None else None
-            _commit(barrier, rank, metadata, storage, event_loop, path, catalog_info)
-            if barrier is not None:
-                coord.note_external_barrier()
-            if catalog_info is not None:
-                _note_chain_commit(path, catalog_info)
-        except BaseException as e:
-            if barrier is None:
-                raise
-            aborted = _abort_exception(path, barrier, rank, phase[0], e)
-            if aborted is e:
-                raise
-            raise aborted from e
+            plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+            path = plan.path
+            barrier = cls._barrier(coord, "commit", path)
+            event_loop = asyncio.new_event_loop()
+            storage = url_to_storage_plugin(path)
+            phase = ["plan"]
+            try:
+                pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
+                pending.sync_complete(event_loop)
+                LAST_SYNC_DRAIN_STATS.clear()
+                LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
+                _persist_op_artifact(
+                    storage, event_loop, rank, coord.get_world_size(), "take", tm,
+                    plan.phase_tracker.spans, pending.telemetry_io_summary(),
+                )
+                phase[0] = "commit"
+                catalog_info = (job, step, plan.base, _chain_len_for(plan)) if job is not None else None
+                with telemetry.span("take.commit", cat="take"), _barrier_stall_guard(rank):
+                    _commit(barrier, rank, metadata, storage, event_loop, path, catalog_info)
+                if barrier is not None:
+                    coord.note_external_barrier()
+                telemetry.fleet.gc_beacons()
+                if catalog_info is not None:
+                    _note_chain_commit(path, catalog_info)
+            except BaseException as e:
+                if barrier is None:
+                    telemetry.counter_add("snapshot.abort")
+                    raise
+                aborted = _abort_exception(path, barrier, rank, phase[0], e)
+                if aborted is e:
+                    raise
+                raise aborted from e
+            finally:
+                prepare_cache.release(plan.prepared_entry)
+                storage.sync_close(event_loop)
+                event_loop.close()
         finally:
-            prepare_cache.release(plan.prepared_entry)
-            storage.sync_close(event_loop)
-            event_loop.close()
+            # The op's last beacon is an idle one.
+            telemetry.fleet.note_op(None)
+            _finish_telemetry(tm, tm_prev, rank)
         snapshot = cls(path, coordinator)
         snapshot._metadata = metadata
         return snapshot
@@ -359,6 +514,7 @@ class Snapshot:
         job: Optional[str] = None,
         step: Optional[int] = None,
         max_chain_len: Optional[int] = None,
+        _telemetry: Optional[telemetry.Telemetry] = None,
     ) -> "PendingSnapshot":
         """Return once the state is captured: CUDA tensors and the local
         shards of DTensors forked on the card (K2), CPU tensors and objects
@@ -367,33 +523,49 @@ class Snapshot:
         background thread (for ``base=``, the base's digests load there
         too). ``job``, ``step``, ``max_chain_len``: the catalog, as in
         :meth:`take`; the background commit appends the record after the
-        metadata and before the commit barrier releases."""
+        metadata and before the commit barrier releases.
+
+        ``_telemetry``: as in :meth:`take`; the session stays active through
+        the background drain and closes (the trace written) at the commit,
+        so the drain's spans land in the same trace as the stall's
+        phases."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator)
         rank = coord.get_rank()
         base = cls._maybe_auto_base(base, job, max_chain_len)
-        plan = cls._plan_take(path, app_state, coord, replicated or [], base)
-        path = plan.path
-        barrier = cls._barrier(coord, "async_commit", path)
-        event_loop = asyncio.new_event_loop()
-        storage = url_to_storage_plugin(path)
-        phase = ["plan"]
+        tm, tm_prev = _begin_telemetry(_telemetry)
+        telemetry.fleet.note_op("async_take")
         try:
-            pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
-        except BaseException as e:
-            prepare_cache.release(plan.prepared_entry)
-            storage.sync_close(event_loop)
-            event_loop.close()
-            if barrier is None:
-                raise
-            # Peers may already be draining: fail their commit too.
-            aborted = _abort_exception(path, barrier, rank, phase[0], e)
-            if aborted is e:
-                raise
-            raise aborted from e
+            plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+            path = plan.path
+            barrier = cls._barrier(coord, "async_commit", path)
+            event_loop = asyncio.new_event_loop()
+            storage = url_to_storage_plugin(path)
+            phase = ["plan"]
+            try:
+                pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
+            except BaseException as e:
+                prepare_cache.release(plan.prepared_entry)
+                storage.sync_close(event_loop)
+                event_loop.close()
+                if barrier is None:
+                    telemetry.counter_add("snapshot.abort")
+                    raise
+                # Peers may already be draining: fail their commit too.
+                aborted = _abort_exception(path, barrier, rank, phase[0], e)
+                if aborted is e:
+                    raise
+                raise aborted from e
+        except BaseException:
+            telemetry.fleet.note_op(None)
+            _finish_telemetry(tm, tm_prev, rank)
+            raise
         return PendingSnapshot(
             path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry,
             catalog_info=(job, step, plan.base, _chain_len_for(plan)) if job is not None else None,
+            tm=tm,
+            tm_prev=tm_prev,
+            phase_spans=plan.phase_tracker.spans,
         )
 
     @classmethod
@@ -426,15 +598,8 @@ class Snapshot:
         here is kept for the collective report; the rank still takes part
         in the preflight (as a miss)."""
         world_size = coord.get_world_size()
-        phases: Dict[str, float] = {}
-        t0 = time.monotonic()
-
-        def phase(name: str) -> None:
-            nonlocal t0
-            t1 = time.monotonic()
-            phases[name] = t1 - t0
-            t0 = t1
-
+        tracker = telemetry.PhaseTracker(cat="take.phase")
+        phase = tracker.mark
         app_state = dict(app_state)
         # RNG invariant: capture generator state before anything can
         # advance it; reinstate it once the state is captured.
@@ -469,7 +634,7 @@ class Snapshot:
         pf = preflight(
             coord, path, base, replicated, cached.token if cached is not None else None, keys_sig
         )
-        phase("preflight")
+        phase("preflight", plan_cache_hit=pf.hit)
         return TakePlan(
             path=pf.path,
             base=pf.base,
@@ -482,7 +647,7 @@ class Snapshot:
             cache_hit=pf.hit,
             cached=cached if pf.hit else None,
             failure=failure,
-            phases=phases,
+            phase_tracker=tracker,
         )
 
     @classmethod
@@ -501,14 +666,12 @@ class Snapshot:
         0 gathers the manifest then)."""
         rank, world_size = coord.get_rank(), coord.get_world_size()
         path = plan.path
-        phases = dict(plan.phases)
-        t0 = time.monotonic()
-
-        def phase(name: str) -> None:
-            nonlocal t0
-            t1 = time.monotonic()
-            phases[name] = t1 - t0
-            t0 = t1
+        # Continues the planning phases: the gap since the last mark
+        # (plugin and event-loop construction) lands in the next phase.
+        tracker = plan.phase_tracker
+        phase = tracker.mark
+        # stage.prepare.<bucket> sub-spans of the prepare phase.
+        prepare_timings: Dict[str, float] = {}
 
         manifest: Manifest = dict(plan.manifest)
         failure = plan.failure
@@ -529,6 +692,7 @@ class Snapshot:
             if knobs.is_batching_enabled():
                 write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
             if prep_key is not None:
+                t_store = time.monotonic()
                 entry = prepare_cache.PreparedTake(
                     key=prep_key,
                     leaf_kinds={
@@ -542,6 +706,7 @@ class Snapshot:
                 )
                 prepare_cache.store(coord, prep_key, entry)
                 plan.prepared_entry = entry
+                prepare_timings["cache_miss"] = time.monotonic() - t_store
 
         try:
             if failure is not None:
@@ -574,10 +739,12 @@ class Snapshot:
                 prepared = prepare_cache.acquire(coord, prep_key)
                 plan.prepared_entry = prepared
             if prepared is not None:
+                t_hit = time.monotonic()
                 try:
                     local_manifest, write_reqs, assignment = prepared.rebind(
                         flattened, world_size, captured, ready
                     )
+                    prepare_timings["cache_hit"] = time.monotonic() - t_hit
                 except prepare_cache.RebindMismatch:
                     logger.warning("prepared-take rebind mismatch for %s; re-preparing", path, exc_info=True)
                     prepare_cache.release(prepared)
@@ -585,9 +752,11 @@ class Snapshot:
                     plan.prepared_entry = prepared = None
             if prepared is None:
                 leaf_index = {} if prep_key is not None else None
+                t_prep = time.monotonic()
                 local_manifest, write_reqs = prepare_write(
                     flattened, rank, world_size, replicated_paths, is_async, ready, captured, leaf_index
                 )
+                prepare_timings["stager_construction"] = time.monotonic() - t_prep
             manifest.update(local_manifest)
             if plan.cache_hit and prepared is None:
                 partition_and_batch(plan.cached.assignment)
@@ -641,9 +810,11 @@ class Snapshot:
                 manifest=global_manifest,
                 codec_versions=codec_versions,
             )
-        LAST_TAKE_CACHE.clear()
-        LAST_TAKE_CACHE.update(plan_cache_hit=plan.cache_hit, prepared_cache_hit=prepared is not None)
         phase("plan")
+        # Out-of-band sub-spans: they decompose the prepare and plan phases
+        # without moving the phase boundary.
+        for bucket, dur in sorted(prepare_timings.items()):
+            tracker.note(f"stage.prepare.{bucket}", dur)
         phase_out[0] = "write"
         base = plan.base
         if base and not knobs.is_dedup_digests_enabled(has_base=True):
@@ -671,8 +842,7 @@ class Snapshot:
         for stateful, state in plan.rng_states.values():
             stateful.load_state_dict(state)
         phase("rng_restore")
-        LAST_TAKE_PHASES.clear()
-        LAST_TAKE_PHASES.update(phases)
+        _take_views(tracker)
         return pending, metadata
 
     @classmethod
@@ -745,6 +915,9 @@ class Snapshot:
         device: Any = "cuda",
         coordinator: Optional[Coordinator] = None,
         include: Optional[List[str]] = None,
+        _telemetry: Optional[telemetry.Telemetry] = None,
+        job: Optional[str] = None,
+        step: Optional[int] = None,
     ) -> None:
         """Load every stateful of ``app_state`` from this snapshot, in place
         into live tensors where dtype and shape match. A live DTensor's
@@ -763,9 +936,34 @@ class Snapshot:
         are verified under ``TSS_TORCH_VERIFY_READS``. A failure on any
         rank reaches every rank as :class:`CheckpointAbortedError`; live
         state may then be partly loaded. ``LAST_RESTORE_STATS`` holds this
-        process's accounting of the restore."""
+        process's accounting of the restore.
+
+        ``_telemetry``: as in :meth:`take`; the restore's artifact is
+        ``.telemetry/restore_rank_<k>.json``. ``job``/``step``: each rank
+        appends a rollout record (wall time, origin/peer/cache bytes) under
+        the bucket's ``.catalog/rollouts/``, fail-open; ``step`` defaults
+        to the trailing digits of the snapshot's name."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator or self._coordinator)
+        rank = coord.get_rank()
+        tm, tm_prev = _begin_telemetry(_telemetry)
+        telemetry.fleet.note_op("restore")
+        try:
+            self._restore_impl(app_state, device, coord, include, tm, job, step)
+        finally:
+            telemetry.fleet.note_op(None)
+            _finish_telemetry(tm, tm_prev, rank)
+
+    def _restore_impl(
+        self,
+        app_state: AppState,
+        device: Any,
+        coord: Coordinator,
+        include: Optional[List[str]],
+        tm: Optional[telemetry.Telemetry],
+        job: Optional[str],
+        step: Optional[int],
+    ) -> None:
         rank = coord.get_rank()
         world = coord.get_world_size()
         barrier = self._barrier(coord, "restore", self.path)
@@ -783,7 +981,8 @@ class Snapshot:
         )
         phase = "restore.plan"
         try:
-            metadata = self._read_metadata(storage, event_loop)
+            with telemetry.span("restore.read_metadata", cat="restore"):
+                metadata = self._read_metadata(storage, event_loop)
             digests = self._load_digest_index(storage, metadata, event_loop)
             self._attach_cache_digests(storage, digests)
             manifest = get_manifest_for_rank(metadata, rank)
@@ -791,23 +990,30 @@ class Snapshot:
             # RNG last, so loading other statefuls cannot perturb it.
             keys = sorted(app_state, key=lambda k: (isinstance(app_state[k], RNGState), k))
             for key in keys:
-                stateful = app_state[key]
-                _, live = flatten(stateful.state_dict(), prefix=key)
-                state, stats = self._read_tree(
-                    key, manifest, live, storage, event_loop, device, None,
-                    include=include, modes=modes, digests=digests,
-                )
-                stateful.load_state_dict(state)
+                with telemetry.span("restore.load_stateful", cat="restore", key=key):
+                    stateful = app_state[key]
+                    _, live = flatten(stateful.state_dict(), prefix=key)
+                    state, stats = self._read_tree(
+                        key, manifest, live, storage, event_loop, device, None,
+                        include=include, modes=modes, digests=digests,
+                    )
+                    stateful.load_state_dict(state)
                 totals["bytes_read"] += stats["bytes_read"]
                 totals["read_wall_s"] += stats["wall_s"]
                 totals["requests"] += stats["requests"]
+            _persist_op_artifact(
+                storage, event_loop, rank, world, "restore", tm,
+                phase_spans=tm.spans(cat="restore") if tm is not None else None,
+            )
             phase = "restore.barrier"
             if barrier is not None:
-                barrier.arrive()
-                barrier.depart()
+                with _barrier_stall_guard(rank):
+                    barrier.arrive()
+                    barrier.depart()
                 coord.note_external_barrier()
                 # Every rank has read every broadcast and swarm payload.
                 coord.collect_deferred()
+            telemetry.fleet.gc_beacons()
             LAST_RESTORE_STATS.update(totals)
             LAST_RESTORE_STATS["wall_s"] = time.monotonic() - t0
             LAST_RESTORE_STATS["bcast"] = dict(bcast_mod.LAST_RESTORE_BCAST)
@@ -815,8 +1021,11 @@ class Snapshot:
             LAST_RESTORE_STATS["attribution"] = _restore_attribution(
                 bcast_mod.LAST_RESTORE_BCAST, swarm_mod.LAST_RESTORE_SWARM, totals, storage
             )
+            if job is not None:
+                self._append_rollout_record(job, step, rank, world, event_loop)
         except BaseException as e:
             if barrier is None:
+                telemetry.counter_add("snapshot.abort")
                 raise
             aborted = _abort_exception(self.path, barrier, rank, phase, e)
             if aborted is e:
@@ -825,6 +1034,47 @@ class Snapshot:
         finally:
             storage.sync_close(event_loop)
             event_loop.close()
+
+    def _append_rollout_record(
+        self, job: str, step: Optional[int], rank: int, world_size: int, event_loop: asyncio.AbstractEventLoop
+    ) -> None:
+        """This rank's rollout record of the restore just done (from
+        ``LAST_RESTORE_STATS``), under the bucket's catalog; fail-open."""
+        if not knobs.is_step_telemetry_enabled():
+            return
+        from . import catalog as catalog_mod
+
+        try:
+            split = catalog_mod.split_bucket(self.path)
+            if split is None:
+                logger.warning("snapshot %s has no parent bucket; rollout record skipped", self.path)
+                return
+            bucket, name = split
+            if step is None:
+                m = re.search(r"(\d+)$", name)
+                step = int(m.group(1)) if m else None
+            swarm_rec = LAST_RESTORE_STATS.get("swarm") or {}
+            bcast_rec = LAST_RESTORE_STATS.get("bcast") or {}
+            if swarm_rec.get("chunks_peer") or swarm_rec.get("chunks_origin"):
+                mode = "swarm"
+            elif bcast_rec.get("entries") or bcast_rec.get("received"):
+                mode = "bcast"
+            else:
+                mode = "direct"
+            record = telemetry.steprecord.build_rollout_record(
+                job=job,
+                step=step,
+                name=name,
+                rank=rank,
+                world_size=world_size,
+                wall_s=LAST_RESTORE_STATS.get("wall_s", 0.0) or 0.0,
+                attribution=LAST_RESTORE_STATS.get("attribution") or {},
+                mode=mode,
+            )
+            with catalog_mod.Catalog(bucket, event_loop=event_loop) as cat:
+                cat.append_rollout_record(record)
+        except Exception:  # noqa: BLE001 - fail-open by contract
+            logger.warning("rollout record for %s could not be appended (restore unaffected)", self.path, exc_info=True)
 
     def _read_tree(
         self,
@@ -1034,25 +1284,34 @@ class Snapshot:
                 if loc not in expected
             }
 
-            async def check_all() -> None:
-                sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+            async def check(path: str, rec: Any) -> None:
+                read_io = ReadIO(path=path)
+                try:
+                    await storage.read(read_io)
+                except FileNotFoundError:
+                    problems[path] = "missing"
+                    return
+                got = zlib.crc32(read_io.buf)
+                want = record_crc(rec)
+                if want is not None and got != want:
+                    problems[path] = f"crc mismatch (recorded {want}, found {got})"
 
-                async def check(path: str, rec: Any) -> None:
-                    async with sem:
-                        read_io = ReadIO(path=path)
-                        try:
-                            await storage.read(read_io)
-                        except FileNotFoundError:
-                            problems[path] = "missing"
-                            return
-                        got = zlib.crc32(read_io.buf)
-                        want = record_crc(rec)
-                        if want is not None and got != want:
-                            problems[path] = f"crc mismatch (recorded {want}, found {got})"
-
-                await asyncio.gather(*(check(p, r) for p, r in sorted(expected.items())))
-
-            event_loop.run_until_complete(check_all())
+            # One engine.verify node per object, costed at its recorded size.
+            budget = knobs.get_memory_budget_bytes()
+            engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO}, kind="verify", span_prefix="engine")
+            for path, rec in sorted(expected.items()):
+                size = hashing.record_size(rec)
+                engine.add(
+                    Node(
+                        "verify",
+                        lambda ctx, _p, path=path, rec=rec: check(path, rec),
+                        cost_bytes=min(size if size is not None else budget // 8, budget),
+                        pool="io",
+                        stream="io",
+                        path=path,
+                    )
+                )
+            event_loop.run_until_complete(engine.run())
             return problems
         finally:
             storage.sync_close(event_loop)
@@ -1083,7 +1342,8 @@ class Snapshot:
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path)
         try:
-            return self._scrub_impl(storage, event_loop, repair)
+            with telemetry.span("scrub.scan", cat="scrub", path=self.path):
+                return self._scrub_impl(storage, event_loop, repair)
         finally:
             storage.sync_close(event_loop)
             event_loop.close()
@@ -1144,7 +1404,7 @@ class Snapshot:
                     clean_by_content.setdefault((size_want, key), []).append(path)
 
         budget = knobs.get_memory_budget_bytes()
-        engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO})
+        engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO}, kind="scrub", span_prefix="engine")
         hash_pool = ThreadPoolExecutor(scheduler.POOL_THREADS, thread_name_prefix="tss-scrub")
 
         async def scan(path: str, want: Any) -> None:
@@ -1169,6 +1429,7 @@ class Snapshot:
                     lambda ctx, _p, path=path, want=want: scan(path, want),
                     cost_bytes=min(size if size is not None else budget // 8, budget),
                     pool="io",
+                    stream="io",
                     path=path,
                 )
             )
@@ -1188,6 +1449,14 @@ class Snapshot:
             )
         corrupt = sum(1 for e in entries.values() if e["status"] == "corrupt")
         problems = sum(1 for e in entries.values() if e["status"] not in ("ok", "repaired"))
+        telemetry.counter_add("scrub.objects", len(locations))
+        telemetry.counter_add("scrub.bytes", scanned[0])
+        if corrupt:
+            telemetry.counter_add("scrub.corrupt", corrupt)
+        if repaired:
+            telemetry.counter_add("scrub.repaired", repaired)
+        if quarantined:
+            telemetry.counter_add("scrub.quarantined", quarantined)
         return {
             "entries": entries,
             "objects": len(locations),
@@ -1260,6 +1529,7 @@ class Snapshot:
             return sub_plugins[root]
 
         try:
+            t_scan = time.monotonic()
             all_paths = set(event_loop.run_until_complete(storage.list_prefix("")))
             single = SNAPSHOT_METADATA_FNAME in all_paths
             if single and keep_roots is not None:
@@ -1404,8 +1674,13 @@ class Snapshot:
                     )
                 )
             remove = sorted(set(meta_wave) | set(tree_wave))
+            remove_all = set(meta_wave) | set(tree_wave) | set(record_wave)
+            _add_span("gc.scan", "gc", t_scan, path=path)
+            telemetry.counter_add("gc.files_scanned", len(observed))
+            telemetry.counter_add("gc.files_debris", len(remove_all))
             removed = 0
             if not dry_run:
+                t_delete = time.monotonic()
 
                 def owner_of(p: str) -> Tuple[StoragePlugin, str]:
                     root = p.partition("/")[0]
@@ -1428,9 +1703,11 @@ class Snapshot:
                             pass
                         done[0] += 1
 
-                    engine = GraphExecutor(0, caps={"io": MAX_CONCURRENT_IO})
+                    engine = GraphExecutor(0, caps={"io": MAX_CONCURRENT_IO}, kind="gc", span_prefix="engine")
                     for p in sorted(set(paths)):
-                        engine.add(Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", path=p))
+                        engine.add(
+                            Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", stream="io", path=p)
+                        )
                     await engine.run()
                     return done[0]
 
@@ -1439,11 +1716,16 @@ class Snapshot:
                 # then the records: a record goes only once its tree has.
                 for wave in (meta_wave, tree_wave, record_wave):
                     if wave:
-                        removed += event_loop.run_until_complete(delete_wave(wave))
+                        n = event_loop.run_until_complete(delete_wave(wave))
+                        removed += n
+                        if wave is record_wave:
+                            telemetry.counter_add("gc.records_removed", n)
                 # A crashed take may leave empty directories (fs).
                 event_loop.run_until_complete(storage.prune_empty())
                 for sub in sub_plugins.values():
                     event_loop.run_until_complete(sub.prune_empty())
+                _add_span("gc.delete", "gc", t_delete, path=path, files=len(remove_all))
+                telemetry.counter_add("gc.files_removed", removed)
             return {
                 "committed": committed,
                 "uncommitted": uncommitted,
@@ -1599,12 +1881,44 @@ def _append_catalog_record(
         )
         with catalog_mod.Catalog(bucket, event_loop=event_loop) as cat:
             cat.append(record)
+            _append_step_record(cat, storage, event_loop, world_size, job, int(step), name, base_field, chain_len)
     except Exception:  # noqa: BLE001 - fail-open by contract
         logger.warning(
             "catalog record for %s could not be appended (snapshot commit unaffected)",
             path,
             exc_info=True,
         )
+
+
+def _append_step_record(
+    cat: Any,
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    world_size: int,
+    job: str,
+    step: int,
+    name: str,
+    base: Optional[str],
+    chain_len: int,
+) -> None:
+    """Rank 0's step-telemetry record beside the catalog record: the
+    per-rank artifacts (all written before the commit barrier) merged and
+    rolled up. Fail-open on its own: it never takes the catalog record
+    down, and the snapshot's artifacts can rebuild it."""
+    if not (knobs.is_step_telemetry_enabled() and knobs.is_telemetry_artifacts_enabled()):
+        return
+    try:
+        artifacts, problems = telemetry.aggregate.read_artifacts(storage, event_loop, world_size, op="take")
+        if not artifacts:
+            logger.warning("no telemetry artifacts readable for %s (%s); step record skipped", name, problems)
+            return
+        agg = telemetry.aggregate.aggregate(artifacts, world_size)
+        record = telemetry.steprecord.build_step_record(
+            job, step, name, agg, artifacts, base=base, chain_len=chain_len
+        )
+        cat.append_step_telemetry(record)
+    except Exception:  # noqa: BLE001 - fail-open by contract
+        logger.warning("step-telemetry record for %s could not be appended", name, exc_info=True)
 
 
 def _gather_manifest(
@@ -2124,8 +2438,16 @@ class PendingSnapshot:
         barrier: Optional[LinearBarrier],
         prepared_entry: Optional[prepare_cache.PreparedTake] = None,
         catalog_info: Optional[Tuple[str, Optional[int], Optional[str], int]] = None,
+        tm: Optional[telemetry.Telemetry] = None,
+        tm_prev: Optional[telemetry.Telemetry] = None,
+        phase_spans: Any = None,
     ) -> None:
         self.path = path
+        # The async_take's session (closed, and its trace written, when the
+        # commit ends) and its phase spans, for the artifact.
+        self._tm = tm
+        self._tm_prev = tm_prev
+        self._phase_spans = phase_spans
         # (job, step, base, chain length) of a ``job=`` take.
         self._catalog_info = catalog_info
         self._pending_io_work = pending_io_work
@@ -2149,12 +2471,19 @@ class PendingSnapshot:
         rank = self._coord.get_rank()
         try:
             self._pending_io_work.sync_complete(event_loop)
+            # Before the barrier, like the sidecars; never in the stall.
+            _persist_op_artifact(
+                storage, event_loop, rank, self._coord.get_world_size(), "async_take", self._tm,
+                self._phase_spans, self._pending_io_work.telemetry_io_summary(),
+            )
             self._phase = "commit"
-            _commit(self._barrier, rank, self._metadata, storage, event_loop, self.path, self._catalog_info)
+            with _barrier_stall_guard(rank):
+                _commit(self._barrier, rank, self._metadata, storage, event_loop, self.path, self._catalog_info)
             if self._catalog_info is not None:
                 _note_chain_commit(self.path, self._catalog_info)
         except BaseException as e:  # noqa: BLE001 - re-raised by wait()
             logger.error("async snapshot of %s failed on rank %d", self.path, rank, exc_info=True)
+            telemetry.counter_add("snapshot.abort")
             if self._barrier is not None and not isinstance(e, BarrierError):
                 try:
                     self._barrier.report_error(e, phase=self._phase)
@@ -2168,6 +2497,9 @@ class PendingSnapshot:
                 storage.sync_close(event_loop)
             finally:
                 event_loop.close()
+                # The op's end on the fleet bus (store traffic, legal here).
+                telemetry.fleet.note_op(None)
+                _finish_telemetry(self._tm, self._tm_prev, rank)
                 self._done.set()
 
     def wait(self) -> Snapshot:
@@ -2188,9 +2520,19 @@ class PendingSnapshot:
     def done(self) -> bool:
         return self._done.is_set()
 
+    def progress(self) -> Dict[str, Any]:
+        """Live progress of the background drain, safe to poll from any
+        thread: nondecreasing ``bytes_staged`` / ``bytes_written`` /
+        ``requests_done`` (``bytes_written`` ends at the take's payload
+        bytes), ``bytes_total`` / ``requests_total``, instantaneous and
+        EWMA write rates, and ``eta_s`` (``ProgressTracker.snapshot``)."""
+        return self._pending_io_work.progress_snapshot()
+
     @property
     def drain_stats(self) -> Dict[str, float]:
         """Accounting of the background drain (empty until it ends):
-        wall_s, stage_busy_s, io_busy_s, overlap_s, idle_s, and for an
-        incremental take bytes_deduped and objects_linked."""
+        wall_s, stage_busy_s, io_busy_s, overlap_s, idle_s, the
+        stage_d2h_s / stage_serialize_s / stage_hash_s sub-streams, and for
+        an incremental take bytes_deduped and objects_linked. Derived from
+        the engine's intervals, which are the trace's scheduler spans."""
         return self._pending_io_work.drain_stats

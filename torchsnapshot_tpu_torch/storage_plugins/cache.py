@@ -31,6 +31,11 @@ being populated or read is pinned. Any failure of the local store falls
 back to the origin: the cache can slow a read down, never fail it. A
 ranged miss of an object the digest index does not know passes through
 untouched, so a lazy partial restore reads only its ranges.
+
+Telemetry (the JAX package's names): ``cache.hits`` / ``cache.misses``
+(and ``_bytes``), ``cache.bypass_reads``, ``cache.range_misses``,
+``cache.range_populates``, ``cache.quarantined``, and a
+``storage.cache_populate`` span per populate.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
-from .. import hashing
+from .. import hashing, telemetry
 from ..io_types import ReadIO, StoragePlugin, StorageWriteStream, WriteIO
 from ..utils import knobs
 
@@ -450,11 +455,24 @@ class CachedStoragePlugin(StoragePlugin):
                 if self._total_bytes is not None:
                     self._total_bytes -= size
         if removed:
+            telemetry.counter_add("cache.quarantined", removed)
             logger.warning("quarantined %d cache entries of %s after a failed verification", removed, path)
         return removed
 
     def _note_hit(self, nbytes: int) -> None:
         self.stats["hit_bytes"] += nbytes
+        telemetry.counter_add("cache.hits")
+        telemetry.counter_add("cache.hit_bytes", nbytes)
+
+    def _note_miss(self, nbytes: int) -> None:
+        self.stats["miss_bytes"] += nbytes
+        telemetry.counter_add("cache.misses")
+        telemetry.counter_add("cache.miss_bytes", nbytes)
+
+    async def _populate(self, path: str, fn, *args) -> None:
+        """One populate (``fn`` on the cache's thread), as a span."""
+        with telemetry.span("storage.cache_populate", cat="storage", path=path, nbytes=len(args[-1])):
+            await self._run(fn, *args)
 
     # -- the swarm's surface -------------------------------------------------
     async def try_read_object(self, path: str) -> Optional[bytes]:
@@ -491,7 +509,8 @@ class CachedStoragePlugin(StoragePlugin):
         if expect is None:
             return
         try:
-            await self._run(self._write_entry_range, entry, expect, begin, end, bytes(data))
+            await self._populate(path, self._write_entry_range, entry, expect, begin, end, bytes(data))
+            telemetry.counter_add("cache.range_populates")
         except Exception:  # noqa: BLE001 - the cache never fails a restore
             logger.warning("failed to populate the read cache for a range of %s", path, exc_info=True)
 
@@ -500,7 +519,7 @@ class CachedStoragePlugin(StoragePlugin):
         verified; fail-open."""
         entry, _ = self._entry_for(path)
         try:
-            await self._run(self._write_entry, entry, bytes(data))
+            await self._populate(path, self._write_entry, entry, bytes(data))
         except Exception:  # noqa: BLE001 - the cache never fails a restore
             logger.warning("failed to populate the read cache for %s", path, exc_info=True)
 
@@ -544,9 +563,9 @@ class CachedStoragePlugin(StoragePlugin):
             raise
         finally:
             self._inflight.pop(entry, None)
-        self.stats["miss_bytes"] += len(data)
+        self._note_miss(len(data))
         try:
-            await self._run(self._write_entry, entry, data)
+            await self._populate(path, self._write_entry, entry, data)
         except Exception:  # noqa: BLE001 - fail-open
             logger.warning("failed to populate the read cache for %s", path, exc_info=True)
 
@@ -565,11 +584,17 @@ class CachedStoragePlugin(StoragePlugin):
             return
         await self.inner.read(read_io)
         if expect is None:
+            telemetry.counter_add("cache.bypass_reads")
             return  # the cache cannot address this range
+        telemetry.counter_add("cache.range_misses")
         fetched = bytes(memoryview(read_io.buf).cast("B"))
         self.stats["miss_bytes"] += len(fetched)
+        telemetry.counter_add("cache.miss_bytes", len(fetched))
         try:
-            await self._run(self._write_entry_range, entry, expect, begin, begin + len(fetched), fetched)
+            await self._populate(
+                read_io.path, self._write_entry_range, entry, expect, begin, begin + len(fetched), fetched
+            )
+            telemetry.counter_add("cache.range_populates")
         except Exception:  # noqa: BLE001 - fail-open
             logger.warning("failed to populate the read cache for a range of %s", read_io.path, exc_info=True)
 

@@ -15,6 +15,11 @@ Blocking work runs on the plugin's own thread pool; a semaphore caps the
 concurrent O_DIRECT transfers (``get_direct_io_concurrency``, divided by
 the ranks sharing the host's disk). An incremental take links unchanged
 objects of its base in with hard links (:meth:`FSStoragePlugin.link_in`).
+
+Telemetry (the JAX package's names): ``storage.write``, ``storage.read``,
+``storage.link_in`` and ``storage.write_stream`` spans (``plugin="fs"``),
+and the ``storage.fs.write_bytes`` / ``read_bytes`` / ``link_in_count``
+counters.
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ import asyncio
 import contextlib
 import os
 import threading
+import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from .. import native
+from .. import native, telemetry
 from ..io_types import BufferType, ReadIO, StoragePlugin, StorageWriteStream, WriteIO
 from ..utils import knobs
 
@@ -51,9 +57,12 @@ class _FSWriteStream(StorageWriteStream):
     unaligned rest (< 4 KiB) is copied into a carry of the stream's own,
     never a view of the caller's buffer, which the staging pool reuses."""
 
-    def __init__(self, plugin: "FSStoragePlugin", abs_path: str) -> None:
+    def __init__(self, plugin: "FSStoragePlugin", abs_path: str, path: str = "") -> None:
         self._plugin = plugin
         self._abs_path = abs_path
+        self._path = path
+        self._t0 = time.monotonic()
+        self._total = 0
         self._tmp_path = _tmp_name(abs_path)
         # Created at once: abort() always has a file to remove.
         open(self._tmp_path, "wb").close()
@@ -133,9 +142,20 @@ class _FSWriteStream(StorageWriteStream):
 
     async def append(self, buf: BufferType) -> None:
         await self._plugin._run(self._append_work, buf)
+        self._total += memoryview(buf).nbytes
 
     async def commit(self) -> None:
         await self._plugin._run(self._commit_work)
+        tm = telemetry.get_active()
+        if tm is not None:
+            tm.add_span(
+                "storage.write_stream",
+                "storage",
+                self._t0,
+                time.monotonic() - self._t0,
+                {"plugin": "fs", "path": self._path, "nbytes": self._total},
+            )
+        telemetry.counter_add("storage.fs.write_bytes", self._total)
 
     async def abort(self) -> None:
         await self._plugin._run(self._abort_work)
@@ -210,14 +230,17 @@ class FSStoragePlugin(StoragePlugin):
             raise
 
     async def write(self, write_io: WriteIO) -> None:
-        await self._run(self._write_file, write_io)
+        nbytes = memoryview(write_io.buf).nbytes
+        with telemetry.span("storage.write", cat="storage", plugin="fs", path=write_io.path, nbytes=nbytes):
+            await self._run(self._write_file, write_io)
+        telemetry.counter_add("storage.fs.write_bytes", nbytes)
 
     async def write_stream(self, path: str) -> StorageWriteStream:
         abs_path = self._abs(path)
 
         def open_stream() -> _FSWriteStream:
             os.makedirs(os.path.dirname(abs_path), exist_ok=True)
-            return _FSWriteStream(self, abs_path)
+            return _FSWriteStream(self, abs_path, path)
 
         return await self._run(open_stream)
 
@@ -255,9 +278,13 @@ class FSStoragePlugin(StoragePlugin):
         return buf
 
     async def read(self, read_io: ReadIO) -> None:
-        read_io.buf = await self._run(
-            self._read_file, self._abs(read_io.path), read_io.byte_range, read_io.into
-        )
+        with telemetry.span("storage.read", cat="storage", plugin="fs", path=read_io.path) as sp:
+            read_io.buf = await self._run(
+                self._read_file, self._abs(read_io.path), read_io.byte_range, read_io.into
+            )
+            nbytes = memoryview(read_io.buf).nbytes
+            sp.set_attrs(nbytes=nbytes)
+        telemetry.counter_add("storage.fs.read_bytes", nbytes)
 
     async def delete(self, path: str) -> None:
         await self._run(os.remove, self._abs(path))
@@ -268,7 +295,12 @@ class FSStoragePlugin(StoragePlugin):
         a filesystem without hard links returns False and the caller
         writes the bytes. The link shares the inode, so deleting the base
         later leaves this snapshot whole."""
-        return await self._run(self._link_in_inner, src_abs_path, path)
+        with telemetry.span("storage.link_in", cat="storage", plugin="fs", path=path) as sp:
+            ok = await self._run(self._link_in_inner, src_abs_path, path)
+            sp.set_attrs(linked=ok)
+        if ok:
+            telemetry.counter_add("storage.fs.link_in_count")
+        return ok
 
     def _link_in_inner(self, src_abs_path: str, path: str) -> bool:
         dst = self._abs(path)

@@ -33,6 +33,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from . import telemetry
 from .io_types import WriteIO
 from .utils import knobs
 
@@ -148,6 +149,7 @@ def _record(label: str, mode: str, enabled: bool, stream_bps, whole_bps, reason:
     with _LOCK:
         _DECISIONS[label] = rec
         _DECISIONS[""] = rec
+    telemetry.gauge_set("scheduler.stream_auto_on", 1.0 if enabled else 0.0)
     if mode == "auto" and reason == "measured" and not enabled:
         logger.debug(
             "stream auto-select: off for %s (streamed %.3f GB/s < whole %.3f GB/s)",

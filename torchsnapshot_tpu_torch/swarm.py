@@ -52,13 +52,13 @@ import zlib
 from math import prod
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from . import hashing
+from . import hashing, telemetry
 from .io_preparer import is_dtensor
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .scheduler import ReadVerificationError, fetch_read_io
 from .serialization import Serializer, string_to_dtype
-from .bcast import REELECT_MAX
+from .bcast import REELECT_MAX, stall_watchdog
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -369,6 +369,7 @@ class _SwarmSession:
         )
         if problem is None:
             return data
+        telemetry.counter_add("swarm.verify_failures")
         LAST_RESTORE_SWARM["verify_failures"] += 1
         logger.warning(
             "swarm read of %s failed chunk verification (%s); quarantining cache "
@@ -381,6 +382,7 @@ class _SwarmSession:
             self.executor, chunk_check, data, plan.shas, plan.crcs, k, extent
         )
         if problem is not None:
+            telemetry.counter_add("swarm.verify_failures")
             LAST_RESTORE_SWARM["verify_failures"] += 1
             raise ReadVerificationError(
                 f"swarm read of {plan.path} failed chunk verification twice ({problem}); "
@@ -480,6 +482,10 @@ def run_swarm(
         return [k for k in range(len(plan.extents)) if rank in plan.need[k]]
 
     total_chunks = sum(len(needed_chunks(p)) for p in plans)
+    # Chunk arrivals are the stall watchdog's progress.
+    tracker = telemetry.ProgressTracker()
+    tracker.set_totals(requests=total_chunks, bytes_=0)
+    pending_count = [total_chunks]
 
     def note_chunk(path: str, kind: str, nbytes: int) -> None:
         per_object.setdefault(path, {"origin_bytes": 0, "peer_bytes": 0, "cache_bytes": 0})[
@@ -487,6 +493,11 @@ def run_swarm(
         ] += nbytes
         LAST_RESTORE_SWARM[f"{kind}_bytes"] += nbytes
         LAST_RESTORE_SWARM[f"chunks_{kind}"] += 1
+        telemetry.counter_add(f"swarm.chunks_{kind}")
+        telemetry.counter_add(f"swarm.{kind}_bytes", nbytes)
+        tracker.note_staged(nbytes)
+        tracker.note_request_done()
+        pending_count[0] -= 1
 
     async def origin_fetch(plan: ObjectPlan, k: int) -> bytes:
         data = await session.fetch_chunk_verified(plan, k)
@@ -567,6 +578,7 @@ def run_swarm(
             return 1 + min(reelect_max, len(plan.orders[k]) - 1)
 
         async def take_direct(k: int, why: str) -> None:
+            telemetry.counter_add("swarm.direct_fallbacks")
             LAST_RESTORE_SWARM["direct_fallbacks"] += 1
             logger.warning("swarm chunk %d of %s: %s; reading it directly", k, plan.path, why)
             land(k, await origin_fetch(plan, k))
@@ -601,6 +613,7 @@ def run_swarm(
                     if now < deadline[k]:
                         continue
                     if attempt[k] + 1 < att_max(k):
+                        telemetry.counter_add("swarm.reelections")
                         LAST_RESTORE_SWARM["reelections"] += 1
                         logger.warning(
                             "swarm server rank %d missed the %.1fs deadline for chunk %d "
@@ -628,6 +641,7 @@ def run_swarm(
                         executor, chunk_check, data, plan.shas, plan.crcs, k, plan.extents[k]
                     )
                 if problem is not None:
+                    telemetry.counter_add("swarm.verify_failures")
                     LAST_RESTORE_SWARM["peer_verify_failures"] += 1
                     LAST_RESTORE_SWARM["peer_corruptions"].append(
                         {"path": plan.path, "chunk": k, "from_rank": server}
@@ -644,7 +658,13 @@ def run_swarm(
                     note_chunk(plan.path, "peer", len(data))
                 await ack_once(k)
             if wanted:
+                # A fleet wait edge per round: the ranks serving what this
+                # rank still waits for.
+                telemetry.fleet.note_blocked(
+                    "swarm.chunk", sorted({plan.orders[k][attempt[k]] for k in wanted} - {rank})
+                )
                 await asyncio.sleep(poll_s)
+        telemetry.fleet.clear_blocked("swarm.chunk")
 
         # Chunks this rank held from its cache still count to the quorum.
         for k in needed:
@@ -662,12 +682,17 @@ def run_swarm(
                 items[item_index].finalize()
 
     async def drive() -> None:
-        for obj, plan in enumerate(plans):
-            await restore_object(plan, obj)
+        async with stall_watchdog(tracker, rank, lambda: {"swarm_wait": pending_count[0]}):
+            for obj, plan in enumerate(plans):
+                await restore_object(plan, obj)
 
+    telemetry.counter_add("swarm.objects", len(plans))
+    telemetry.counter_add("swarm.chunks", total_chunks)
     LAST_RESTORE_SWARM["objects"] += len(plans)
     LAST_RESTORE_SWARM["chunks"] += total_chunks
-    try:
-        event_loop.run_until_complete(drive())
-    finally:
-        coord.defer_delete_many(session.posted)
+    with telemetry.span("swarm.restore", cat="restore", objects=len(plans), chunks=total_chunks, world=world):
+        try:
+            event_loop.run_until_complete(drive())
+        finally:
+            telemetry.fleet.clear_blocked("swarm.chunk")
+            coord.defer_delete_many(session.posted)

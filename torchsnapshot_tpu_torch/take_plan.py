@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import hashlib
 import logging
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -168,8 +168,9 @@ class TakePlan:
     cached: Optional[CachedPlan]
     # This rank's planning failure so far (reported collectively later).
     failure: Optional[Exception] = None
-    # Wall seconds of the planning phases so far.
-    phases: Dict[str, float] = field(default_factory=dict)
+    # The planning phases so far, as ``take.phase`` spans
+    # (``telemetry.PhaseTracker``); the take continues it.
+    phase_tracker: Any = None
     # The prepared-take cache entry this take acquired or stored; released
     # when its pipeline completes, success or failure.
     prepared_entry: Any = None

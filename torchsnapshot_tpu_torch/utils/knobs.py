@@ -5,7 +5,9 @@ the layout and digest settings the format tests pin, batching, the
 host memory budget, the shard size, the barrier timeout, the
 collective sanitizer, compression (codec, level, frame size), the plan and
 prepared-take caches, the streaming mode, the native O_DIRECT engine,
-read verification, the read cache, and the broadcast and swarm restores.
+read verification, the read cache, the broadcast and swarm restores, and
+telemetry (trace, artifacts, stall watchdog, flight recorder, step records,
+fleet beacons, CLI tracebacks).
 The JAX package's tuning knobs (thread and I/O widths, the D2H window,
 device batching, the async device copy, checksums off) are constants here
 until a workload needs another value. The prefix differs from the JAX package's on purpose, so
@@ -381,6 +383,104 @@ def get_swarm_chunk_deadline_s() -> float:
         return 30.0
 
 
+# -- telemetry (the JAX package's knobs and defaults) ------------------------
+
+_ENV_TRACE = _P + "TRACE"
+_ENV_TELEMETRY_ARTIFACTS = _P + "TELEMETRY_ARTIFACTS"
+_ENV_STALL_WARN_S = _P + "STALL_WARN_S"
+_ENV_RECORDER = _P + "RECORDER"
+_ENV_RECORDER_CAPACITY = _P + "RECORDER_CAPACITY"
+_ENV_RECORDER_INTERVAL_S = _P + "RECORDER_INTERVAL_S"
+_ENV_RECORDER_DUMP = _P + "RECORDER_DUMP"
+_ENV_STEP_TELEMETRY = _P + "STEP_TELEMETRY"
+_ENV_FLEET_TELEMETRY = _P + "FLEET_TELEMETRY"
+_ENV_FLEET_BEACON_S = _P + "FLEET_BEACON_S"
+_ENV_CLI_TRACEBACK = _P + "CLI_TRACEBACK"
+
+
+def get_trace_path() -> Optional[str]:
+    """Chrome/Perfetto trace destination: when set, every take, async_take
+    and restore records a telemetry session and writes it here when the
+    operation ends (rank 0 the path verbatim, rank N the path plus
+    ``.rankN``)."""
+    return os.environ.get(_ENV_TRACE) or None
+
+
+def is_telemetry_artifacts_enabled() -> bool:
+    """Persist the per-rank artifact ``.telemetry/rank_<k>.json`` inside
+    every snapshot (fail-open; on by default). Off, and with no trace or
+    ``_telemetry=``, an operation runs with no session at all."""
+    return _get_bool(_ENV_TELEMETRY_ARTIFACTS, True)
+
+
+def get_stall_warn_s() -> float:
+    """Seconds without byte progress after which the write pipeline's
+    watchdog logs one structured stall warning (0 or unset: off)."""
+    val = os.environ.get(_ENV_STALL_WARN_S)
+    return float(val) if val else 0.0
+
+
+def is_recorder_enabled() -> bool:
+    """The process-wide flight recorder of engine samples (on by default)."""
+    return _get_bool(_ENV_RECORDER, True)
+
+
+def get_recorder_capacity() -> int:
+    """Flight-recorder ring capacity in samples (default 4096, at least 16)."""
+    return max(16, _get_int(_ENV_RECORDER_CAPACITY, 4096))
+
+
+def get_recorder_interval_s() -> float:
+    """Least spacing of two engine samples of one engine (default 0.25 s)."""
+    try:
+        return max(0.0, float(os.environ.get(_ENV_RECORDER_INTERVAL_S, 0.25)))
+    except ValueError:
+        return 0.25
+
+
+def get_recorder_dump_path() -> Optional[str]:
+    """File the flight recorder mirrors its ring to (at most once a second),
+    for ``python -m torchsnapshot_tpu_torch monitor``; unset: no mirror."""
+    return os.environ.get(_ENV_RECORDER_DUMP) or None
+
+
+def is_step_telemetry_enabled() -> bool:
+    """A ``job=`` take's commit appends a step record under
+    ``<bucket>/.catalog/telemetry/``, and a ``restore(job=)`` a rollout
+    record (on by default; needs the artifacts)."""
+    return _get_bool(_ENV_STEP_TELEMETRY, True)
+
+
+def get_fleet_telemetry_mode() -> str:
+    """Fleet beacons over the coordinator store: ``auto`` (default: on when
+    the coordinator spans several processes), ``1`` or ``0``."""
+    val = os.environ.get(_ENV_FLEET_TELEMETRY, "auto").strip().lower()
+    if val in ("0", "false", "off"):
+        return "0"
+    if val in ("1", "true", "on"):
+        return "1"
+    return "auto"
+
+
+def get_fleet_beacon_s() -> float:
+    """Least spacing of two beacon publishes of one process (default 0.5 s)."""
+    try:
+        return max(0.05, float(os.environ.get(_ENV_FLEET_BEACON_S, 0.5)))
+    except ValueError:
+        return 0.5
+
+
+def is_cli_traceback_enabled() -> bool:
+    """The CLI raises with a traceback instead of a one-line error."""
+    return _get_bool(_ENV_CLI_TRACEBACK, False)
+
+
+def env_fingerprint() -> dict:
+    """Every ``TSS_TORCH_*`` variable set, verbatim (the artifact's
+    environment fingerprint)."""
+    return {k: v for k, v in sorted(os.environ.items()) if k.startswith(_P)}
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: str) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -433,3 +533,31 @@ def override_compression_frame_bytes(value: int):
 def override_stream_writes_mode(mode: str):
     return _override_env(_ENV_STREAM_WRITES, mode)
 
+
+
+def override_trace_path(path: str):
+    return _override_env(_ENV_TRACE, path)
+
+
+def override_telemetry_artifacts(enabled: bool):
+    return _override_env(_ENV_TELEMETRY_ARTIFACTS, "1" if enabled else "0")
+
+
+def override_stall_warn_s(value: float):
+    return _override_env(_ENV_STALL_WARN_S, str(value))
+
+
+def override_recorder(enabled: bool):
+    return _override_env(_ENV_RECORDER, "1" if enabled else "0")
+
+
+def override_step_telemetry(enabled: bool):
+    return _override_env(_ENV_STEP_TELEMETRY, "1" if enabled else "0")
+
+
+def override_fleet_telemetry(value: str):
+    return _override_env(_ENV_FLEET_TELEMETRY, value)
+
+
+def override_fleet_beacon_s(value: float):
+    return _override_env(_ENV_FLEET_BEACON_S, str(value))

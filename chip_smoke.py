@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a host with one CUDA GPU::
 
-    python3 chip_smoke.py [--gb 4.0] [--phase3-gb 2.0] [--seed 0]
+    python3 chip_smoke.py [--gb 4.0] [--phase3-gb 2.0] [--phase9-gb 2.0] [--seed 0]
 
 Phase 0 builds the CUDA kernels from ``torchsnapshot_tpu_torch/csrc``.
 Phase 1 holds each kernel (K1 pack_slab, K2 fork_copy, K3 copy_blocks)
@@ -16,7 +16,9 @@ Phase 2 drives the main path on a transformer-shaped bf16 state
 (d_model 4096, d_ff 16384, ~``--gb`` GB): a sync take with batching on,
 verify, restore into zeroed CUDA tensors, read_object, then async_take
 followed at once by an in-place ``add_(1)`` of every tensor, wait, and a
-restore that must give the values from before the mutation.
+restore that must give the values from before the mutation. The sync
+take and its restore run under ``TSS_TORCH_DEBUG_LEDGER=1`` (phase 9): a
+budget leak raises ``LedgerLeakError``.
 Phase 3 drives the multi-rank path: two ranks, two processes on the one
 card (gloo process group, ``DeviceMesh("cuda", (2,))``), holding a
 ``--phase3-gb`` GB model state (2 GB since phase 8 came: cut from ``--gb``
@@ -112,6 +114,32 @@ artifacts, whose byte counters must equal each rank's written bytes.
 (c) phase 2's state, three interleaved pairs of a sync take and an
 ``async_take`` drain with the flight recorder and artifacts on against both
 off: medians and spread, a warning (not a failure) above 1% of the drain.
+Phase 9 drives the engine's QoS classes and FSDP2 over TP. (a) In one
+process, phase 4's trainer state (8 layers, AdamW, every parameter and
+moment from the seed, 11.25 GB) is taken with ``async_take(qos=
+"background")``; as soon as its drain has staged its first bytes,
+``restore(qos="foreground")`` of a snapshot of the same model's weights
+(phase 6's 3.75 GB) goes into a fresh model's live CUDA tensors
+(``dryrun.qos_race``): three interleaved pairs with QoS on and with
+``TSS_TORCH_QOS=0``, the first pair under ``TSS_TORCH_DEBUG_LEDGER=1``.
+It prints per race the restore's seconds and GB/s, the drain's seconds
+and the drain engine's ``engine.preemptions`` and
+``engine.preempted_wait_s`` (its artifact's ``engine`` section), which
+must be > 0 with QoS on and exactly 0 off; every restore, and a restore of
+each drained snapshot, must be bit-exact. (b) Four ranks share the card
+(gloo, ``init_device_mesh("cuda", (2, 2), ("dp", "tp"))``) and lay the
+transformer at phase 4's width out as FSDP2 over TP
+(``models.transformer.parallelize_fsdp_tp``: ``ColwiseParallel`` on
+``up``/``lm_head``, ``RowwiseParallel`` on ``down``, ``fully_shard`` over
+``dp``) with AdamW state, ``--phase9-gb`` GB in whole layers (one layer:
+~2.8 GB); gloo has no reduce-scatter, so no step runs and every parameter
+and moment is filled from the seed. ``up`` and ``lm_head`` must carry
+``_StridedShard``; the state is taken, restored into the same layout,
+into ``Shard(0)`` over a flat mesh of 4, and that plain state's take back
+into FSDP x TP (``dryrun.fsdp_tp_checkpoints``), every local shard equal
+to its seeded block; K3 must launch on every rank. It prints bytes, GB/s
+and K3 launches per rank and step.
+Every phase's wall seconds are printed.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -376,7 +404,9 @@ def phase2(gb, device, gen, root, card):
     launches = {}
     rates = {}
 
-    # 1. sync take, batching on
+    # 1. sync take, batching on; it and the restore run under the budget
+    # ledger (phase 9): a leak raises LedgerLeakError.
+    os.environ["TSS_TORCH_DEBUG_LEDGER"] = "1"
     path = os.path.join(root, "sync")
     kernels.reset_launch_counts()
     t0 = time.monotonic()
@@ -411,7 +441,8 @@ def phase2(gb, device, gen, root, card):
     if target["progress"]["meta"] != progress["meta"] or target["progress"]["lr"] != progress["lr"]:
         raise AssertionError("restore: primitives or object differ")
     rates["restore_gbps"] = nbytes / restore_s / 1e9
-    log(f"restore: {restore_s:.3f} s, {rates['restore_gbps']:.3f} GB/s")
+    os.environ.pop("TSS_TORCH_DEBUG_LEDGER")
+    log(f"restore: {restore_s:.3f} s, {rates['restore_gbps']:.3f} GB/s (sync take and restore under TSS_TORCH_DEBUG_LEDGER=1)")
     del target
 
     # 4. read_object of one leaf
@@ -1522,12 +1553,131 @@ def phase8c(gb, device, gen, root, card):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: QoS classes and the budget ledger; FSDP2 over TP
+# ---------------------------------------------------------------------------
+
+
+def _trainer_cfg(n_layers=8):
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=32000, d_model=4096, n_heads=32, n_layers=n_layers, d_ff=16384, max_seq_len=512
+    )
+
+
+def phase9a(seed, device, root, card):
+    """A foreground restore of phase 6's serving weights (3.75 GB) racing
+    the background drain of phase 4's trainer state (8 layers, AdamW,
+    11.25 GB) in one process: three interleaved pairs, QoS on and
+    ``TSS_TORCH_QOS=0``; the first pair under ``TSS_TORCH_DEBUG_LEDGER=1``."""
+    import statistics
+
+    from torchsnapshot_tpu_torch import dryrun, kernels
+
+    cfg = _trainer_cfg()
+    races = {"on": [], "off": []}
+    launches = {"pack_slab": 0, "fork_copy": 0, "copy_blocks": 0}
+    for pair in range(3):
+        for qos in ("on", "off"):
+            env = {"TSS_TORCH_QOS": "1" if qos == "on" else "0", "TSS_TORCH_DEBUG_LEDGER": "1" if pair == 0 else None}
+            _set_env(env)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                kernels.reset_launch_counts()
+                out = dryrun.qos_race(cfg, root, device=device, seed=seed)
+                for k, v in kernels.LAUNCHES.items():
+                    launches[k] += v
+                out["launches"] = dict(kernels.LAUNCHES)
+            finally:
+                _set_env({k: None for k in env})
+            if qos == "on" and out["preemptions"] < 1:
+                raise AssertionError(f"phase9 (a): the drain was not preempted with QoS on: {out}")
+            if qos == "off" and (out["preemptions"] != 0 or out["preempted_wait_s"] != 0):
+                raise AssertionError(f"phase9 (a): the drain was preempted with TSS_TORCH_QOS=0: {out}")
+            races[qos].append(out)
+            log(
+                f"phase9 (a) pair {pair} QoS {qos} on {card}{' (ledger on)' if pair == 0 else ''}: foreground restore "
+                f"{out['restore_s']:.3f} s, {out['restore_gbps']:.3f} GB/s over {out['weights_bytes']} bytes "
+                f"(started {out['restore_start_after_return_s']:.4f} s after async_take returned); drain "
+                f"{out['drain_s']:.3f} s over {out['state_bytes']} bytes (still running at the restore's end: "
+                f"{out['drain_running_at_restore_end']}); drain engine.preemptions {out['preemptions']}, "
+                f"engine.preempted_wait_s {out['preempted_wait_s']:.4f} (summed over overlapping waiters; "
+                f"paused wall {out['paused_wall_s']:.4f} s); launches {json.dumps(out['launches'])}"
+            )
+    summary = {}
+    for qos, outs in races.items():
+        summary[qos] = {
+            key: {"median": statistics.median(o[key] for o in outs), "all": [o[key] for o in outs]}
+            for key in ("restore_s", "restore_gbps", "drain_s", "preemptions", "preempted_wait_s", "paused_wall_s")
+        }
+    log(f"phase9 (a) summary on {card}: {json.dumps(summary)}")
+    if launches["fork_copy"] < 1:
+        raise AssertionError(f"phase9 (a): K2 did not launch: {launches}")
+    return launches, summary
+
+
+def phase9b_worker(rank, world_size, n_layers, seed, root, out_dir):
+    from torchsnapshot_tpu_torch import dryrun
+
+    torch.cuda.set_device(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = dryrun.fsdp_tp_checkpoints(_trainer_cfg(n_layers), root, device=torch.device("cuda", 0), seed=seed)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase9b(gb, seed, root, card):
+    """FSDP2 over TP on four ranks sharing the card (gloo): the transformer
+    at phase 4's width, laid out by ``parallelize_fsdp_tp`` with AdamW
+    state, ~``gb`` GB; take, restore into the same layout, into
+    ``Shard(0)`` over 4, and a plain take back into FSDP x TP."""
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    # bf16 parameters and two bf16 moments: 3 x 2 bytes per parameter.
+    per_layer = 3 * 2 * (4096 * 3 * 4096 + 4096 * 4096 + 2 * 4096 * 16384)
+    fixed = 3 * 2 * (2 * 32000 * 4096 + 512 * 4096)
+    n_layers = max(1, round((gb * 1e9 - fixed) / per_layer))
+    out_dir = os.path.join(root, "phase9b_out")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    run_with_processes(phase9b_worker, 4, args=(n_layers, seed, root, out_dir), timeout_s=900, process_group=True)
+    wall = time.monotonic() - t0
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(4)]
+    launches = {}
+    for r, out in enumerate(ranks):
+        steps = out["steps"]
+        k3 = {label: step["launches"]["copy_blocks"] for label, step in steps.items()}
+        if not any(k3[label] for label in ("restore_same", "restore_plain", "restore_from_plain")):
+            raise AssertionError(f"phase9 (b): K3 did not launch on rank {r}: {k3}")
+        for label, step in steps.items():
+            launches[f"phase9b_rank{r}_{label}"] = step["launches"]
+        log(
+            f"phase9 (b) rank {r} on {card} (four ranks sharing one card, gloo): {out['state_bytes']} local bytes; "
+            + "; ".join(f"{label} {st['s']:.3f} s {st['gbps']:.3f} GB/s K3 {st['launches']['copy_blocks']}" for label, st in steps.items())
+        )
+    total = sum(o["state_bytes"] for o in ranks)
+    log(
+        f"phase9 (b) on {card}: {n_layers} layer(s), state {ranks[0]['global_bytes']} bytes ({total} local bytes "
+        f"over 4 ranks, the dp-only leaves held by both tp ranks), strided {json.dumps(ranks[0]['strided'])}, wall {wall:.1f} s"
+    )
+    shutil.rmtree(os.path.join(root, "fsdp_tp"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "fsdp_tp_plain"), ignore_errors=True)
+    return launches, {"layers": n_layers, "state_bytes": ranks[0]["global_bytes"], "local_bytes": total, "ranks": ranks, "wall_s": wall}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
     parser.add_argument(
         "--phase3-gb", type=float, default=2.0,
         help="size of phase 3's two-rank TP state (cut from --gb, so phase 8 fits the script's time)",
+    )
+    parser.add_argument(
+        "--phase9-gb", type=float, default=2.0,
+        help="size of phase 9 (b)'s FSDP x TP train state over four ranks (whole layers, at least one)",
     )
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -1571,29 +1721,40 @@ def main() -> int:
     errs = phase1(device, gen)
 
     root = tempfile.mkdtemp(prefix="tss_chip_smoke_")
+    walls = {}
+
+    def timed(name, fn):
+        t = time.monotonic()
+        out = fn()
+        walls[name] = time.monotonic() - t
+        log(f"{name} wall on {card}: {walls[name]:.1f} s")
+        return out
+
     try:
-        launches, rates, slab_layer, state_tensors = phase2(args.gb, device, gen, root, card)
+        launches, rates, slab_layer, state_tensors = timed("phase2", lambda: phase2(args.gb, device, gen, root, card))
         # The main path's K1 slab is one layer's attn plus its small tensors.
         slab_members = [slab_layer[k] for k in sorted(slab_layer)]
-        times = time_kernels(device, slab_members, state_tensors)
+        times = timed("kernel timing", lambda: time_kernels(device, slab_members, state_tensors))
         del slab_layer, slab_members, state_tensors
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        k3_times = time_k3(device, args.gb, gen)
-        ranks = phase3(args.phase3_gb, args.seed, root, card)
-        launches["phase4"], trainer = phase4(args.seed, device, root, card)
-        phase5_launches, finetune = phase5(args.seed, device, root, card)
+        k3_times = timed("K3 timing", lambda: time_k3(device, args.gb, gen))
+        ranks = timed("phase3", lambda: phase3(args.phase3_gb, args.seed, root, card))
+        launches["phase4"], trainer = timed("phase4", lambda: phase4(args.seed, device, root, card))
+        phase5_launches, finetune = timed("phase5", lambda: phase5(args.seed, device, root, card))
         for codec, counts in phase5_launches.items():
             launches[f"phase5_{codec}"] = counts
-        phase6_launches, serving = phase6(args.seed, device, gen, args.gb, root, card)
+        phase6_launches, serving = timed("phase6", lambda: phase6(args.seed, device, gen, args.gb, root, card))
         launches.update(phase6_launches)
-        launches["phase7"], continuous = phase7(args.seed, device, root, card)
-        t8 = time.monotonic()
-        launches["phase8a"], traced = phase8a(args.seed, device, root, card)
-        phase8b_launches, _ = phase8b(args.gb, args.seed, root, card)
+        launches["phase7"], continuous = timed("phase7", lambda: phase7(args.seed, device, root, card))
+        launches["phase8a"], traced = timed("phase8 (a)", lambda: phase8a(args.seed, device, root, card))
+        phase8b_launches, _ = timed("phase8 (b)", lambda: phase8b(args.gb, args.seed, root, card))
         launches.update(phase8b_launches)
-        launches["phase8c"], overhead = phase8c(args.gb, device, gen, root, card)
-        log(f"phase8 wall on {card}: {time.monotonic() - t8:.1f} s")
+        launches["phase8c"], overhead = timed("phase8 (c)", lambda: phase8c(args.gb, device, gen, root, card))
+        launches["phase9a"], qos_summary = timed("phase9 (a)", lambda: phase9a(args.seed, device, root, card))
+        phase9b_launches, fsdp_tp = timed("phase9 (b)", lambda: phase9b(args.phase9_gb, args.seed, root, card))
+        launches.update(phase9b_launches)
+        log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1612,6 +1773,8 @@ def main() -> int:
     log(f"phase7 continuous summary on {card}: {json.dumps(summary)}")
     log(f"phase8 traced trainer summary on {card}: {json.dumps(traced)}")
     log(f"phase8 overhead summary on {card}: {json.dumps(overhead)}")
+    log(f"phase9 (a) QoS summary on {card}: {json.dumps(qos_summary)}")
+    log(f"phase9 (b) FSDP x TP on {card}: {fsdp_tp['layers']} layer(s), {fsdp_tp['state_bytes']} bytes, wall {fsdp_tp['wall_s']:.1f} s")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

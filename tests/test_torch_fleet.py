@@ -154,3 +154,65 @@ def test_off_mode_feed_sites_allocate_nothing(monkeypatch):
         ttel.recorder.reset()
     tel_dir = os.path.dirname(ttel.__file__)
     assert [s for s in snap.statistics("filename") if s.traceback[0].filename.startswith(tel_dir)] == []
+
+
+def _paused_engine_beacon(eng_mod, fleet_mod, knobs_mod, store):
+    """A beacon published while a BACKGROUND engine is paused under held
+    FOREGROUND demand (one package's engine, bus and arbiter)."""
+    import asyncio
+
+    bus = fleet_mod.FleetBus(store=store, coordinator=None, rank=0, world_size=1, interval_s=60.0)
+
+    async def body(_ctx, _payload):
+        pass
+
+    async def go():
+        if eng_mod.__name__.startswith("torchsnapshot_tpu_torch"):
+            eng = eng_mod.GraphExecutor(100, {}, owner="bg", priority=eng_mod.Priority.BACKGROUND)
+        else:
+            eng = eng_mod.GraphExecutor(budget_bytes=100, owner="bg", priority=eng_mod.Priority.BACKGROUND)
+        eng.add(eng_mod.Node("io", body, cost_bytes=1, pool="io"))
+        arb = eng_mod.get_arbiter()
+        arb.register(eng_mod.Priority.FOREGROUND)
+        try:
+            runner = asyncio.ensure_future(eng.run())
+            await asyncio.sleep(0.1)
+            bus.sample_engine(eng)
+            assert bus.publish(force=True)
+        finally:
+            arb.unregister(eng_mod.Priority.FOREGROUND)
+        await asyncio.wait_for(runner, timeout=10)
+        return eng
+
+    loop = asyncio.new_event_loop()
+    try:
+        with knobs_mod.override_qos_poll_s(0.01):
+            eng = loop.run_until_complete(go())
+    finally:
+        loop.close()
+    return fleet_mod.read_beacons(store, world_size=1)[0], eng
+
+
+def test_beacon_qos_and_engine_fields_match_jax_after_a_preempted_drain():
+    from torchsnapshot_tpu import engine as jengine
+    from torchsnapshot_tpu.parallel.store import LocalStore as JLocalStore
+    from torchsnapshot_tpu.telemetry import fleet as jfleet
+    from torchsnapshot_tpu.utils import knobs as jknobs
+
+    from torchsnapshot_tpu_torch import engine as tengine
+    from torchsnapshot_tpu_torch.utils import knobs as tknobs
+
+    port, port_eng = _paused_engine_beacon(tengine, ttel.fleet, tknobs, LocalStore())
+    jax, jax_eng = _paused_engine_beacon(jengine, jfleet, jknobs, JLocalStore())
+    assert port["qos"] == jax["qos"] == {
+        "enabled": True,
+        "demand": {"BACKGROUND": 1, "NORMAL": 0, "FOREGROUND": 1},
+        "preempted": ["BACKGROUND", "NORMAL"],
+    }
+    assert set(port["engine"]) == set(jax["engine"])
+    timings = {"preempted_wait_s", "bytes_done", "occupancy", "admitted", "budget_hwm", "budget_available"}
+    assert {k: v for k, v in port["engine"].items() if k not in timings} == {
+        k: v for k, v in jax["engine"].items() if k not in timings
+    }
+    assert port["engine"]["paused"] is True and port["engine"]["preemptions"] == 1
+    assert port_eng.preemptions == jax_eng.preemptions == 1

@@ -134,13 +134,11 @@ def test_a_single_process_take_stays_light():
 
 def test_unsupported_placements_raise():
     from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.placement_types import _StridedShard
 
     from torchsnapshot_tpu_torch.io_preparers.sharded_array import placement_offsets_sizes
 
-    for placement in (Partial(), _StridedShard(0, split_factor=2)):
-        with pytest.raises(NotImplementedError, match="not supported"):
-            placement_offsets_sizes((4, 4), (2,), [placement], (0,))
+    with pytest.raises(NotImplementedError, match="not supported: a Partial tensor is a pending reduction"):
+        placement_offsets_sizes((4, 4), (2,), [Partial()], (0,))
 
 
 _A11_MODULES = [
@@ -343,3 +341,36 @@ def test_from_numpy_tree_defaults_to_the_card():
         from_numpy_tree({})  # refused before any array is converted
     out = from_numpy_tree(tree, device="cpu")
     assert out["a"].device.type == "cpu" and out["b"]["c"].dtype == torch.int64
+
+
+_A14_A15_MODULES = [
+    "torchsnapshot_tpu_torch/engine/qos.py",
+    "torchsnapshot_tpu_torch/engine/executor.py",
+    "torchsnapshot_tpu_torch/ledger.py",
+]
+
+
+@pytest.mark.parametrize("module", _A14_A15_MODULES)
+def test_a14_a15_modules_are_held_to_the_import_rules(module):
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert module in checked
+
+
+def test_qos_and_ledger_import_no_torch():
+    """The arbiter and the ledger are stdlib modules, like telemetry: the
+    engine's QoS layer loads no torch, numpy or JAX of its own."""
+    code = (
+        "import sys, types\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "stub = types.ModuleType('torchsnapshot_tpu_torch')\n"
+        f"stub.__path__ = [{os.path.join(REPO, 'torchsnapshot_tpu_torch')!r}]\n"
+        "sys.modules['torchsnapshot_tpu_torch'] = stub\n"
+        "eng = types.ModuleType('torchsnapshot_tpu_torch.engine')\n"
+        f"eng.__path__ = [{os.path.join(REPO, 'torchsnapshot_tpu_torch', 'engine')!r}]\n"
+        "sys.modules['torchsnapshot_tpu_torch.engine'] = eng\n"
+        "import torchsnapshot_tpu_torch.engine.qos, torchsnapshot_tpu_torch.ledger\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

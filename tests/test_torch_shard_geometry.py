@@ -5,8 +5,10 @@ Covers ``subdivide``, ``overlap``, ``overlap_row_intervals``,
 ``record_grain_for``, ``shard_read_intervals``, the DTensor placements'
 offsets against the JAX ``index_to_offsets_sizes`` of the equivalent
 ``NamedSharding`` (and against torch's own DTensor geometry for uneven
-shapes, which a ``NamedSharding`` refuses), and the greedy assignment of
-replicated writes for the same loads under a stub coordinator.
+shapes, which a ``NamedSharding`` refuses), FSDP2-over-TP's
+``_StridedShard`` placements against ``P(("y", "x"))`` and torch's
+geometry, and the greedy assignment of replicated writes for the same
+loads under a stub coordinator.
 """
 
 import itertools
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from torch.distributed.tensor import Replicate, Shard as DShard
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.distributed.tensor._utils import _compute_local_shape_and_global_offset
 
 from torchsnapshot_tpu import io_types as jio_types
@@ -156,6 +159,86 @@ def test_uneven_placement_offsets_match_dtensor(mesh_shape, placements, shape):
         assert [got[0][d] for d in nonempty] == [offsets[d] for d in nonempty], coordinate
 
 
+# FSDP2 over TP: the TP Shard(d) on mesh axis "y" (size n) picks a block,
+# FSDP's _StridedShard(d, split_factor=n) on axis "x" cuts it; the JAX
+# package's layout is the same rows, axis "y" major: P(("y", "x")) on d.
+_STRIDED_EVEN = [
+    ((2, 2), 0, (8, 6)),
+    ((2, 2), 1, (4, 8)),
+    ((2, 4), 0, (16, 3)),
+    ((4, 2), 0, (8, 4)),
+    ((2, 2), 1, (3, 8, 5)),
+    ((2, 4), 2, (2, 3, 16)),
+]
+
+
+@pytest.mark.parametrize("mesh_shape,dim,shape", _STRIDED_EVEN, ids=str)
+def test_strided_offsets_match_named_sharding(mesh_shape, dim, shape):
+    n = int(np.prod(mesh_shape))
+    devices = np.array(jax.devices()[:n]).reshape(mesh_shape)
+    mesh = Mesh(devices, _AXES)
+    spec = P(*[("y", "x") if d == dim else None for d in range(len(shape))])
+    index_map = NamedSharding(mesh, spec).devices_indices_map(shape)
+    placements = (_StridedShard(dim, split_factor=mesh_shape[1]), DShard(dim))
+    for coordinate in np.ndindex(*mesh_shape):
+        want = jsa.index_to_offsets_sizes(index_map[devices[coordinate]], shape)
+        got = tsa.placement_offsets_sizes(shape, mesh_shape, placements, coordinate)
+        assert got == (list(want[0]), list(want[1])), coordinate
+
+
+@pytest.mark.parametrize(
+    "mesh_shape,shape",
+    [((2, 2), (12,)), ((2, 2), (10, 3)), ((2, 2), (7, 2)), ((2, 4), (13, 2)), ((2, 4), (9,)), ((2, 4), (30, 4))],
+    ids=str,
+)
+def test_uneven_strided_offsets_match_dtensor(mesh_shape, shape):
+    placements = (_StridedShard(0, split_factor=mesh_shape[1]), DShard(0))
+    rows = {}
+    for coordinate in np.ndindex(*mesh_shape):
+        sizes, offsets = _compute_local_shape_and_global_offset(shape, mesh_shape, list(coordinate), placements)
+        got = tsa.placement_offsets_sizes(shape, mesh_shape, placements, coordinate)
+        assert got[1] == list(sizes), coordinate
+        if sizes[0]:
+            assert got[0] == list(offsets), coordinate
+            rows[coordinate] = (got[0][0], got[0][0] + got[1][0])
+    # The blocks tile the rows once, ordered tp-major: (dp, tp) = (0,0),
+    # (1,0), (0,1), (1,1), ... FSDP's uneven split inside each TP block.
+    order = sorted(rows, key=lambda c: (c[1], c[0]))
+    spans = [rows[c] for c in order]
+    assert spans[0][0] == 0 and spans[-1][1] == shape[0]
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    if shape[0] == 12 and mesh_shape == (2, 2):
+        assert [rows[c][0] for c in [(0, 0), (1, 0), (0, 1), (1, 1)]] == [0, 3, 6, 9]
+    if shape[0] == 10 and mesh_shape == (2, 2):
+        assert [rows[c] for c in [(0, 0), (1, 0), (0, 1), (1, 1)]] == [(0, 3), (3, 5), (5, 8), (8, 10)]
+
+
+@pytest.mark.parametrize(
+    "mesh_shape,placements,shape",
+    [
+        ((2,), (_StridedShard(0, split_factor=2),), (12,)),
+        ((4,), (_StridedShard(1, split_factor=3),), (2, 12)),
+        ((2, 2), (DShard(0), _StridedShard(0, split_factor=2)), (8, 2)),
+        ((2, 2), (_StridedShard(0, split_factor=2), DShard(1)), (8, 4)),
+    ],
+    ids=str,
+)
+def test_strided_shard_that_leaves_several_blocks_raises(mesh_shape, placements, shape):
+    with pytest.raises(NotImplementedError, match="not one rectangle"):
+        for coordinate in np.ndindex(*mesh_shape):
+            tsa.placement_offsets_sizes(shape, mesh_shape, placements, coordinate)
+
+
+def test_placement_keys_and_partial():
+    from torch.distributed.tensor import Partial
+
+    assert tsa.placement_key(_StridedShard(1, split_factor=4)) == ("strided", 1, 4)
+    assert tsa.placement_key(DShard(0)) == ("shard", 0, 1)
+    assert tsa.placement_key(Replicate()) == ("replicate", -1, 1)
+    with pytest.raises(NotImplementedError, match="pending reduction"):
+        tsa.placement_key(Partial())
+
+
 def test_process_shard_map_covers_the_array_once():
     shape, mesh_shape = (7, 6), (2, 3)
     placements = (DShard(1), DShard(0))
@@ -185,8 +268,9 @@ class _Stager:
 class _StubCoordinator:
     """Rank ``rank`` of a world whose ranks reported ``loads``."""
 
-    def __init__(self, rank, loads):
+    def __init__(self, rank, loads, offers=None):
         self.rank, self.loads = rank, loads
+        self.offers = offers or [[] for _ in loads]
 
     def get_rank(self):
         return self.rank
@@ -195,8 +279,11 @@ class _StubCoordinator:
         return len(self.loads)
 
     def all_gather_object(self, obj):
-        # Both packages gather (load, codec) pairs.
-        return [(l, "none") for l in self.loads]
+        # Both packages gather (load, codec); the port adds the shard
+        # objects each rank offers.
+        if len(obj) == 2:
+            return [(l, "none") for l in self.loads]
+        return [(l, "none", o) for l, o in zip(self.loads, self.offers)]
 
 
 def _plan(pkg, sizes, n_local, seed):
@@ -232,6 +319,89 @@ def test_partitioner_assignment_matches(seed):
         )
         assert tassign == jassign
         assert [r.path for r in tkeep] == [r.path for r in jkeep]
+
+
+def _sharded_plan(rank, held):
+    """Rank ``rank``'s manifest and write requests when it holds the row
+    blocks ``held`` (offsets) of a 4x3 uint8 leaf ``m/s``, one row each."""
+    shards, reqs = [], []
+    for off in held:
+        loc = f"sharded/m/s.{off}_0"
+        shards.append(tmanifest.Shard([off, 0], [1, 3], tmanifest.ArrayEntry(loc, "raw", "uint8", [1, 3])))
+        reqs.append(tio_types.WriteReq(path=loc, buffer_stager=_Stager(3)))
+    own = f"{rank}/m/own"
+    reqs.append(tio_types.WriteReq(path=own, buffer_stager=_Stager(10 * (rank + 1))))
+    return {"m/s": tmanifest.ShardedArrayEntry("uint8", [4, 3], shards), "m/own": tmanifest.ArrayEntry(own, "raw", "uint8", [1])}, reqs
+
+
+def test_partitioner_elects_one_writer_per_shared_shard():
+    """Sub-meshes of one ("dp", "tp") mesh offer the same shard objects
+    (tp replicas): each is written by exactly one of its holders, the others
+    drop it from their writes and their manifest entry; a shard only one
+    rank offers (a pipeline stage's own parameter) stays with it. The
+    merged manifest tiles the leaf once, and a replay of the assignment
+    keeps the same writers."""
+    held = {0: [0, 1], 1: [0, 1], 2: [2, 3], 3: [2]}
+    loads = [0, 0, 0, 0]
+    offers = [[(f"sharded/m/s.{o}_0", 3) for o in held[r]] for r in range(4)]
+    merged, assignments, kept = {}, [], {}
+    for rank in range(4):
+        manifest, reqs = _sharded_plan(rank, held[rank])
+        keep, assignment = tpartitioner.partition_write_reqs_with_assignment(
+            manifest, reqs, _StubCoordinator(rank, loads, offers)
+        )
+        assignments.append(assignment)
+        kept[rank] = sorted(r.path for r in keep if r.path.startswith("sharded/"))
+        assert f"{rank}/m/own" in [r.path for r in keep]
+        assert sorted(s.tensor.location for s in manifest["m/s"].shards) == kept[rank]
+        merged[f"{rank}/m/s"] = manifest["m/s"]
+        manifest2, reqs2 = _sharded_plan(rank, held[rank])
+        keep2, _ = tpartitioner.partition_write_reqs_with_assignment(
+            manifest2, reqs2, _StubCoordinator(rank, loads, offers), assignment
+        )
+        assert sorted(r.path for r in keep2 if r.path.startswith("sharded/")) == kept[rank]
+    assert all(a == assignments[0] for a in assignments)
+    assert set(assignments[0]) == {"sharded/m/s.0_0", "sharded/m/s.1_0", "sharded/m/s.2_0"}
+    written = sorted(loc for locs in kept.values() for loc in locs)
+    assert written == [f"sharded/m/s.{o}_0" for o in range(4)]
+    assert "sharded/m/s.3_0" in kept[2]
+    # Least loaded first: ranks 0 and 1 split rows 0 and 1.
+    assert kept[0] != kept[1] and len(kept[0]) == len(kept[1]) == 1
+    assert tpartitioner.shard_coverage_problem(merged) is None
+
+
+def test_partitioner_refuses_one_shard_object_of_two_sizes():
+    offers = [[("sharded/m/s.0_0", 3)], [("sharded/m/s.0_0", 6)]]
+    manifest, reqs = _sharded_plan(0, [0])
+    with pytest.raises(ValueError, match="different arrays at one path"):
+        tpartitioner.partition_write_reqs_with_assignment(manifest, reqs, _StubCoordinator(0, [0, 0], offers))
+
+
+@pytest.mark.parametrize(
+    "rects,problem",
+    [
+        ([([0, 0], [2, 3]), ([2, 0], [2, 3])], None),
+        ([([0, 0], [2, 3]), ([2, 0], [1, 3])], "cover 9 of its 12"),
+        ([([0, 0], [3, 3]), ([2, 0], [2, 3])], "overlap"),
+        ([([0, 0], [2, 3]), ([2, 1], [2, 3])], "outside"),
+        ([([0, 0], [4, 2]), ([0, 2], [4, 1])], None),
+        ([([0, 0], [2, 3]), ([0, 0], [2, 3]), ([2, 0], [2, 3])], None),
+    ],
+)
+def test_shard_coverage_problem(rects, problem):
+    """The commit check: the merged shards of a sharded entry must tile
+    its shape, with no hole and no overlap (a shard two ranks list alike
+    counts once)."""
+    shards = [
+        tmanifest.Shard(o, z, tmanifest.ArrayEntry(f"sharded/m/s.{o[0]}_{o[1]}", "raw", "uint8", z))
+        for o, z in rects
+    ]
+    manifest = {f"{i}/m/s": tmanifest.ShardedArrayEntry("uint8", [4, 3], [s]) for i, s in enumerate(shards)}
+    got = tpartitioner.shard_coverage_problem(manifest)
+    if problem is None:
+        assert got is None
+    else:
+        assert problem in got and got.startswith("m/s:")
 
 
 def test_consolidate_replicated_entries_matches():

@@ -404,3 +404,222 @@ def test_sharded_entries_and_objects_match_jax(snapshots, tmp_path):
             loc = shard.tensor.location
             with open(os.path.join(path, loc), "rb") as a, open(os.path.join(port, loc), "rb") as b:
                 assert a.read() == b.read(), loc
+
+
+# ---------------------------------------------------------------------------
+# FSDP2 over TP: _StridedShard placements, four gloo ranks
+# ---------------------------------------------------------------------------
+
+_FSDP_TP_SEED = 5
+
+
+def _fsdp_tp_cfg():
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq_len=16)
+
+
+def _fsdp_tp_globals():
+    """name -> the seeded global value (numpy) of each parameter of the
+    small transformer, as every rank fills it."""
+    from torchsnapshot_tpu_torch import dryrun
+    from torchsnapshot_tpu_torch.convert import to_numpy_tree
+    from torchsnapshot_tpu_torch.models.transformer import init_params
+
+    model = init_params(_fsdp_tp_cfg(), seed=0, device="cpu")
+    return {
+        n: to_numpy_tree(dryrun.seeded_global(n, p.shape, p.dtype, _FSDP_TP_SEED, "cpu"))
+        for n, p in model.named_parameters()
+    }
+
+
+# The column-parallel leaves FSDP2 over TP shards strided: rows of each TP
+# block, which is the JAX package's P(("tp", "dp")).
+_STRIDED_LEAVES = ("up.weight", "up.bias", "lm_head.weight", "lm_head.bias")
+
+
+def _jax_fsdp_tp_sharding(name, ndim):
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "tp"))
+    if name.endswith(_STRIDED_LEAVES):
+        return NamedSharding(mesh, P(("tp", "dp"), *([None] * (ndim - 1))))
+    return NamedSharding(mesh, P())
+
+
+def _fsdp_tp_worker(rank, world_size, root, jax_path):
+    os.environ.update(_ENV)
+    from torchsnapshot_tpu_torch import dryrun
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.models.transformer import init_params, parallelize_fsdp_tp
+
+    cfg = _fsdp_tp_cfg()
+    out = dryrun.fsdp_tp_checkpoints(cfg, root, device="cpu", seed=_FSDP_TP_SEED)
+    # The JAX package's P(("tp", "dp")) take, into the port's FSDP x TP.
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("dp", "tp"))
+    model = parallelize_fsdp_tp(init_params(cfg, seed=9, device="cpu"), mesh)
+    tts.Snapshot(jax_path).restore({"model": model}, device="cpu")
+    dryrun.check_against_seed(model, dryrun.adamw(model.parameters()), _FSDP_TP_SEED, "JAX take into FSDP x TP")
+    out["jax_restore"] = "bit-exact"
+    with open(os.path.join(root, f"fsdp_tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@pytest.fixture(scope="module")
+def fsdp_tp(tmp_path_factory, monkeypatch_module):
+    import jax
+
+    import torchsnapshot_tpu as jts
+
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    root = str(tmp_path_factory.mktemp("fsdp_tp"))
+    g = _fsdp_tp_globals()
+    jax_path = os.path.join(root, "jax_tp_dp")
+    arrays = {n: jax.device_put(v, _jax_fsdp_tp_sharding(n, v.ndim)) for n, v in g.items()}
+    jts.Snapshot.take(jax_path, {"model": jts.StateDict(arrays)})
+    run_with_processes(_fsdp_tp_worker, 4, args=(root, jax_path), process_group=True)
+    ranks = [json.load(open(os.path.join(root, f"fsdp_tp_rank{r}.json"))) for r in range(4)]
+    return {"root": root, "globals": g, "ranks": ranks}
+
+
+def test_fsdp_tp_takes_and_restores_bit_exact_in_the_port(fsdp_tp):
+    """Every rank's take and its restores into the same layout, into
+    Shard(0) over 4 and from a plain take back into FSDP x TP checked
+    bit-exact (inside the ranks), with the strided placements present."""
+    for r in fsdp_tp["ranks"]:
+        assert set(r["steps"]) == {"take", "restore_same", "restore_plain", "take_plain", "restore_from_plain"}
+        assert r["strided"]["block_0.up.weight"] == "(_StridedShard(dim=0, sf=2), Shard(dim=0))"
+        assert r["strided"]["lm_head.weight"] == "(_StridedShard(dim=0, sf=2), Shard(dim=0))"
+        assert r["jax_restore"] == "bit-exact"
+
+
+def test_fsdp_tp_take_writes_each_shard_once(fsdp_tp):
+    """Strided leaves save one rectangle per rank, the tp-major row blocks;
+    a sub-mesh (``fully_shard`` over ``mesh["dp"]``) leaf saves one copy of
+    each dp shard, not one per tp replica."""
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu import manifest as jmanifest
+
+    manifest = jmanifest.get_manifest_for_rank(jts.Snapshot(os.path.join(fsdp_tp["root"], "fsdp_tp")).metadata, 0)
+    up = manifest["model/block_0.up.weight"]
+    assert sorted(s.offsets[0] for s in up.shards) == [0, 32, 64, 96]
+    ln = manifest["model/block_0.ln1.weight"]
+    assert sorted((s.offsets[0], s.sizes[0]) for s in ln.shards) == [(0, 32), (32, 32)]
+    for key, entry in manifest.items():
+        if getattr(entry, "shards", None):
+            covered = sum(int(np.prod(s.sizes)) for s in entry.shards)
+            assert covered == int(np.prod(entry.shape)), key
+
+
+def test_jax_restores_fsdp_tp_take_into_tp_dp_layout(fsdp_tp):
+    import jax
+
+    import torchsnapshot_tpu as jts
+
+    g = fsdp_tp["globals"]
+    target = {n: jax.device_put(np.zeros_like(v), _jax_fsdp_tp_sharding(n, v.ndim)) for n, v in g.items()}
+    sd = jts.StateDict(target)
+    jts.Snapshot(os.path.join(fsdp_tp["root"], "fsdp_tp")).restore({"model": sd})
+    strided = 0
+    for n, v in g.items():
+        got = np.asarray(sd[n])
+        np.testing.assert_array_equal(_np_bytes(got), _np_bytes(v))
+        assert sd[n].sharding == _jax_fsdp_tp_sharding(n, v.ndim)
+        strided += n.endswith(_STRIDED_LEAVES)
+    assert strided == 6
+    assert jts.Snapshot(os.path.join(fsdp_tp["root"], "fsdp_tp")).verify() == {}
+
+
+def test_jax_restores_the_plain_take_of_fsdp_tp_state(fsdp_tp):
+    import torchsnapshot_tpu as jts
+
+    g = fsdp_tp["globals"]
+    sd = jts.StateDict({n: np.zeros_like(v) for n, v in g.items()})
+    jts.Snapshot(os.path.join(fsdp_tp["root"], "fsdp_tp_plain")).restore({"model": sd})
+    for n, v in g.items():
+        np.testing.assert_array_equal(_np_bytes(np.asarray(sd[n])), _np_bytes(v))
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages on a ("pp", "dp") mesh: each stage's parameters on mesh["dp"]
+# ---------------------------------------------------------------------------
+
+_PP_SEED = 11
+# Per stage: (in, out) of its one Linear; the row counts split unevenly.
+_PP_STAGES = {0: (6, 7), 1: (7, 5)}
+
+
+def _pp_stage(stage):
+    """Stage ``stage``'s module: one Linear under a name only it holds,
+    as pipeline stages hold different layers."""
+    module = torch.nn.Module()
+    module.add_module(f"layer{stage}", torch.nn.Linear(*_PP_STAGES[stage]))
+    return module
+
+
+def _pp_dp_worker(rank, world_size, root):
+    os.environ.update(_ENV)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import dryrun
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pp", "dp"))
+    stage = mesh.get_coordinate()[0]
+
+    def build(seed):
+        torch.manual_seed(seed)
+        model = _pp_stage(stage)
+        fully_shard(model, mesh=mesh["dp"])
+        return model, dryrun.init_optimizer_state(dryrun.adamw(model.parameters()))
+
+    model, optimizer = build(0)
+    dryrun.fill_from_seed(model, optimizer, _PP_SEED)
+    path = os.path.join(root, "pp_dp")
+    # Each stage keys its own state: the optimizer's parameter ids would
+    # clash across stages under one key.
+    tts.Snapshot.take(path, {f"stage{stage}": model, f"optim{stage}": optimizer})
+    model, optimizer = build(1)
+    tts.Snapshot(path).restore({f"stage{stage}": model, f"optim{stage}": optimizer}, device="cpu")
+    dryrun.check_against_seed(model, optimizer, _PP_SEED, f"stage {stage}")
+    with open(os.path.join(root, f"pp_dp_rank{rank}.json"), "w") as f:
+        json.dump({"stage": int(stage), "params": sorted(n for n, _ in model.named_parameters())}, f)
+
+
+def test_pipeline_stages_on_sub_meshes_take_and_restore_bit_exact(tmp_path):
+    """Four ranks on a ("pp", "dp") mesh; each pp slice holds different
+    parameters, fully_shard over mesh["dp"]. Every stage's shards are
+    written (no rank of another stage counts as their replica), the merged
+    manifest tiles each parameter, each rank restores its stage bit-exact,
+    and the JAX package restores every parameter whole."""
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu import manifest as jmanifest
+    from torchsnapshot_tpu_torch import dryrun
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    root = str(tmp_path)
+    run_with_processes(_pp_dp_worker, 4, args=(root,), process_group=True)
+    ranks = [json.load(open(os.path.join(root, f"pp_dp_rank{r}.json"))) for r in range(4)]
+    assert [r["stage"] for r in ranks] == [0, 0, 1, 1]
+    assert ranks[0]["params"] == ["layer0.bias", "layer0.weight"]
+    assert ranks[2]["params"] == ["layer1.bias", "layer1.weight"]
+    path = os.path.join(root, "pp_dp")
+    manifest = jmanifest.get_manifest_for_rank(jts.Snapshot(path).metadata, 0)
+    for stage, (n_in, n_out) in _PP_STAGES.items():
+        want = {}
+        for name, shape in ((f"layer{stage}.weight", (n_out, n_in)), (f"layer{stage}.bias", (n_out,))):
+            for key in ("", "/exp_avg", "/exp_avg_sq"):
+                prefix = f"optim{stage}/state/{name.endswith('bias') * 1}" if key else f"stage{stage}"
+                entry = manifest[f"{prefix}/{key[1:] or name}"]
+                assert sorted(s.offsets[0] for s in entry.shards) == [0, -(-n_out // 2)], (name, key)
+            want[name] = dryrun.seeded_global(name, shape, torch.float32, _PP_SEED, "cpu").numpy()
+        sd = jts.StateDict({n: np.zeros_like(v) for n, v in want.items()})
+        jts.Snapshot(path).restore({f"stage{stage}": sd})
+        for n, v in want.items():
+            np.testing.assert_array_equal(_np_bytes(np.asarray(sd[n])), _np_bytes(v))
+    assert jts.Snapshot(path).verify() == {}

@@ -84,8 +84,10 @@ def test_artifacts_cross_read_and_counters_agree(tmp_path, op):
     port_art = jart.parse_artifact(_artifact_bytes(tmp_path / "p"))
     jax_art = tart.parse_artifact(_artifact_bytes(tmp_path / "j"))
     assert port_art["op"] == jax_art["op"] == op
-    # "engine" holds QoS preemptions and pauses; the port has no QoS yet.
-    assert set(jax_art) - set(port_art) == {"engine"} and set(port_art) <= set(jax_art)
+    # The same sections, "engine" (QoS preemptions and pauses) included.
+    assert set(jax_art) == set(port_art)
+    assert set(port_art["engine"]) == set(jax_art["engine"])
+    assert port_art["engine"]["preemptions"] == jax_art["engine"]["preemptions"] == 0
     for key in COUNTERS:
         assert port_art["metrics"][key] == jax_art["metrics"][key], key
     assert port_art["bytes"] == jax_art["bytes"]

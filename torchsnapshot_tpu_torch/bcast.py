@@ -40,6 +40,7 @@ import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import telemetry
+from .engine import qos as engine_qos
 from .io_preparer import is_dtensor
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
@@ -217,6 +218,8 @@ class _BcastSession:
         """One origin read, verified when the sidecars cover it: a reader
         must never fan corrupt bytes out to the fleet."""
         path, byte_range = key
+        # A chunk-granular QoS yield before the origin read.
+        await engine_qos.pause_point()
         want = _read_digest_record(self.digests, path) if self.verify else None
         checker = _verify_checker(want, byte_range) if want is not None else None
         read_io = await verified_fetch(

@@ -11,7 +11,9 @@ through unchanged.
 
 Sharded state crosses as a global array: :func:`dtensor_from_numpy` cuts a
 rank's local shard out of a global numpy array by the placements' own
-geometry (``torch.chunk`` sizes) and wraps it as that rank's DTensor. A
+geometry (``torch.chunk`` sizes; ``_StridedShard`` under a later ``Shard``
+of its dim, as FSDP2 over TP gives it, included) and wraps it as that
+rank's DTensor. A
 sharded ``jax.Array``, gathered to the host, is such a global array;
 :func:`dtensor_from_tensor` does the same from a global torch tensor.
 
@@ -104,7 +106,9 @@ def local_shard_of(
     placements: Sequence[Any],
     coordinate: Sequence[int],
 ) -> np.ndarray:
-    """The block of ``global_array`` that mesh ``coordinate`` holds."""
+    """The block of ``global_array`` that mesh ``coordinate`` holds (one
+    rectangle; ``NotImplementedError`` for placements that leave several,
+    such as a lone ``_StridedShard``)."""
     offsets, sizes = placement_offsets_sizes(global_array.shape, mesh_shape, placements, coordinate)
     index = tuple(slice(o, o + n) for o, n in zip(offsets, sizes))
     return global_array[index] if index else global_array

@@ -39,6 +39,14 @@ The counterpart of the JAX package's ``__graft_entry__.py``:
   restore under ``TSS_TORCH_TRACE``, and :func:`trace_report` reads a
   trace back: span counts, the D2H bytes and their busy time, and the io
   node's split between hashing and storage.
+- :func:`fsdp_tp_checkpoints` (one rank's part, in a process group of
+  four) checkpoints the transformer laid out as FSDP2 over TP
+  (``_StridedShard`` placements) with AdamW state filled from a seed, and
+  restores it into the same layout, into ``Shard(0)`` over a flat mesh,
+  and from such a plain take back into FSDP2 over TP, bit-exact.
+- :func:`qos_race` races a ``qos="foreground"`` restore of a model's
+  weights against the ``qos="background"`` drain of its train state's
+  ``async_take`` in one process, and reads the drain's preemptions.
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -51,11 +59,13 @@ import shutil
 import tempfile
 import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from .convert import dtensor_from_tensor, local_shard_of
+from .io_preparer import is_dtensor
 from .models.transformer import (
     Transformer,
     TransformerConfig,
@@ -1126,3 +1136,212 @@ def _traced_checkpoint(cfg, root, trace_dir, device, batch, seed) -> Dict[str, A
     out["traces"] = traces
     shutil.rmtree(path)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Seeded train state, FSDP2 over TP, and a QoS race
+# ---------------------------------------------------------------------------
+
+
+def seeded_global(name: str, shape: Sequence[int], dtype: torch.dtype, seed: int, device: Any) -> torch.Tensor:
+    """The global value of train-state tensor ``name`` under ``seed``:
+    standard normal draws (fp32, then cast) from a generator on ``device``
+    seeded by ``seed`` and the name's crc32, the same on every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + zlib.crc32(name.encode()))
+    return torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32).to(dtype)
+
+
+@torch.no_grad()
+def fill_from_seed(model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int) -> int:
+    """Set every parameter and optimizer moment to its block of
+    :func:`seeded_global` (a DTensor's local shard in place) and every
+    ``step`` to ``seed``. Returns this rank's bytes of them."""
+    total = 0
+    for name, t in train_state_tensors(model, optimizer):
+        if name.endswith("/step"):
+            t.fill_(float(seed))
+            continue
+        local = t.to_local() if is_dtensor(t) else t
+        full = seeded_global(name, t.shape, t.dtype, seed, local.device)
+        local.copy_(_local_of(full, t) if is_dtensor(t) else full)
+        total += local.numel() * local.element_size()
+    return total
+
+
+def check_against_seed(model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int, what: str) -> None:
+    """Every parameter and moment (a DTensor's local shard) equals its block
+    of :func:`seeded_global` bit for bit, and every ``step`` is ``seed``."""
+    for name, t in train_state_tensors(model, optimizer):
+        if name.endswith("/step"):
+            ok = float(t) == float(seed)
+        else:
+            local = t.to_local() if is_dtensor(t) else t
+            full = seeded_global(name, t.shape, t.dtype, seed, local.device)
+            ok = same_bits(local, _local_of(full, t) if is_dtensor(t) else full)
+        if not ok:
+            raise AssertionError(f"{what}: {name} differs from its seeded value")
+
+
+def fsdp_tp_checkpoints(
+    cfg: TransformerConfig, root: str, device: Any = "cuda", seed: int = 0, dp: int = 2, tp: int = 2
+) -> Dict[str, Any]:
+    """One rank's part (call it on every rank of a process group of
+    ``dp * tp`` ranks, ``root`` shared) of checkpointing FSDP2 over TP: the
+    transformer laid out by ``parallelize_fsdp_tp`` on a ``("dp", "tp")``
+    mesh, with AdamW state (``init_optimizer_state``), every parameter and
+    moment filled from ``seed`` (gloo has no reduce-scatter: no step runs).
+    ``up`` and ``lm_head`` must carry ``_StridedShard``. Then, each step
+    timed and its kernel launches counted on this rank:
+
+    - ``take``: a take of the FSDP x TP state;
+    - ``restore_same``: a restore into a fresh FSDP x TP state;
+    - ``restore_plain``: a restore into the state sharded ``Shard(0)`` over
+      a flat mesh of every rank (``Replicate()`` where 0 does not divide);
+    - ``take_plain``: a take of that plain state;
+    - ``restore_from_plain``: its restore into a fresh FSDP x TP state.
+
+    Every restore must equal the seeded values bit for bit. Returns this
+    rank's bytes (``state_bytes``) and the state's (``global_bytes``), the
+    strided parameters' names and placements, and per step its seconds,
+    GB/s over the rank's bytes and launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from . import kernels
+    from .models.transformer import parallelize_fsdp_tp
+
+    device = torch.device(device)
+    world = dp * tp
+    mesh = init_device_mesh(device.type, (dp, tp), mesh_dim_names=("dp", "tp"))
+    flat = init_device_mesh(device.type, (world,), mesh_dim_names=("all",))
+
+    def fsdp_tp_state(s: int):
+        model = parallelize_fsdp_tp(init_params(cfg, seed=s, device=device), mesh)
+        return model, init_optimizer_state(adamw(model.parameters()))
+
+    def plain_state(s: int):
+        spec = lambda n, shape, m: placements_of(fit_dims(("all",), shape, m), m)  # noqa: E731
+        model = shard_module(init_params(cfg, seed=s, device=device), flat, spec)
+        return model, init_optimizer_state(adamw(model.parameters()))
+
+    model, optimizer = fsdp_tp_state(seed)
+    nbytes = fill_from_seed(model, optimizer, seed)
+    placements = {n: repr(tuple(p.placements)) for n, p in model.named_parameters() if is_dtensor(p)}
+    strided = sorted(n for n, p in placements.items() if "_StridedShard" in p)
+    for want in ("block_0.up.weight", "lm_head.weight"):
+        if want not in strided:
+            raise AssertionError(f"{want} carries no _StridedShard: {placements.get(want)}")
+    global_bytes = sum(t.numel() * t.element_size() for _, t in train_state_tensors(model, optimizer))
+    out: Dict[str, Any] = {
+        "state_bytes": nbytes,
+        "global_bytes": global_bytes,
+        "strided": {n: placements[n] for n in strided},
+        "steps": {},
+    }
+
+    def step(label: str, fn: Callable[[], None]) -> None:
+        dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.monotonic() - t0
+        out["steps"][label] = {"s": dt, "gbps": nbytes / dt / 1e9, "launches": dict(kernels.LAUNCHES)}
+
+    path, plain_path = os.path.join(root, "fsdp_tp"), os.path.join(root, "fsdp_tp_plain")
+    step("take", lambda: Snapshot.take(path, {"model": model, "optim": optimizer}))
+    del model, optimizer
+    model, optimizer = fsdp_tp_state(seed + 1)
+    step("restore_same", lambda: Snapshot(path).restore({"model": model, "optim": optimizer}, device=device))
+    check_against_seed(model, optimizer, seed, "restore into the same FSDP x TP layout")
+    del model, optimizer
+    model, optimizer = plain_state(seed + 1)
+    step("restore_plain", lambda: Snapshot(path).restore({"model": model, "optim": optimizer}, device=device))
+    check_against_seed(model, optimizer, seed, "restore into Shard(0) over a flat mesh")
+    step("take_plain", lambda: Snapshot.take(plain_path, {"model": model, "optim": optimizer}))
+    del model, optimizer
+    model, optimizer = fsdp_tp_state(seed + 2)
+    step(
+        "restore_from_plain",
+        lambda: Snapshot(plain_path).restore({"model": model, "optim": optimizer}, device=device),
+    )
+    check_against_seed(model, optimizer, seed, "restore of a plain take into FSDP x TP")
+    dist.barrier()
+    return out
+
+
+def qos_race(
+    cfg: TransformerConfig, root: str, device: Any = "cuda", seed: int = 0, poll_s: float = 0.0005
+) -> Dict[str, Any]:
+    """A serving restore racing a checkpoint drain in one process. The
+    trainer's state (``cfg``, AdamW, every parameter and moment from
+    ``seed``) and a snapshot of its weights alone are made; the state is
+    taken with ``async_take(qos="background")``, and as soon as its drain
+    has staged bytes beyond those staged before ``async_take`` returned
+    (for CUDA state: its first device-to-host copy of a fork),
+    ``restore(qos="foreground")`` of the weights' snapshot goes into a
+    fresh model's live tensors. Then the
+    drain is waited for, and its snapshot restored into a fresh model and
+    optimizer. Both restores must equal the live state bit for bit.
+    ``TSS_TORCH_QOS`` decides whether the restore preempts the drain.
+
+    Returns the restore's seconds and GB/s, the drain's seconds (from
+    ``async_take``'s return), whether the drain was still running when the
+    restore ended, and the drain engine's ``preemptions`` and
+    ``preempted_wait_s`` (its artifact's ``engine`` section: pause episodes
+    of the engine and of each streamed object, whose waits overlap) and
+    ``paused_wall_s``, the union of those episodes."""
+    from .engine.intervals import measure, merge_intervals
+    from .telemetry import artifact
+
+    device = torch.device(device)
+    model = init_params(cfg, seed=seed, device=device)
+    optimizer = init_optimizer_state(adamw(model.parameters()))
+    state_bytes = fill_from_seed(model, optimizer, seed)
+    weights_bytes = _state_bytes(list(model.named_parameters()))
+    serve_path, drain_path = os.path.join(root, "qos_serving"), os.path.join(root, "qos_drain")
+    Snapshot.take(serve_path, {"model": model})
+    target = init_params(cfg, seed=seed + 1, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    pending = Snapshot.async_take(drain_path, {"model": model, "optim": optimizer}, qos="background")
+    t_returned = time.monotonic()
+    captured = pending.progress()["bytes_staged"]
+    while pending.progress()["bytes_staged"] == captured and not pending.done():
+        time.sleep(poll_s)
+    t_restore = time.monotonic()
+    Snapshot(serve_path).restore({"model": target}, device=device, qos="foreground")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    restore_s = time.monotonic() - t_restore
+    drain_running = not pending.done()
+    pending.wait()
+    drain_s = time.monotonic() - t_returned
+    _check_same_state(list(target.named_parameters()), list(model.named_parameters()), "foreground restore")
+    with open(os.path.join(drain_path, ".telemetry", "rank_0.json"), "rb") as f:
+        engine = artifact.parse_artifact(f.read()).get("engine") or {}
+    model2 = init_params(cfg, seed=seed + 2, device=device)
+    optimizer2 = init_optimizer_state(adamw(model2.parameters()))
+    Snapshot(drain_path).restore({"model": model2, "optim": optimizer2}, device=device)
+    _check_same_state(
+        train_state_tensors(model2, optimizer2), train_state_tensors(model, optimizer), "restore of the drained snapshot"
+    )
+    shutil.rmtree(serve_path)
+    shutil.rmtree(drain_path)
+    return {
+        "state_bytes": state_bytes,
+        "weights_bytes": weights_bytes,
+        "async_stall_s": t_returned - t0,
+        "restore_start_after_return_s": t_restore - t_returned,
+        "restore_s": restore_s,
+        "restore_gbps": weights_bytes / restore_s / 1e9,
+        "drain_s": drain_s,
+        "drain_running_at_restore_end": drain_running,
+        "preemptions": int(engine.get("preemptions", 0)),
+        "preempted_wait_s": float(engine.get("preempted_wait_s", 0.0)),
+        "paused_wall_s": measure(merge_intervals([tuple(iv) for iv in engine.get("pause_intervals") or ()])),
+    }

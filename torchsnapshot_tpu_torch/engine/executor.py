@@ -1,4 +1,4 @@
-"""The memory-budgeted task-graph executor.
+"""The memory-budgeted, priority-classed task-graph executor.
 
 One executor drives one operation's graph (see ``graph.py``):
 
@@ -13,9 +13,20 @@ One executor drives one operation's graph (see ``graph.py``):
 - **Deferred** chains (``Node.deferred``) wait until
   :meth:`GraphExecutor.release_deferred`: an async take runs the
   non-deferred chains before it returns and the rest in the background.
+- **Priority**: the executor registers demand for its class with the
+  process-wide :class:`~.qos.QoSArbiter` while it runs, and admits nothing
+  new (successors included, so no storage bandwidth either) while a
+  strictly higher class has demand, re-checking every
+  ``TSS_TORCH_QOS_POLL_S``. Work in flight finishes; a stream node yields
+  between its chunks (``ctx.preemption_point``). An engine paused for
+  ``TSS_TORCH_QOS_MAX_PAUSE_S`` admits one round anyway. Each pause
+  episode counts in :attr:`GraphExecutor.preemptions`, its seconds in
+  :attr:`GraphExecutor.preempted_wait_s` and its interval in
+  :attr:`GraphExecutor.pause_intervals`.
 - **Abort**: the first failing node cancels every task in flight, awaits
   them, credits every outstanding reservation and re-raises, so the budget
-  is balanced on every path.
+  is balanced on every path; under ``TSS_TORCH_DEBUG_LEDGER`` the callers
+  assert it (:meth:`GraphExecutor.assert_balanced`), naming leaking sites.
 - **Telemetry**: each finished node (or a sub-step a node records itself,
   such as a streamed chunk) is one ``(t0, t1)`` interval of its stream,
   and, when a session was active at construction, the span
@@ -34,24 +45,47 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
-from .. import telemetry
+from .. import ledger, telemetry
 from ..utils import knobs
+from . import qos as qos_mod
 from .graph import Node
 from .intervals import Interval
+from .qos import Priority
 
 
 class Budget:
-    """The operation's byte budget."""
+    """The operation's byte budget: two adds on the hot path; under the
+    debug-ledger knob every debit is journaled with its owner and call
+    site, so :meth:`assert_balanced` can name a leak."""
 
-    def __init__(self, total: int) -> None:
+    def __init__(self, total: int, owner: str = "pipeline") -> None:
         self.total = total
         self.available = total
+        # The lowest availability seen: the high-water mark.
+        self.min_available = total
+        self.ledger = ledger.maybe_ledger(owner)
 
     def debit(self, n: int) -> None:
         self.available -= n
+        if self.available < self.min_available:
+            self.min_available = self.available
+        if self.ledger is not None:
+            self.ledger.record_debit(n)
 
     def credit(self, n: int) -> None:
         self.available += n
+        if self.ledger is not None:
+            self.ledger.record_credit(n)
+
+    def assert_balanced(self, context: str) -> None:
+        """Under the ledger knob, raise ``LedgerLeakError`` unless every
+        debit was credited back; a no-op otherwise."""
+        if self.ledger is not None:
+            self.ledger.assert_balanced(context)
+
+    @property
+    def high_water_bytes(self) -> int:
+        return self.total - self.min_available
 
     @property
     def balanced(self) -> bool:
@@ -59,8 +93,8 @@ class Budget:
 
 
 class NodeContext:
-    """What a running node body may do to its chain's reservation, and the
-    bytes and sub-step intervals it reports."""
+    """What a running node body may do to its chain's reservation, the
+    bytes and sub-step intervals it reports, and its preemption point."""
 
     def __init__(self, engine: "GraphExecutor", reservation: int) -> None:
         self._engine = engine
@@ -71,7 +105,8 @@ class NodeContext:
     def recost(self, nbytes: int) -> None:
         """Correct the chain's reservation to ``nbytes`` (the real size of
         the staged buffer that rides the edge to the next node)."""
-        self._budget.debit(nbytes - self.reservation)
+        self._budget.credit(self.reservation)
+        self._budget.debit(nbytes)
         self.reservation = nbytes
 
     def note_bytes(self, nbytes: int) -> None:
@@ -82,6 +117,10 @@ class NodeContext:
         """One sub-step of a self-recording node (a streamed chunk's
         staging or append), from ``t0`` to now."""
         self._engine.record_interval(kind, t0, time.monotonic(), stream, path, nbytes)
+
+    async def preemption_point(self) -> None:
+        """A chunk-granular yield: awaits while a higher class has demand."""
+        await self._engine.preemption_point()
 
 
 class GraphExecutor:
@@ -94,12 +133,19 @@ class GraphExecutor:
         kind: str = "engine",
         span_prefix: str = "scheduler",
         rank: int = 0,
+        owner: Optional[str] = None,
+        priority: Optional[Priority] = None,
+        arbiter: Optional[qos_mod.QoSArbiter] = None,
         progress: Optional[Any] = None,
         bytes_done: Optional[Callable[[], int]] = None,
     ) -> None:
-        self.budget = Budget(budget_bytes)
+        self.budget = Budget(budget_bytes, owner=owner or f"{kind}@rank{rank}")
         self.kind = kind
         self.rank = rank
+        # Read here: an async take's drain runs on a thread that never
+        # sees the planning thread's ambient class.
+        self.priority = priority if priority is not None else qos_mod.current_priority()
+        self._arbiter = arbiter if arbiter is not None else qos_mod.get_arbiter()
         self._span_prefix = span_prefix
         # Captured here: the engine's tasks and executor threads do not all
         # run in the activating context.
@@ -107,7 +153,6 @@ class GraphExecutor:
         self._progress = progress
         self._bytes_done = bytes_done or (lambda: 0)
         self.admitted = 0
-        self.budget_hwm = 0
         self._caps = caps  # pool -> max concurrent nodes (None: unbounded)
         self._task_context = task_context or contextlib.nullcontext
         self._pending: Deque[Node] = deque()
@@ -116,6 +161,12 @@ class GraphExecutor:
         self._inflight: Dict[asyncio.Task, Tuple[Node, NodeContext]] = {}
         self._busy: Dict[str, int] = {}
         self.intervals: Dict[str, List[Interval]] = {"stage": [], "io": []}
+        # Preemption: the open pause episode's start, the episodes so far,
+        # their seconds and their intervals (monotonic).
+        self._paused_since: Optional[float] = None
+        self.preemptions = 0
+        self.preempted_wait_s = 0.0
+        self.pause_intervals: List[Interval] = []
 
     def add(self, node: Node) -> None:
         (self._deferred if node.deferred else self._pending).append(node)
@@ -130,6 +181,9 @@ class GraphExecutor:
         return sum(1 for n in self._pending if n.pool in pools) + sum(
             1 for n, _ in self._inflight.values() if n.pool in pools
         )
+
+    def all_done(self) -> bool:
+        return not self._pending and not self._ready and not self._inflight
 
     def _slot_free(self, pool: str) -> bool:
         cap = self._caps.get(pool)
@@ -180,13 +234,17 @@ class GraphExecutor:
         return {
             "engine": self.kind,
             "rank": self.rank,
+            "priority": self.priority.name,
             "occupancy": self.occupancy(),
             "bytes_done": self._bytes_done(),
             "admitted": self.admitted,
             "budget_total": self.budget.total,
             "budget_available": self.budget.available,
-            "budget_hwm": self.budget_hwm,
-            "paused": False,
+            "budget_hwm": self.budget.high_water_bytes,
+            "preemptions": self.preemptions,
+            "preempted_wait_s": round(self.preempted_wait_s, 6),
+            "paused": self._paused_since is not None,
+            "demand": self._arbiter.demand_snapshot(),
         }
 
     def _spawn_watchdog(self) -> Optional[asyncio.Task]:
@@ -211,7 +269,67 @@ class GraphExecutor:
         )
         return asyncio.ensure_future(watchdog.run())
 
+    # ------------------------------------------------------------ preemption
+
+    def _pause_event(self, kind: str, **fields: Any) -> None:
+        telemetry.recorder.record_event(
+            kind, {"engine": self.kind, "rank": self.rank, "priority": self.priority.name, **fields}
+        )
+
+    def _qos_gated(self) -> bool:
+        """True while admission must pause for a higher class. An engine
+        paused for the max-pause bound admits one round and re-arms."""
+        if not self._arbiter.preempted(self.priority):
+            self._note_resumed()
+            return False
+        now = time.monotonic()
+        if self._paused_since is None:
+            if not self._ready and not self._pending:
+                return False  # nothing to admit: no pause episode
+            self._paused_since = now
+            self.preemptions += 1
+            telemetry.counter_add("engine.preemptions")
+            self._pause_event("engine.pause", demand=self._arbiter.demand_snapshot())
+            return True
+        max_pause = knobs.get_qos_max_pause_s()
+        if max_pause > 0 and now - self._paused_since >= max_pause:
+            self._note_resumed()
+            self._paused_since = now  # re-armed: this round admits
+            return False
+        return True
+
+    def _close_pause(self, t0: float) -> None:
+        t1 = time.monotonic()
+        waited = t1 - t0
+        self.pause_intervals.append((t0, t1))
+        self.preempted_wait_s += waited
+        telemetry.counter_add("engine.preempted_wait_s", waited)
+        telemetry.histogram_observe("engine.pause_s", waited)
+        self._pause_event("engine.resume", paused_s=round(waited, 6))
+
+    def _note_resumed(self) -> None:
+        if self._paused_since is not None:
+            t0, self._paused_since = self._paused_since, None
+            self._close_pause(t0)
+
+    async def preemption_point(self) -> None:
+        """A cooperative yield for node bodies (stream producers):
+        ``qos.pause_point`` under this engine's class and arbiter, counted
+        as one of its pause episodes."""
+        t0 = time.monotonic()
+        waited = await qos_mod.pause_point(
+            self.priority, self._arbiter, source={"engine": self.kind, "rank": self.rank}
+        )
+        if waited:
+            self.preemptions += 1
+            self.preempted_wait_s += waited
+            self.pause_intervals.append((t0, t0 + waited))
+
+    # ------------------------------------------------------------- admission
+
     def _admit(self) -> None:
+        if self._qos_gated():
+            return
         # Successors first: they already hold their chain's reservation.
         for _ in range(len(self._ready)):
             node, payload, reservation = self._ready.popleft()
@@ -227,17 +345,23 @@ class GraphExecutor:
                 break
             self._pending.popleft()
             self.budget.debit(node.cost_bytes)
-            self.budget_hwm = max(self.budget_hwm, self.budget.total - self.budget.available)
             self._start(node, None, node.cost_bytes)
 
     async def run(self, until: Optional[Callable[[], bool]] = None) -> None:
         """Run until the graph is drained, or until ``until()`` holds."""
         watchdog = self._spawn_watchdog()
+        self._arbiter.register(self.priority)
         try:
             while not (until is not None and until()):
                 self._admit()
                 if not self._inflight:
-                    return
+                    if self.all_done():
+                        return
+                    # Work exists but admission is paused: poll the arbiter.
+                    telemetry.recorder.sample_engine(self)
+                    telemetry.fleet.sample_engine(self)
+                    await asyncio.sleep(knobs.get_qos_poll_s())
+                    continue
                 done, _ = await asyncio.wait(
                     list(self._inflight), return_when=asyncio.FIRST_COMPLETED
                 )
@@ -257,6 +381,8 @@ class GraphExecutor:
             await self.abort()
             raise
         finally:
+            self._arbiter.unregister(self.priority)
+            self._note_resumed()
             if watchdog is not None:
                 watchdog.cancel()
                 await asyncio.gather(watchdog, return_exceptions=True)
@@ -276,3 +402,36 @@ class GraphExecutor:
         self._pending.clear()
         self._deferred = []
         self._busy = {}
+        self._note_resumed()
+
+    def assert_balanced(self, context: str) -> None:
+        self.budget.assert_balanced(context)
+
+
+async def run_graph(
+    nodes: List[Node],
+    *,
+    budget_bytes: int,
+    owner: str,
+    kind: str = "engine",
+    span_prefix: str = "engine",
+    rank: int = 0,
+    caps: Optional[Dict[str, Optional[int]]] = None,
+    priority: Priority = Priority.BACKGROUND,
+) -> GraphExecutor:
+    """Build and run one flat graph of the secondary consumers (verify,
+    scrub, gc waves): BACKGROUND class by default, its budget asserted
+    balanced at close and on abort. Returns the executor (counters,
+    intervals)."""
+    eng = GraphExecutor(
+        budget_bytes, caps or {}, kind=kind, span_prefix=span_prefix, rank=rank, owner=owner, priority=priority
+    )
+    for node in nodes:
+        eng.add(node)
+    try:
+        await eng.run()
+    except BaseException:
+        eng.assert_balanced(f"{owner} abort")
+        raise
+    eng.assert_balanced(f"{owner} close")
+    return eng

@@ -9,10 +9,19 @@ A port of ``torchsnapshot_tpu/io_preparers/sharded_array.py`` for
   copy another rank writes (the JAX package's ``replica_id != 0``). Shard
   coordinates are global ``(offsets, sizes)`` derived from the mesh, the
   placements and the rank's coordinate, with ``torch.chunk``'s uneven
-  split. Shards above ``MAX_SHARD_SIZE_BYTES`` are written as several
-  pieces cut along their largest dim; such a piece is a strided view, which
-  kernel K3 gathers on the card before its D2H copy. Empty shards carry no
-  bytes and are not written.
+  split. A DTensor over a sub-mesh (FSDP2's ``mesh["dp"]`` of a
+  ``("dp", "tp")`` mesh) is placed on that sub-mesh: where several
+  sub-meshes hold the same shard (a ``tp`` replica), the partitioner elects
+  one writer from what the ranks report, never from the mesh alone, since
+  the sub-meshes of a pipeline stage hold different parameters.
+  ``_StridedShard`` (FSDP2 over a TP-sharded dim) is supported wherever
+  each rank's local tensor is one rectangle of the global array: the
+  strided shard is undone by a later ``Shard`` of the same dim, which is
+  the JAX package's ``NamedSharding(mesh, P(("tp", "dp")))``. Shards above
+  ``MAX_SHARD_SIZE_BYTES`` are written as several pieces cut along their
+  largest dim; such a piece is a strided view, which kernel K3 gathers on
+  the card before its D2H copy. Empty shards carry no bytes and are not
+  written.
 - **Restore**: the live target's local tensor is the target shard. For
   every saved shard that overlaps it, the reader fetches exactly the rows
   the overlap needs (``shard_read_intervals``) into a pinned host buffer;
@@ -24,7 +33,9 @@ A port of ``torchsnapshot_tpu/io_preparers/sharded_array.py`` for
   budgeted read of a framed shard fetches the frames covering each piece
   of its overlap rows and cuts the piece out of their decoded bytes.
 
-``Partial`` and ``_StridedShard`` placements raise ``NotImplementedError``.
+``Partial`` raises ``NotImplementedError`` (a pending sum across ranks, not
+state), and so does a placement list that leaves a rank's local tensor in
+several disjoint blocks of a dim (a lone ``_StridedShard``).
 """
 
 from __future__ import annotations
@@ -64,40 +75,125 @@ READ_MERGE_GAP_BYTES = 0
 
 
 def _placement_kind(placement: Any) -> Tuple[str, int]:
-    """("shard", dim) or ("replicate", -1); raises for the rest."""
+    """("shard", dim), ("strided", dim) or ("replicate", -1); raises for
+    the rest. By type name, so no DTensor module is imported for it."""
     name = type(placement).__name__
     if name == "Replicate":
         return "replicate", -1
     if name == "Shard":
         return "shard", int(placement.dim)
+    if name == "_StridedShard":
+        return "strided", int(placement.dim)
+    if name == "Partial":
+        raise NotImplementedError(
+            f"DTensor placement {placement!r} is not supported: a Partial "
+            "tensor is a pending reduction across ranks, not state; reduce it "
+            "(redistribute to Shard or Replicate) before taking it"
+        )
     raise NotImplementedError(
-        f"DTensor placement {placement!r} is not supported (only Shard and Replicate)"
+        f"DTensor placement {placement!r} is not supported "
+        "(only Shard, _StridedShard and Replicate)"
     )
 
 
-def placement_offsets_sizes(
+def placement_key(placement: Any) -> Tuple[str, int, int]:
+    """(kind, dim, split factor) of a placement: what shapes a plan."""
+    kind, dim = _placement_kind(placement)
+    return kind, dim, int(placement.split_factor) if kind == "strided" else 1
+
+
+def _chunk(n: int, parts: int, i: int) -> Tuple[int, int]:
+    """[start, stop) of chunk ``i`` of ``n`` items cut in ``parts`` as
+    ``torch.chunk`` cuts them (ceil-sized, the last ones short or empty)."""
+    full = -(-n // parts)
+    start = min(full * i, n)
+    return start, min(start + full, n)
+
+
+def _take_runs(runs: List[Tuple[int, int]], start: int, stop: int) -> List[Tuple[int, int]]:
+    """Positions [start, stop) of the index sequence that ``runs`` (global
+    [begin, end) intervals, in order) spell out."""
+    out: List[Tuple[int, int]] = []
+    pos = 0
+    for b, e in runs:
+        lo, hi = max(start, pos), min(stop, pos + e - b)
+        if lo < hi:
+            out.append((b + lo - pos, b + hi - pos))
+        pos += e - b
+    return out
+
+
+def placement_index_runs(  # spmd-pure
+    global_shape: Sequence[int],
+    mesh_shape: Sequence[int],
+    placements: Sequence[Any],
+    coordinate: Sequence[int],
+) -> List[List[Tuple[int, int]]]:
+    """Per tensor dim, the global index intervals mesh ``coordinate`` holds,
+    in local order. Mesh dims apply left to right as DTensor applies them:
+    ``Shard(d)`` keeps chunk ``c`` of what dim ``d`` holds so far;
+    ``_StridedShard(d, split_factor=f)`` cuts it in ``f`` pieces and keeps
+    chunk ``c`` of each (FSDP2's shard of each TP block, recorded before the
+    TP ``Shard`` that picks the block)."""
+    runs: List[List[Tuple[int, int]]] = [[(0, int(n))] if int(n) else [] for n in global_shape]
+    for mesh_dim, placement in enumerate(placements):
+        kind, d = _placement_kind(placement)
+        if kind == "replicate":
+            continue
+        n, c = int(mesh_shape[mesh_dim]), int(coordinate[mesh_dim])
+        length = sum(e - b for b, e in runs[d])
+        if kind == "shard":
+            runs[d] = _take_runs(runs[d], *_chunk(length, n, c))
+            continue
+        kept: List[Tuple[int, int]] = []
+        factor = int(placement.split_factor)
+        for j in range(factor):
+            p0, p1 = _chunk(length, factor, j)
+            a, b = _chunk(p1 - p0, n, c)
+            kept += _take_runs(runs[d], p0 + a, p0 + b)
+        runs[d] = kept
+    merged: List[List[Tuple[int, int]]] = []
+    for dim_runs in runs:
+        out: List[Tuple[int, int]] = []
+        for b, e in dim_runs:
+            if out and out[-1][1] == b:
+                out[-1] = (out[-1][0], e)
+            else:
+                out.append((b, e))
+        merged.append(out)
+    return merged
+
+
+def placement_offsets_sizes(  # spmd-pure
     global_shape: Sequence[int],
     mesh_shape: Sequence[int],
     placements: Sequence[Any],
     coordinate: Sequence[int],
 ) -> Tuple[List[int], List[int]]:
-    """Global (offsets, sizes) of the shard at mesh ``coordinate``: each
-    ``Shard(d)`` mesh dim, in mesh-dim order, splits dim ``d`` of what the
-    previous ones left as ``torch.chunk`` does (ceil-sized chunks, the last
-    ones short or empty). An empty shard's offset is the dim's size, as
-    DTensor reports it."""
-    offsets = [0] * len(global_shape)
-    sizes = [int(s) for s in global_shape]
-    for mesh_dim, placement in enumerate(placements):
-        kind, d = _placement_kind(placement)
-        if kind != "shard":
-            continue
-        n = int(mesh_shape[mesh_dim])
-        full = -(-sizes[d] // n)
-        start = min(full * int(coordinate[mesh_dim]), sizes[d])
-        stop = min(start + full, sizes[d])
-        offsets[d] += start
-        sizes[d] = stop - start
+    """Global (offsets, sizes) of the shard at mesh ``coordinate``, as
+    DTensor's own local shape and offset give it, uneven splits included.
+    An empty shard's offset is the dim's size, as DTensor reports it.
+    Raises ``NotImplementedError`` when the shard is not one rectangle (a
+    ``_StridedShard`` that no later ``Shard`` of its dim undoes)."""
+    offsets: List[int] = []
+    sizes: List[int] = []
+    runs = placement_index_runs(global_shape, mesh_shape, placements, coordinate)
+    for d, dim_runs in enumerate(runs):
+        if not dim_runs:
+            offsets.append(int(global_shape[d]))
+            sizes.append(0)
+        elif len(dim_runs) == 1:
+            offsets.append(dim_runs[0][0])
+            sizes.append(dim_runs[0][1] - dim_runs[0][0])
+        else:
+            raise NotImplementedError(
+                f"DTensor placements {tuple(placements)} leave mesh coordinate "
+                f"{tuple(coordinate)} holding {len(dim_runs)} disjoint blocks of "
+                f"dim {d} ({dim_runs[:4]}{'...' if len(dim_runs) > 4 else ''}): the "
+                "local tensor is not one rectangle of the global array, which no "
+                "saved shard can describe (a _StridedShard needs a later Shard of "
+                "the same dim, as FSDP2 over TP gives it)"
+            )
     for d, s in enumerate(sizes):
         if s == 0:
             offsets[d] = int(global_shape[d])
@@ -140,13 +236,10 @@ class DTensorLeaf:
 
 
 def dtensor_leaf(dt: Any) -> DTensorLeaf:
-    """Describe DTensor ``dt``. Offsets come from its placements through
-    ``torch.distributed.tensor._utils.compute_local_shape_and_global_offset``;
-    its local shape must agree with them."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-    mesh = dt.device_mesh
-    placements = tuple(dt.placements)
+    """Describe DTensor ``dt`` over its own mesh. Offsets come from its
+    placements (:func:`placement_offsets_sizes`); its local shape must
+    agree."""
+    mesh, placements = dt.device_mesh, tuple(dt.placements)
     for p in placements:
         _placement_kind(p)
     global_shape = tuple(int(s) for s in dt.shape)
@@ -155,9 +248,9 @@ def dtensor_leaf(dt: Any) -> DTensorLeaf:
     if coordinate is None:
         offsets, sizes = [0] * len(global_shape), [0] * len(global_shape)
     else:
-        shape, offs = compute_local_shape_and_global_offset(global_shape, mesh, placements)
-        sizes = [int(s) for s in shape]
-        offsets = [int(o) for o in offs]
+        offsets, sizes = placement_offsets_sizes(
+            global_shape, tuple(int(s) for s in mesh.shape), placements, tuple(int(c) for c in coordinate)
+        )
         if list(local.shape) != sizes:
             raise ValueError(
                 f"DTensor local shape {tuple(local.shape)} does not match its "
@@ -697,16 +790,17 @@ def is_fully_replicated_sharding(placements: Sequence[Any]) -> bool:
     return all(_placement_kind(p)[0] == "replicate" for p in placements)
 
 
-def assemble_dtensor(leaf: DTensorLeaf, device_mesh: Any) -> Any:
-    """A DTensor over ``device_mesh`` whose local tensor is ``leaf.local``
-    (filled by the restore), for a target that could not be filled in
-    place: ``DTensor.from_local(..., run_check=False)``, no collective."""
+def assemble_dtensor(leaf: DTensorLeaf, live: Any) -> Any:
+    """A DTensor on live DTensor ``live``'s mesh and placements whose local
+    tensor is ``leaf.local`` (filled by the restore), for a target that
+    could not be filled in place: ``DTensor.from_local(...,
+    run_check=False)``, no collective."""
     from torch.distributed.tensor import DTensor
 
     return DTensor.from_local(
         leaf.local,
-        device_mesh,
-        list(leaf.placements),
+        live.device_mesh,
+        list(live.placements),
         run_check=False,
         shape=torch.Size(leaf.global_shape),
         stride=contiguous_stride(leaf.global_shape),

@@ -267,3 +267,30 @@ def shard_module(module: nn.Module, mesh: Any, spec) -> nn.Module:
 def shard_params(module: Transformer, mesh: Any, fsdp: bool = True) -> Transformer:
     """Turn ``module``'s parameters into DTensors under the TP/FSDP rule."""
     return shard_module(module, mesh, lambda n, s, m: param_spec(n, s, m, fsdp=fsdp))
+
+
+def parallelize_fsdp_tp(module: Transformer, mesh: Any) -> Transformer:
+    """FSDP2 over TP, as a PyTorch LLM trainer lays its model out on a
+    ``("dp", "tp")`` mesh: ``parallelize_module`` over ``mesh["tp"]`` with
+    ``ColwiseParallel`` on ``up`` and ``lm_head`` and ``RowwiseParallel`` on
+    ``down``, then ``fully_shard`` over ``mesh["dp"]`` on each block and on
+    the root. The column-parallel weights come out
+    ``(_StridedShard(0, sf=tp), Shard(0))`` over the whole mesh (FSDP's
+    rows of each TP block), ``down`` ``(Shard(0), Shard(1))``; every other
+    parameter (``DenseGeneral``, embeddings, norms) takes ``fully_shard``
+    alone, ``Shard(0)`` over ``mesh["dp"]``. Every rank passes the same
+    full weights and keeps its own block of them (``src_data_rank=None``):
+    no collective runs, so the layout builds on gloo with CUDA tensors,
+    which has no scatter."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+    plan: dict = {"lm_head": ColwiseParallel()}
+    for i in range(module.cfg.n_layers):
+        plan[f"block_{i}.up"] = ColwiseParallel()
+        plan[f"block_{i}.down"] = RowwiseParallel()
+    parallelize_module(module, mesh["tp"], plan, src_data_rank=None)
+    for i in range(module.cfg.n_layers):
+        fully_shard(getattr(module, f"block_{i}"), mesh=mesh["dp"])
+    fully_shard(module, mesh=mesh["dp"])
+    return module

@@ -25,6 +25,14 @@ a whole object against its record, a range against the v2 chunks it
 covers. A mismatch quarantines any read-cache entry of the path and
 re-fetches once; a second one raises :class:`ReadVerificationError`.
 
+QoS: every pipeline carries the ambient class (``engine.Priority``, set
+by :func:`~.engine.qos.priority_scope`; an async take's drain keeps the
+class it was planned under): a FOREGROUND restore
+pauses a BACKGROUND drain's next admission (and a streamed write's next
+chunk) through the process-wide arbiter. Under ``TSS_TORCH_DEBUG_LEDGER``
+each pipeline asserts its budget balanced at close and on every abort
+path (``ledger.LedgerLeakError`` names a leak's site).
+
 Telemetry: the engine records one interval per node (and per streamed
 chunk), which is both the drain statistics and, with a session active,
 the ``scheduler.stage`` / ``scheduler.io`` / ``scheduler.stream_chunk`` /
@@ -167,6 +175,7 @@ class _WritePipeline:
             kind="write",
             span_prefix="scheduler",
             rank=rank,
+            owner=f"write@rank{rank}",
             progress=self.progress,
             bytes_done=lambda: self.bytes_staged,
         )
@@ -373,6 +382,9 @@ class _WritePipeline:
             agen = req.buffer_stager.stage_chunks(self.pools.staging_executor())
             try:
                 while True:
+                    # A higher class arriving mid-stream pauses the next
+                    # chunk, not the stream.
+                    await ctx.preemption_point()
                     t0 = time.monotonic()
                     try:
                         buf = await agen.__anext__()
@@ -435,6 +447,9 @@ class _WritePipeline:
             await self._engine.run(until=lambda: self._engine.unfinished_in(_STAGE_POOLS) == 0)
         except BaseException:
             self.pools.shutdown()
+            # The engine swept its reservations: a ledger leak raises here,
+            # chained onto the failure.
+            self._engine.assert_balanced("write pipeline abort")
             raise
         finally:
             self.windows.append((t0, time.monotonic()))
@@ -456,9 +471,14 @@ class _WritePipeline:
                 # at this path would make verify() report corruption.
                 with contextlib.suppress(FileNotFoundError):
                     await self.storage.delete(sidecar)
+        except BaseException:
+            self._engine.assert_balanced("write pipeline abort")
+            raise
         finally:
             self.pools.shutdown()
             self.windows.append((t0, time.monotonic()))
+        # Every debit (admissions, re-costs) credited back at close.
+        self._engine.assert_balanced("write pipeline close")
         drain_window = self.windows[-1]
         stage, io = self._engine.intervals["stage"], self._engine.intervals["io"]
         self.drain_stats = stream_stats([drain_window], stage, io)
@@ -474,7 +494,7 @@ class _WritePipeline:
         self.drain_stats["bytes_deduped"] = self.bytes_deduped
         self.drain_stats["objects_linked"] = self.objects_linked
         self._publish_progress()
-        telemetry.gauge_max("scheduler.budget_hwm_bytes", self._engine.budget_hwm)
+        telemetry.gauge_max("scheduler.budget_hwm_bytes", self._engine.budget.high_water_bytes)
         telemetry.counter_add("scheduler.bytes_staged", self.bytes_staged)
         if self.bytes_deduped:
             telemetry.counter_add("scheduler.bytes_deduped", self.bytes_deduped)
@@ -538,6 +558,12 @@ class PendingIOWork:
             "stage_intervals": merge_intervals(p._engine.intervals["stage"]),
             "io_intervals": merge_intervals(p._engine.intervals["io"]),
             "stage_substreams": {k: merge_intervals(v) for k, v in p.times.intervals().items()},
+            # QoS pause episodes, so preemption waves outlive the live metrics.
+            "engine": {
+                "preemptions": p._engine.preemptions,
+                "preempted_wait_s": round(p._engine.preempted_wait_s, 6),
+                "pause_intervals": list(p._engine.pause_intervals),
+            },
         }
 
 
@@ -658,6 +684,7 @@ async def execute_read_reqs(
         caps={"io": MAX_CONCURRENT_IO, "consume": POOL_THREADS},
         kind="read",
         span_prefix="scheduler",
+        owner="read",
         bytes_done=lambda: totals["bytes_read"],
     )
 
@@ -694,9 +721,14 @@ async def execute_read_reqs(
                 ),
             )
         )
-    await engine.run()
+    try:
+        await engine.run()
+    except BaseException:
+        engine.assert_balanced("read pipeline abort")
+        raise
+    engine.assert_balanced("read pipeline close")
     telemetry.counter_add("scheduler.bytes_read", totals["bytes_read"])
-    telemetry.gauge_max("scheduler.budget_hwm_bytes", engine.budget_hwm)
+    telemetry.gauge_max("scheduler.budget_hwm_bytes", engine.budget.high_water_bytes)
     return {
         "bytes_read": float(totals["bytes_read"]),
         "wall_s": time.monotonic() - t0,

@@ -52,6 +52,12 @@ diagnostics ``LAST_TAKE_PHASES``, ``LAST_TAKE_CACHE``,
 ``LAST_SYNC_DRAIN_STATS`` and ``LAST_RESTORE_STATS`` are views of what
 the session records: the phase spans and the engine's intervals.
 
+QoS (``engine/qos.py``): ``take``, ``async_take`` and ``restore`` take a
+class (``qos="foreground" | "normal" | "background"``); an async take's
+drain keeps the class it was planned under, and ``verify``, ``scrub`` and
+``gc`` run BACKGROUND engines, which pause their next admission while an
+operation of a higher class runs in this process.
+
 Error contracts: restoring a path that was never taken raises
 ``FileNotFoundError``; a missing path raises ``KeyError``; an app-state
 value without ``state_dict``/``load_state_dict`` raises ``TypeError``.
@@ -123,9 +129,11 @@ from .partitioner import (
     CodecDivergenceError,
     consolidate_replicated_entries,
     partition_write_reqs_with_assignment,
+    shard_coverage_problem,
 )
 from .rng_state import RNGState
-from .engine import GraphExecutor, Node
+from .engine import Node, run_graph
+from .engine import qos as engine_qos
 from .scheduler import (
     CHECKSUM_FILE_PREFIX,
     MAX_CONCURRENT_IO,
@@ -256,6 +264,22 @@ def _add_span(name: str, cat: str, t0: float, **attrs: Any) -> None:
     tm = telemetry.get_active()
     if tm is not None:
         tm.add_span(name, cat, t0, time.monotonic() - t0, attrs)
+
+
+@contextlib.contextmanager
+def _qos_scope(qos: Any):
+    """Bind an operation's QoS class: the ambient priority scope (every
+    pipeline and swarm or broadcast fetch built inside inherits it) and a
+    whole-operation demand registration, so a FOREGROUND restore keeps
+    lower-class engines paused across its planning and H2D gaps too.
+    ``qos``: ``"foreground" | "normal" | "background"`` or an
+    ``engine.Priority``; None leaves the ambient class."""
+    priority = engine_qos.parse_priority(qos)
+    if priority is None:
+        yield
+        return
+    with engine_qos.priority_scope(priority), engine_qos.demand_scope(priority):
+        yield
 
 
 @contextlib.contextmanager
@@ -427,6 +451,7 @@ class Snapshot:
         job: Optional[str] = None,
         step: Optional[int] = None,
         max_chain_len: Optional[int] = None,
+        qos: Any = None,
         _telemetry: Optional[telemetry.Telemetry] = None,
     ) -> "Snapshot":
         """Write ``app_state`` to ``path`` and return when it is committed.
@@ -449,59 +474,66 @@ class Snapshot:
         Rank 0 selects the base in the preflight round, so every rank uses
         the same one.
 
+        ``qos``: the take's QoS class (``"foreground"``, ``"normal"``,
+        ``"background"``; default the ambient class, NORMAL outside any
+        scope). A ``"background"`` take's pipeline yields its next
+        admission (budget, pool slots, stream chunks) to any operation of a
+        higher class in this process.
+
         ``_telemetry``: a :class:`telemetry.Telemetry` session to record the
         take's spans and metrics into; the session is also published as
         ``Snapshot.last_telemetry``."""
-        _validate_app_state(app_state)
-        coord = get_coordinator(coordinator)
-        rank = coord.get_rank()
-        base = cls._maybe_auto_base(base, job, max_chain_len)
-        tm, tm_prev = _begin_telemetry(_telemetry)
-        telemetry.fleet.note_op("take")
-        try:
-            plan = cls._plan_take(path, app_state, coord, replicated or [], base)
-            path = plan.path
-            barrier = cls._barrier(coord, "commit", path)
-            event_loop = asyncio.new_event_loop()
-            storage = url_to_storage_plugin(path)
-            phase = ["plan"]
+        with _qos_scope(qos):
+            _validate_app_state(app_state)
+            coord = get_coordinator(coordinator)
+            rank = coord.get_rank()
+            base = cls._maybe_auto_base(base, job, max_chain_len)
+            tm, tm_prev = _begin_telemetry(_telemetry)
+            telemetry.fleet.note_op("take")
             try:
-                pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
-                pending.sync_complete(event_loop)
-                LAST_SYNC_DRAIN_STATS.clear()
-                LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
-                _persist_op_artifact(
-                    storage, event_loop, rank, coord.get_world_size(), "take", tm,
-                    plan.phase_tracker.spans, pending.telemetry_io_summary(),
-                )
-                phase[0] = "commit"
-                catalog_info = (job, step, plan.base, _chain_len_for(plan)) if job is not None else None
-                with telemetry.span("take.commit", cat="take"), _barrier_stall_guard(rank):
-                    _commit(barrier, rank, metadata, storage, event_loop, path, catalog_info)
-                if barrier is not None:
-                    coord.note_external_barrier()
-                telemetry.fleet.gc_beacons()
-                if catalog_info is not None:
-                    _note_chain_commit(path, catalog_info)
-            except BaseException as e:
-                if barrier is None:
-                    telemetry.counter_add("snapshot.abort")
-                    raise
-                aborted = _abort_exception(path, barrier, rank, phase[0], e)
-                if aborted is e:
-                    raise
-                raise aborted from e
+                plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+                path = plan.path
+                barrier = cls._barrier(coord, "commit", path)
+                event_loop = asyncio.new_event_loop()
+                storage = url_to_storage_plugin(path)
+                phase = ["plan"]
+                try:
+                    pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
+                    pending.sync_complete(event_loop)
+                    LAST_SYNC_DRAIN_STATS.clear()
+                    LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
+                    _persist_op_artifact(
+                        storage, event_loop, rank, coord.get_world_size(), "take", tm,
+                        plan.phase_tracker.spans, pending.telemetry_io_summary(),
+                    )
+                    phase[0] = "commit"
+                    catalog_info = (job, step, plan.base, _chain_len_for(plan)) if job is not None else None
+                    with telemetry.span("take.commit", cat="take"), _barrier_stall_guard(rank):
+                        _commit(barrier, rank, metadata, storage, event_loop, path, catalog_info)
+                    if barrier is not None:
+                        coord.note_external_barrier()
+                    telemetry.fleet.gc_beacons()
+                    if catalog_info is not None:
+                        _note_chain_commit(path, catalog_info)
+                except BaseException as e:
+                    if barrier is None:
+                        telemetry.counter_add("snapshot.abort")
+                        raise
+                    aborted = _abort_exception(path, barrier, rank, phase[0], e)
+                    if aborted is e:
+                        raise
+                    raise aborted from e
+                finally:
+                    prepare_cache.release(plan.prepared_entry)
+                    storage.sync_close(event_loop)
+                    event_loop.close()
             finally:
-                prepare_cache.release(plan.prepared_entry)
-                storage.sync_close(event_loop)
-                event_loop.close()
-        finally:
-            # The op's last beacon is an idle one.
-            telemetry.fleet.note_op(None)
-            _finish_telemetry(tm, tm_prev, rank)
-        snapshot = cls(path, coordinator)
-        snapshot._metadata = metadata
-        return snapshot
+                # The op's last beacon is an idle one.
+                telemetry.fleet.note_op(None)
+                _finish_telemetry(tm, tm_prev, rank)
+            snapshot = cls(path, coordinator)
+            snapshot._metadata = metadata
+            return snapshot
 
     @classmethod
     def async_take(
@@ -514,6 +546,7 @@ class Snapshot:
         job: Optional[str] = None,
         step: Optional[int] = None,
         max_chain_len: Optional[int] = None,
+        qos: Any = None,
         _telemetry: Optional[telemetry.Telemetry] = None,
     ) -> "PendingSnapshot":
         """Return once the state is captured: CUDA tensors and the local
@@ -525,48 +558,55 @@ class Snapshot:
         :meth:`take`; the background commit appends the record after the
         metadata and before the commit barrier releases.
 
+        ``qos``: as in :meth:`take`. The write pipeline keeps the class it
+        was planned under, so ``qos="background"`` classes the background
+        drain itself: an operation of a higher class (a
+        ``qos="foreground"`` restore) arriving mid-drain takes the drain's
+        next admission.
+
         ``_telemetry``: as in :meth:`take`; the session stays active through
         the background drain and closes (the trace written) at the commit,
         so the drain's spans land in the same trace as the stall's
         phases."""
-        _validate_app_state(app_state)
-        coord = get_coordinator(coordinator)
-        rank = coord.get_rank()
-        base = cls._maybe_auto_base(base, job, max_chain_len)
-        tm, tm_prev = _begin_telemetry(_telemetry)
-        telemetry.fleet.note_op("async_take")
-        try:
-            plan = cls._plan_take(path, app_state, coord, replicated or [], base)
-            path = plan.path
-            barrier = cls._barrier(coord, "async_commit", path)
-            event_loop = asyncio.new_event_loop()
-            storage = url_to_storage_plugin(path)
-            phase = ["plan"]
+        with _qos_scope(qos):
+            _validate_app_state(app_state)
+            coord = get_coordinator(coordinator)
+            rank = coord.get_rank()
+            base = cls._maybe_auto_base(base, job, max_chain_len)
+            tm, tm_prev = _begin_telemetry(_telemetry)
+            telemetry.fleet.note_op("async_take")
             try:
-                pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
-            except BaseException as e:
-                prepare_cache.release(plan.prepared_entry)
-                storage.sync_close(event_loop)
-                event_loop.close()
-                if barrier is None:
-                    telemetry.counter_add("snapshot.abort")
-                    raise
-                # Peers may already be draining: fail their commit too.
-                aborted = _abort_exception(path, barrier, rank, phase[0], e)
-                if aborted is e:
-                    raise
-                raise aborted from e
-        except BaseException:
-            telemetry.fleet.note_op(None)
-            _finish_telemetry(tm, tm_prev, rank)
-            raise
-        return PendingSnapshot(
-            path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry,
-            catalog_info=(job, step, plan.base, _chain_len_for(plan)) if job is not None else None,
-            tm=tm,
-            tm_prev=tm_prev,
-            phase_spans=plan.phase_tracker.spans,
-        )
+                plan = cls._plan_take(path, app_state, coord, replicated or [], base)
+                path = plan.path
+                barrier = cls._barrier(coord, "async_commit", path)
+                event_loop = asyncio.new_event_loop()
+                storage = url_to_storage_plugin(path)
+                phase = ["plan"]
+                try:
+                    pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
+                except BaseException as e:
+                    prepare_cache.release(plan.prepared_entry)
+                    storage.sync_close(event_loop)
+                    event_loop.close()
+                    if barrier is None:
+                        telemetry.counter_add("snapshot.abort")
+                        raise
+                    # Peers may already be draining: fail their commit too.
+                    aborted = _abort_exception(path, barrier, rank, phase[0], e)
+                    if aborted is e:
+                        raise
+                    raise aborted from e
+            except BaseException:
+                telemetry.fleet.note_op(None)
+                _finish_telemetry(tm, tm_prev, rank)
+                raise
+            return PendingSnapshot(
+                path, pending, metadata, storage, event_loop, coord, barrier, plan.prepared_entry,
+                catalog_info=(job, step, plan.base, _chain_len_for(plan)) if job is not None else None,
+                tm=tm,
+                tm_prev=tm_prev,
+                phase_spans=plan.phase_tracker.spans,
+            )
 
     @classmethod
     def _maybe_auto_base(
@@ -918,6 +958,7 @@ class Snapshot:
         _telemetry: Optional[telemetry.Telemetry] = None,
         job: Optional[str] = None,
         step: Optional[int] = None,
+        qos: Any = None,
     ) -> None:
         """Load every stateful of ``app_state`` from this snapshot, in place
         into live tensors where dtype and shape match. A live DTensor's
@@ -942,14 +983,21 @@ class Snapshot:
         ``.telemetry/restore_rank_<k>.json``. ``job``/``step``: each rank
         appends a rollout record (wall time, origin/peer/cache bytes) under
         the bucket's ``.catalog/rollouts/``, fail-open; ``step`` defaults
-        to the trailing digits of the snapshot's name."""
+        to the trailing digits of the snapshot's name.
+
+        ``qos``: the restore's QoS class. ``qos="foreground"`` (a serving
+        replica's restart) registers FOREGROUND demand for the whole
+        restore, so every lower-class engine in this process (an async
+        take's background drain, scrub, gc, a cache populate, a background
+        swarm fetch) pauses its next admission until the restore ends."""
         _validate_app_state(app_state)
         coord = get_coordinator(coordinator or self._coordinator)
         rank = coord.get_rank()
         tm, tm_prev = _begin_telemetry(_telemetry)
         telemetry.fleet.note_op("restore")
         try:
-            self._restore_impl(app_state, device, coord, include, tm, job, step)
+            with _qos_scope(qos):
+                self._restore_impl(app_state, device, coord, include, tm, job, step)
         finally:
             telemetry.fleet.note_op(None)
             _finish_telemetry(tm, tm_prev, rank)
@@ -1296,22 +1344,24 @@ class Snapshot:
                 if want is not None and got != want:
                     problems[path] = f"crc mismatch (recorded {want}, found {got})"
 
-            # One engine.verify node per object, costed at its recorded size.
+            # One BACKGROUND engine.verify node per object, costed at its
+            # recorded size.
             budget = knobs.get_memory_budget_bytes()
-            engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO}, kind="verify", span_prefix="engine")
-            for path, rec in sorted(expected.items()):
-                size = hashing.record_size(rec)
-                engine.add(
-                    Node(
-                        "verify",
-                        lambda ctx, _p, path=path, rec=rec: check(path, rec),
-                        cost_bytes=min(size if size is not None else budget // 8, budget),
-                        pool="io",
-                        stream="io",
-                        path=path,
-                    )
+            nodes = [
+                Node(
+                    "verify",
+                    lambda ctx, _p, path=path, rec=rec: check(path, rec),
+                    cost_bytes=min(size if size is not None else budget // 8, budget),
+                    pool="io",
+                    stream="io",
+                    path=path,
                 )
-            event_loop.run_until_complete(engine.run())
+                for path, rec in sorted(expected.items())
+                for size in [hashing.record_size(rec)]
+            ]
+            event_loop.run_until_complete(
+                run_graph(nodes, budget_bytes=budget, owner="verify", kind="verify", caps={"io": MAX_CONCURRENT_IO})
+            )
             return problems
         finally:
             storage.sync_close(event_loop)
@@ -1404,7 +1454,6 @@ class Snapshot:
                     clean_by_content.setdefault((size_want, key), []).append(path)
 
         budget = knobs.get_memory_budget_bytes()
-        engine = GraphExecutor(budget, caps={"io": MAX_CONCURRENT_IO}, kind="scrub", span_prefix="engine")
         hash_pool = ThreadPoolExecutor(scheduler.POOL_THREADS, thread_name_prefix="tss-scrub")
 
         async def scan(path: str, want: Any) -> None:
@@ -1420,21 +1469,25 @@ class Snapshot:
             data = memoryview(read_io.buf).cast("B")
             await asyncio.get_running_loop().run_in_executor(hash_pool, check, path, want, data)
 
-        for path in locations:
-            want = digest_of(path)
-            size = hashing.record_size(want)
-            engine.add(
-                Node(
-                    "verify",
-                    lambda ctx, _p, path=path, want=want: scan(path, want),
-                    cost_bytes=min(size if size is not None else budget // 8, budget),
-                    pool="io",
-                    stream="io",
-                    path=path,
-                )
+        nodes = [
+            Node(
+                "verify",
+                lambda ctx, _p, path=path, want=want: scan(path, want),
+                cost_bytes=min(size if size is not None else budget // 8, budget),
+                pool="io",
+                stream="io",
+                path=path,
             )
+            for path in locations
+            for want in [digest_of(path)]
+            for size in [hashing.record_size(want)]
+        ]
         try:
-            event_loop.run_until_complete(engine.run())
+            # BACKGROUND: the sweep yields its next read to any take or
+            # restore of a higher class in this process.
+            event_loop.run_until_complete(
+                run_graph(nodes, budget_bytes=budget, owner="scrub", kind="scrub", caps={"io": MAX_CONCURRENT_IO})
+            )
         finally:
             hash_pool.shutdown()
         event_loop.run_until_complete(
@@ -1703,12 +1756,13 @@ class Snapshot:
                             pass
                         done[0] += 1
 
-                    engine = GraphExecutor(0, caps={"io": MAX_CONCURRENT_IO}, kind="gc", span_prefix="engine")
-                    for p in sorted(set(paths)):
-                        engine.add(
-                            Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", stream="io", path=p)
-                        )
-                    await engine.run()
+                    # A BACKGROUND engine: a retention sweep beside a
+                    # serving restore yields its next deletions to it.
+                    nodes = [
+                        Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", stream="io", path=p)
+                        for p in sorted(set(paths))
+                    ]
+                    await run_graph(nodes, budget_bytes=0, owner="gc", kind="gc", caps={"io": MAX_CONCURRENT_IO})
                     return done[0]
 
                 # Metadata first (each condemned snapshot stops being
@@ -1929,15 +1983,25 @@ def _gather_manifest(
     every rank's entry dicts (a plan-cache baseline). Replicated entries
     that slab batching relocated on their writer are made consistent."""
     if coord.get_world_size() == 1:
-        return {f"0/{p}": e for p, e in manifest.items()}, {}, None
+        global_manifest: Manifest = {f"0/{p}": e for p, e in manifest.items()}
+        _check_shard_coverage(global_manifest)
+        return global_manifest, {}, None
     local = {p: entry_to_dict(e) for p, e in manifest.items()}
     gathered = coord.all_gather_object(local)
-    global_manifest: Manifest = {}
+    global_manifest = {}
     for r, m in enumerate(gathered):
         for p, d in m.items():
             global_manifest[f"{r}/{p}"] = entry_from_dict(d)
     consolidate_replicated_entries(global_manifest)
+    # Every rank holds the same global manifest, so every rank raises.
+    _check_shard_coverage(global_manifest)
     return global_manifest, local, gathered
+
+
+def _check_shard_coverage(global_manifest: Manifest) -> None:
+    problem = shard_coverage_problem(global_manifest)
+    if problem is not None:
+        raise RuntimeError(f"sharded entry does not tile its shape: {problem}")
 
 
 def _read_checksum_sidecars(
@@ -2012,21 +2076,20 @@ def _framed_locations(manifest: Manifest) -> Set[str]:
 async def _scrub_ftabs(
     storage: StoragePlugin, framed: Set[str], sizes: Dict[str, int], record: Callable[..., None]
 ) -> None:
-    """Each table must parse and its frames sum to its payload's length."""
-    sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+    """Each table must parse and its frames sum to its payload's length:
+    one node per table on a BACKGROUND engine."""
 
     async def check_one(loc: str) -> None:
         ftab_path = loc + FRAME_TABLE_SUFFIX
-        async with sem:
-            read_io = ReadIO(path=ftab_path)
-            try:
-                await storage.read(read_io)
-            except FileNotFoundError:
-                record(ftab_path, "missing", f"frame table of {loc}")
-                return
-            except Exception as e:  # noqa: BLE001 - reported
-                record(ftab_path, "unreadable", repr(e))
-                return
+        read_io = ReadIO(path=ftab_path)
+        try:
+            await storage.read(read_io)
+        except FileNotFoundError:
+            record(ftab_path, "missing", f"frame table of {loc}")
+            return
+        except Exception as e:  # noqa: BLE001 - reported
+            record(ftab_path, "unreadable", repr(e))
+            return
         try:
             parsed = json.loads(bytes(read_io.buf).decode())
             frame_sizes = [int(x) for x in parsed["sizes"]]
@@ -2045,7 +2108,11 @@ async def _scrub_ftabs(
         else:
             record(ftab_path, "ok")
 
-    await asyncio.gather(*(check_one(loc) for loc in sorted(framed)))
+    nodes = [
+        Node("ftab", lambda ctx, _p, loc=loc: check_one(loc), pool="io", stream="io", path=loc + FRAME_TABLE_SUFFIX)
+        for loc in sorted(framed)
+    ]
+    await run_graph(nodes, budget_bytes=0, owner="scrub-ftab", kind="scrub", caps={"io": MAX_CONCURRENT_IO})
 
 
 async def _scrub_repair(
@@ -2061,12 +2128,13 @@ async def _scrub_repair(
     A crc-only record cannot prove a content match: never repaired.
     Returns (repaired, quarantined)."""
     cache = find_read_cache(storage)
-    repaired = quarantined = 0
     targets = [
         p for p, e in entries.items()
         if e["status"] in ("corrupt", "missing") and digest_of(p) is not None
     ]
-    for path in sorted(targets):
+    counts = {"repaired": 0, "quarantined": 0}
+
+    async def repair_one(path: str) -> None:
         status = entries[path]["status"]
         rec = digest_of(path)
         size_want = hashing.record_size(rec)
@@ -2107,15 +2175,15 @@ async def _scrub_repair(
                 continue
             prior = entries[path]["detail"] or status
             entries[path] = {"status": "repaired", "detail": f"{how} (was: {prior})"}
-            repaired += 1
+            counts["repaired"] += 1
             healed = True
             break
         if healed:
             if cache is not None:
                 cache.quarantine_path(path)
-            continue
+            return
         if status != "corrupt":
-            continue  # missing, and no copy: nothing to move aside
+            return  # missing, and no copy: nothing to move aside
         try:
             read_io = ReadIO(path=path)
             await storage.read(read_io)
@@ -2123,15 +2191,19 @@ async def _scrub_repair(
             await storage.delete(path)
         except Exception:  # noqa: BLE001 - reported, the scrub goes on
             logger.warning("could not quarantine corrupt object %s", path, exc_info=True)
-            continue
+            return
         if cache is not None:
             cache.quarantine_path(path)
         entries[path] = {
             "status": "quarantined",
             "detail": f"moved to {path}.quarantined ({entries[path]['detail']})",
         }
-        quarantined += 1
-    return repaired, quarantined
+        counts["quarantined"] += 1
+
+    # One node at a time, in path order, on a BACKGROUND engine.
+    nodes = [Node("repair", lambda ctx, _p, path=path: repair_one(path), pool="io", path=path) for path in sorted(targets)]
+    await run_graph(nodes, budget_bytes=0, owner="scrub-repair", kind="scrub", caps={"io": 1})
+    return counts["repaired"], counts["quarantined"]
 
 
 def _manifest_storage_locations(manifest: Manifest) -> Set[str]:
@@ -2394,7 +2466,7 @@ def _prepare_sharded_restore(
             leaf = dataclasses.replace(
                 leaf, local=torch.empty(leaf.local.shape, dtype=dtype, device=leaf.local.device)
             )
-            loaded[logical_path] = assemble_dtensor(leaf, live.device_mesh)
+            loaded[logical_path] = assemble_dtensor(leaf, live)
         targets = list(alloc_target_shards(leaf).values())
     else:
         if (

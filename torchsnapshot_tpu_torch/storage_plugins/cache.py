@@ -52,6 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 from .. import hashing, telemetry
+from ..engine import qos
 from ..io_types import ReadIO, StoragePlugin, StorageWriteStream, WriteIO
 from ..utils import knobs
 
@@ -508,6 +509,9 @@ class CachedStoragePlugin(StoragePlugin):
         entry, expect = self._entry_for(path)
         if expect is None:
             return
+        # A populate is deferrable follow-on work (the bytes are safe in the
+        # caller's RAM): it yields the disk write to a higher class first.
+        await qos.pause_point()
         try:
             await self._populate(path, self._write_entry_range, entry, expect, begin, end, bytes(data))
             telemetry.counter_add("cache.range_populates")
@@ -518,6 +522,7 @@ class CachedStoragePlugin(StoragePlugin):
         """Populate ``path``'s entry from bytes the caller holds and has
         verified; fail-open."""
         entry, _ = self._entry_for(path)
+        await qos.pause_point()
         try:
             await self._populate(path, self._write_entry, entry, bytes(data))
         except Exception:  # noqa: BLE001 - the cache never fails a restore

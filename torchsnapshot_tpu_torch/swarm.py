@@ -53,6 +53,7 @@ from math import prod
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import hashing, telemetry
+from .engine import qos as engine_qos
 from .io_preparer import is_dtensor
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
@@ -239,11 +240,15 @@ def plan_reshard_need(  # spmd-pure
     reads (``shard_read_intervals`` with no budget and the chunk grain,
     the plan of their own reads) touch it; from the DTensor's placements
     and mesh alone, so the same on every rank. None where it cannot be
-    derived (a rank outside the world, a chunk nobody reads): every rank
+    derived (a mesh that does not span the world, such as one ``tp``
+    group's ``mesh["dp"]``, whose plan each group would make over its own
+    ranks; a rank outside the world; a chunk nobody reads): every rank
     then reads directly."""
     from .io_preparers.sharded_array import process_shard_map, shard_read_intervals
 
     mesh_shape, mesh_ranks = _mesh_layout(live)
+    if sorted(mesh_ranks) != list(range(world)):
+        return None
     pmap = process_shard_map(entry.shape, mesh_shape, list(live.placements), mesh_ranks)
     if len(pmap) < 2 or any(p < 0 or p >= world for p in pmap):
         return None
@@ -356,6 +361,9 @@ class _SwarmSession:
         and re-fetch on mismatch, then :class:`ReadVerificationError`."""
         loop = asyncio.get_running_loop()
         extent = plan.extents[k]
+        # An origin fetch is the swarm's unit of storage bandwidth: a
+        # strictly higher class in this process takes the next one.
+        await engine_qos.pause_point()
 
         async def fetch_once() -> bytes:
             read_io = await fetch_read_io(self.storage, plan.path, extent)

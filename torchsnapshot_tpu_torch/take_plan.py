@@ -53,10 +53,10 @@ import numpy as np
 import torch
 
 from .io_preparer import classify
-from .io_preparers.sharded_array import DTensorLeaf, _placement_kind
+from .io_preparers.sharded_array import DTensorLeaf, placement_key
 from .manifest import Manifest, entry_from_dict, entry_to_dict
 from .parallel.coordinator import Coordinator
-from .partitioner import consolidate_replicated_entries
+from .partitioner import consolidate_replicated_entries, shard_coverage_problem
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -89,7 +89,7 @@ def _leaf_descriptor(value: Any, world_size: int) -> Tuple:
             t.device.type,
             t.device.index,
             tuple(value.mesh_shape),
-            tuple(_placement_kind(p) for p in value.placements),
+            tuple(placement_key(p) for p in value.placements),
             value.coordinate,
             tuple(value.offsets),
             tuple(value.sizes),
@@ -303,11 +303,15 @@ def gather_manifest_delta(
                 for p in dels:
                     merged.pop(p, None)
                 merged_all.append(merged)
-            cached.gathered_entry_dicts = merged_all
             global_manifest = {
                 f"{r}/{p}": entry_from_dict(d) for r, m in enumerate(merged_all) for p, d in m.items()
             }
             consolidate_replicated_entries(global_manifest)
+            problem = shard_coverage_problem(global_manifest)
+            if problem is not None:
+                outcome = (0, f"sharded entry does not tile its shape: {problem}")
+            else:
+                cached.gathered_entry_dicts = merged_all
     outcome = coord.broadcast_object(outcome, src=0)
     if outcome is None:
         cached.local_entry_dicts = local

@@ -40,7 +40,8 @@ Design constraints, in order:
 The port's copy of ``torchsnapshot_tpu/telemetry/fleet.py``: the store is
 the port's coordinator store (``parallel/store.py``: c10d's or the port's
 own TCPStore), ``auto`` resolves on when that coordinator spans several
-processes, and beacons carry no QoS demand (the port has no arbiter yet).
+processes, and a beacon's ``qos`` field is the port's arbiter
+(``engine/qos.py``) in the JAX package's schema.
 
 Module-level imports are stdlib-only, like the rest of the telemetry
 package; the coordinator/knobs imports are lazy (first use).
@@ -262,8 +263,17 @@ class FleetBus:
                 beacon["progress"] = None
         else:
             beacon["progress"] = None
-        # The port has no QoS arbiter yet (ROADMAP A14): no demand to report.
-        beacon["qos"] = None
+        try:
+            from ..engine.qos import get_arbiter
+
+            intro = get_arbiter().introspect()
+            beacon["qos"] = {
+                "enabled": intro.get("qos_enabled"),
+                "demand": intro.get("demand"),
+                "preempted": intro.get("preempted_classes"),
+            }
+        except Exception:  # noqa: BLE001 - fail-open
+            beacon["qos"] = None
         return beacon
 
     def publish(self, force: bool = False) -> bool:

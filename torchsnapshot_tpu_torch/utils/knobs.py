@@ -7,7 +7,7 @@ collective sanitizer, compression (codec, level, frame size), the plan and
 prepared-take caches, the streaming mode, the native O_DIRECT engine,
 read verification, the read cache, the broadcast and swarm restores, and
 telemetry (trace, artifacts, stall watchdog, flight recorder, step records,
-fleet beacons, CLI tracebacks).
+fleet beacons, CLI tracebacks), the QoS arbiter and the budget ledger.
 The JAX package's tuning knobs (thread and I/O widths, the D2H window,
 device batching, the async device copy, checksums off) are constants here
 until a workload needs another value. The prefix differs from the JAX package's on purpose, so
@@ -481,6 +481,44 @@ def env_fingerprint() -> dict:
     return {k: v for k, v in sorted(os.environ.items()) if k.startswith(_P)}
 
 
+# -- QoS classes and the budget ledger (the JAX package's defaults) ---------
+
+_ENV_QOS = _P + "QOS"
+_ENV_QOS_POLL_S = _P + "QOS_POLL_S"
+_ENV_QOS_MAX_PAUSE_S = _P + "QOS_MAX_PAUSE_S"
+_ENV_DEBUG_LEDGER = _P + "DEBUG_LEDGER"
+
+
+def is_qos_enabled() -> bool:
+    """Priority-aware admission (``engine/qos.py``): while an operation of
+    a higher class (FOREGROUND > NORMAL > BACKGROUND) has registered demand
+    in this process, engines of lower classes admit no new work (budget,
+    pool slots, stream chunks) until it clears; work in flight finishes.
+    Off: every operation competes first come, first served."""
+    return os.environ.get(_ENV_QOS, "1") not in ("0", "false", "False")
+
+
+def get_qos_poll_s() -> float:
+    """How often a paused engine re-checks the arbiter (default 20 ms)."""
+    val = os.environ.get(_ENV_QOS_POLL_S)
+    return float(val) if val else 0.02
+
+
+def get_qos_max_pause_s() -> float:
+    """Starvation bound: an engine paused this long (default 60 s) admits
+    one round of work anyway and re-arms. 0: no bound."""
+    val = os.environ.get(_ENV_QOS_MAX_PAUSE_S)
+    return float(val) if val else 60.0
+
+
+def is_debug_ledger_enabled() -> bool:
+    """The budget-ledger sanitizer (``ledger.py``): every engine budget
+    journals each debit with its owner and call site, and pipelines assert
+    zero outstanding bytes at close and on every abort path, raising
+    ``LedgerLeakError`` naming the leaking sites. Off allocates nothing."""
+    return os.environ.get(_ENV_DEBUG_LEDGER, "") not in ("", "0", "false", "False")
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: str) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -561,3 +599,19 @@ def override_fleet_telemetry(value: str):
 
 def override_fleet_beacon_s(value: float):
     return _override_env(_ENV_FLEET_BEACON_S, str(value))
+
+
+def override_qos(enabled: bool):
+    return _override_env(_ENV_QOS, "1" if enabled else "0")
+
+
+def override_qos_poll_s(value: float):
+    return _override_env(_ENV_QOS_POLL_S, str(value))
+
+
+def override_qos_max_pause_s(value: float):
+    return _override_env(_ENV_QOS_MAX_PAUSE_S, str(value))
+
+
+def override_debug_ledger(enabled: bool):
+    return _override_env(_ENV_DEBUG_LEDGER, "1" if enabled else "0")

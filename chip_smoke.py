@@ -139,6 +139,30 @@ into ``Shard(0)`` over a flat mesh of 4, and that plain state's take back
 into FSDP x TP (``dryrun.fsdp_tp_checkpoints``), every local shard equal
 to its seeded block; K3 must launch on every rank. It prints bytes, GB/s
 and K3 launches per rank and step.
+Phase 10 drives robustness under storage faults and preemption
+(``TSS_TORCH_FAULTS``, ``faults.py``): (a) phase 2's state taken under a
+storm of transient write faults (every third write fails once, six times;
+whole-object writes, since neither package retries an injected append
+fault) commits with ``faults.transient`` and ``cloud_retry.faults.retries``
+both 6, launches K1 and restores bit-exactly; (b) an ``async_take`` under
+``op=write,at=2,kind=fail`` with the ledger on: ``wait()`` raises
+``CheckpointAbortedError``, no ``.snapshot_metadata``, the fork's device
+memory is given back, K2 launches, the previous snapshot restores
+bit-exactly; (c) a spawned child on the card takes ``s0`` (``job=``), then
+an ``async_take`` of ``s1`` that ``op=write,at=4,kind=kill`` ends: the
+child exits 87, the catalog's latest is ``s0``, ``Snapshot.gc`` removes
+exactly ``s1``'s debris and a second run nothing, ``s0`` restores
+bit-exactly; (d) ``s0`` under ``TSS_TORCH_VERIFY_READS=all``: one corrupt
+read heals by one re-fetch, bit-exact, and an object that rots on every
+read raises ``ReadVerificationError``; (e) two ranks (gloo) on phase 3's
+TP state: a take failing on rank 1 aborts both ranks naming rank 1, and a
+swapped-placement restore under a transient read storm on rank 0 is
+bit-exact with K3 on both ranks; (f) continuous checkpointing of phase 2's
+widths at one layer (369 MB; the depth cut so every prefix's verify and gc
+fit) journaled under ``TSS_TORCH_DEBUG_EFFECTS=1`` (t1, t2 a delta of t1,
+``retain("last=1")``, gc) and explored by ``crash_explorer`` with 2
+interior cuts, a restore into CUDA tensors of every committed snapshot in
+every crash state: 0 violations.
 Every phase's wall seconds are printed.
 The launch counts are set to 0 just before each drive and read just after.
 
@@ -1668,6 +1692,383 @@ def phase9b(gb, seed, root, card):
     return launches, {"layers": n_layers, "state_bytes": ranks[0]["global_bytes"], "local_bytes": total, "ranks": ranks, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: robustness under preemption and storage faults
+# ---------------------------------------------------------------------------
+
+
+def _faulted(spec, **env):
+    """Environment of a faulted step: ``TSS_TORCH_FAULTS`` and extra knobs
+    (None unsets one)."""
+    return {"TSS_TORCH_FAULTS": spec, **env}
+
+
+def _with_env(env, fn):
+    saved = {k: os.environ.get(k) for k in env}
+    _set_env(env)
+    try:
+        return fn()
+    finally:
+        _set_env(saved)
+
+
+def _counters(tm):
+    return {k: v for k, v in tm.metrics.as_dict().items() if k.startswith(("faults.", "cloud_retry.", "scheduler.read_verify"))}
+
+
+def _restore_exact(path, params, progress, what, env=None, telemetry_session=None):
+    """Restore ``path`` into zeroed CUDA tensors and hold it bit-exactly
+    against ``params`` and ``progress["step"]``; returns the seconds."""
+    import torchsnapshot_tpu_torch as tts
+
+    target = {
+        "model": tts.StateDict(_zeros_like_tree(params)),
+        "progress": tts.StateDict(step=torch.zeros_like(progress["step"])),
+    }
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _with_env(env or {}, lambda: tts.Snapshot(path).restore(target, _telemetry=telemetry_session))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    _assert_bits_equal(dict(target["model"]), params, what)
+    if not torch.equal(target["progress"]["step"], progress["step"]):
+        raise AssertionError(f"{what}: step")
+    return wall
+
+
+# The preempted child: builds phase 2's state from the seed on the card,
+# takes s0 (job=), then an async_take of s1 that a `kill` fault ends.
+_PHASE10_CHILD = r"""
+import os, sys, json, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+import torchsnapshot_tpu_torch as tts
+gb, seed, bucket, kill_at, out = float(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]), sys.argv[5]
+device = torch.device("cuda", 0)
+gen = torch.Generator(device=device).manual_seed(seed)
+params, progress, n_layers = chip_smoke.build_state(gb, device, gen)
+app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+tts.Snapshot.take(os.path.join(bucket, "s0"), app, job="preempt", step=0)
+with open(out, "w") as f:
+    json.dump({"s0": "committed", "layers": n_layers}, f)
+for t in chip_smoke._tensors(params):
+    t.add_(1)
+os.environ["TSS_TORCH_FAULTS"] = f"op=write,at={kill_at},kind=kill"
+pending = tts.Snapshot.async_take(os.path.join(bucket, "s1"), app, job="preempt", step=1)
+pending.wait()
+raise SystemExit("the kill fault did not fire")
+"""
+
+
+def phase10_worker(rank, world_size, gb, seed, root, out_dir):
+    """Phase 10 (e) on one of two ranks: a take that fails on rank 1, then
+    a swapped-placement restore under a transient read storm on rank 0."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels, telemetry
+    from torchsnapshot_tpu_torch.snapshot import CheckpointAbortedError
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = DeviceMesh("cuda", list(range(world_size)))
+    result = {"rank": rank, "launches": {}}
+    params = tp_state(gb, seed, device, mesh, "save")
+    app = {"model": tts.StateDict(params)}
+
+    failed = os.path.join(root, "e_failed")
+    dist.barrier()
+    t0 = time.monotonic()
+    try:
+        _with_env(_faulted("op=write,rank=1,kind=fail"), lambda: tts.Snapshot.take(failed, app))
+        raise AssertionError("phase10 (e): the take under op=write,rank=1,kind=fail committed")
+    except CheckpointAbortedError as e:
+        if e.rank != 1 or "injected write failure" not in str(e):
+            raise AssertionError(f"phase10 (e): the abort does not name rank 1's injected fault: {e!r}")
+        result["abort"] = {"rank": e.rank, "phase": e.phase, "s": time.monotonic() - t0}
+    dist.barrier()
+    if os.path.exists(os.path.join(failed, ".snapshot_metadata")):
+        raise AssertionError("phase10 (e): the failed take committed")
+
+    path = os.path.join(root, "e_tp")
+    tts.Snapshot.take(path, app)
+    del params, app
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "swap", zeros=True))}
+    tm = telemetry.Telemetry()
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    _with_env(
+        _faulted("backoff=0.01;op=read,rank=0,every=2,kind=transient,times=8"),
+        lambda: tts.Snapshot(path).restore(target, _telemetry=tm),
+    )
+    torch.cuda.synchronize()
+    result["storm_restore_s"] = time.monotonic() - t0
+    result["launches"]["storm_restore"] = dict(kernels.LAUNCHES)
+    result["counters"] = _counters(tm)
+    check_tp_state(dict(target["model"]), gb, seed, device, "swap", "phase10 (e) restore under a read storm")
+    if result["launches"]["storm_restore"]["copy_blocks"] < 1:
+        raise AssertionError(f"phase10 (e): K3 did not launch on rank {rank}")
+    injected = result["counters"].get("faults.transient", 0)
+    retried = result["counters"].get("cloud_retry.faults.retries", 0)
+    if injected != retried or (injected < 1) != (rank != 0):
+        raise AssertionError(f"phase10 (e): rank {rank}: {result['counters']} (the storm is rank 0's only)")
+    dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase10(gb, tp_gb, seed, device, root, card):
+    """Robustness on the card: (a) a transient storm, (b) a permanent fault
+    under ``async_take``, (c) a preempted child, (d) bit rot, (e) two ranks,
+    (f) the crash explorer over continuous checkpointing."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import catalog, crash_explorer, effect_journal, kernels, telemetry
+    from torchsnapshot_tpu_torch.scheduler import ReadVerificationError
+    from torchsnapshot_tpu_torch.snapshot import CheckpointAbortedError
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    out = {"walls": {}}
+    launches = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        out["walls"][name] = time.monotonic() - t0
+        launches[f"phase10_{name}"] = dict(kernels.LAUNCHES)
+        log(f"phase10 ({name}) on {card}: {out['walls'][name]:.1f} s, launches {json.dumps(kernels.LAUNCHES)}: {json.dumps(res)}")
+        return res
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, progress, n_layers = build_state(gb, device, gen)
+    app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+
+    # (a) A storm of transient write faults: every third write fails once
+    # (six times), retried through cloud_retry. Whole-object writes: an
+    # injected append fault is not retried by either package (an append
+    # may have moved bytes), so the schedule's append rule stays inert here.
+    spec_a = "seed=0;backoff=0.01;op=write,every=3,kind=transient,times=6;op=append,at=1,kind=transient"
+    path_a = os.path.join(root, "a")
+
+    def a():
+        tm = telemetry.Telemetry()
+        t0 = time.monotonic()
+        _with_env(_faulted(spec_a, TSS_TORCH_STREAM_WRITES="off"), lambda: tts.Snapshot.take(path_a, app, _telemetry=tm))
+        take_s = time.monotonic() - t0
+        got = _counters(tm)
+        k1 = kernels.LAUNCHES["pack_slab"]
+        if got.get("faults.transient") != 6 or got.get("cloud_retry.faults.retries") != 6:
+            raise AssertionError(f"phase10 (a): expected 6 injected and 6 retried transients, got {got}")
+        if k1 < 1:
+            raise AssertionError("phase10 (a): K1 did not launch")
+        if tts.Snapshot(path_a).verify():
+            raise AssertionError("phase10 (a): verify")
+        restore_s = _restore_exact(path_a, params, progress, "phase10 (a) restore")
+        return {"bytes": nbytes, "take_s": take_s, "take_gbps": nbytes / take_s / 1e9, "restore_s": restore_s, "counters": got, "k1": k1}
+
+    out["a"] = step("a", a)
+
+    # (b) A permanent fault under async_take: wait() raises the structured
+    # abort, nothing commits, the ledger balances, the fork is given back.
+    path_b = os.path.join(root, "b")
+
+    def b():
+        import gc
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(device)
+        t0 = time.monotonic()
+
+        def run():
+            # Only the abort's fields leave this frame: its traceback would
+            # keep the pending take, and with it the fork, alive.
+            pending = tts.Snapshot.async_take(path_b, app)
+            stall = time.monotonic() - t0
+            try:
+                pending.wait()
+            except CheckpointAbortedError as e:
+                return stall, {"rank": e.rank, "phase": e.phase, "detail": e.detail[:300], "text": str(e)}
+            raise AssertionError("phase10 (b): the async_take under op=write,at=2,kind=fail committed")
+
+        stall, abort = _with_env(_faulted("op=write,at=2,kind=fail", TSS_TORCH_DEBUG_LEDGER="1"), run)
+        k2 = kernels.LAUNCHES["fork_copy"]
+        if abort["rank"] != 0 or "injected write failure" not in abort["text"] or "LedgerLeak" in abort["text"]:
+            raise AssertionError(f"phase10 (b): unexpected abort {abort}")
+        if os.path.exists(os.path.join(path_b, ".snapshot_metadata")):
+            raise AssertionError("phase10 (b): .snapshot_metadata was written")
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(device)
+        if after > before + (64 << 20):
+            raise AssertionError(f"phase10 (b): the fork was not given back: {before} -> {after} bytes allocated")
+        if k2 < 1:
+            raise AssertionError("phase10 (b): K2 did not launch")
+        restore_s = _restore_exact(path_a, params, progress, "phase10 (b) previous snapshot")
+        abort.pop("text")
+        return {"abort": abort, "stall_s": stall,
+                "wait_s": time.monotonic() - t0, "allocated_before": before, "allocated_after": after,
+                "k2": k2, "previous_restore_s": restore_s}
+
+    out["b"] = step("b", b)
+    shutil.rmtree(path_a)
+    shutil.rmtree(path_b, ignore_errors=True)
+
+    # (c) Preemption mid-checkpoint, in a spawned child on the card.
+    bucket = os.path.join(root, "preempt")
+    os.makedirs(bucket)
+
+    def c():
+        from torchsnapshot_tpu_torch.faults import KILL_EXIT_CODE
+
+        info = os.path.join(root, "child.json")
+        env = {k: v for k, v in os.environ.items() if k != "TSS_TORCH_FAULTS"}
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PHASE10_CHILD, str(gb), str(seed), bucket, "4", info],
+            env=env, capture_output=True, text=True, timeout=300,
+        )
+        child_s = time.monotonic() - t0
+        if proc.returncode != KILL_EXIT_CODE:
+            raise AssertionError(f"phase10 (c): the child exited {proc.returncode}, not {KILL_EXIT_CODE}: {proc.stderr[-3000:]}")
+        with open(info) as f:
+            json.load(f)
+        if os.path.exists(os.path.join(bucket, "s1", ".snapshot_metadata")):
+            raise AssertionError("phase10 (c): s1 committed")
+        with catalog.Catalog(bucket) as cat:
+            latest = cat.latest("preempt")
+        if latest is None or latest.name != "s0":
+            raise AssertionError(f"phase10 (c): the catalog's latest is {latest}")
+        debris = sorted(os.path.relpath(os.path.join(d, n), bucket) for d, _, ns in os.walk(os.path.join(bucket, "s1")) for n in ns)
+        first = tts.Snapshot.gc(bucket, dry_run=False)
+        second = tts.Snapshot.gc(bucket, dry_run=False)
+        if len(first["remove"]) < 1 or second["remove"]:
+            raise AssertionError(f"phase10 (c): gc did not converge: {first['remove']} then {second['remove']}")
+        if first["committed"] != ["s0"] or sorted(first["remove"]) != debris:
+            raise AssertionError(f"phase10 (c): gc removed {first['remove']}, the debris is {debris}")
+        restore_s = _restore_exact(os.path.join(bucket, "s0"), params, progress, "phase10 (c) s0 after the kill")
+        return {"child_s": child_s, "exit": proc.returncode, "debris": len(debris), "gc_removed": len(first["remove"]),
+                "gc_again_removed": len(second["remove"]), "latest": latest.name, "s0_restore_s": restore_s}
+
+    out["c"] = step("c", c)
+
+    # (d) Bit rot under verified reads: one corrupt read heals by one
+    # re-fetch; an object that rots on every read fails the restore.
+    s0 = os.path.join(bucket, "s0")
+
+    def d():
+        tm = telemetry.Telemetry()
+        heal_s = _restore_exact(
+            s0, params, progress, "phase10 (d) healed restore",
+            env=_faulted("op=read,at=2,kind=corrupt,bytes=8", TSS_TORCH_VERIFY_READS="all"), telemetry_session=tm,
+        )
+        got = _counters(tm)
+        if got.get("faults.corrupt") != 1 or got.get("scheduler.read_verify_failures") != 1:
+            raise AssertionError(f"phase10 (d): expected one corrupt read healed by one re-fetch, got {got}")
+        victim = "0/model/layer_0/up"
+        try:
+            _restore_exact(s0, params, progress, "phase10 (d) persistent rot",
+                           env=_faulted(f"op=read,after=0,kind=corrupt,path={victim}", TSS_TORCH_VERIFY_READS="all"))
+            raise AssertionError("phase10 (d): a persistently rotten object restored")
+        except ReadVerificationError as e:
+            if victim not in str(e):
+                raise AssertionError(f"phase10 (d): the error does not name {victim}: {e}")
+            err = str(e)[:200]
+        return {"heal_restore_s": heal_s, "counters": got, "persistent": err}
+
+    out["d"] = step("d", d)
+    del app, params, progress
+    shutil.rmtree(bucket)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (e) Two ranks on the card (gloo), phase 3's TP state.
+    def e():
+        out_dir = os.path.join(root, "phase10_out")
+        os.makedirs(out_dir)
+        run_with_processes(phase10_worker, 2, args=(tp_gb, seed, root, out_dir), timeout_s=600, process_group=True)
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+        for r in ranks:
+            launches[f"phase10_e_rank{r['rank']}"] = r["launches"]["storm_restore"]
+        shutil.rmtree(os.path.join(root, "e_tp"), ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "e_failed"), ignore_errors=True)
+        return ranks
+
+    out["e"] = step("e", e)
+
+    # (f) The crash explorer over journaled continuous checkpointing: phase
+    # 2's widths at one layer (the depth cut so that every prefix's verify
+    # and gc fit the phase).
+    def f():
+        gen_f = torch.Generator(device=device).manual_seed(seed + 10)
+        one, prog, layers = build_state(0.369, device, gen_f)
+        if layers != 1:
+            raise AssertionError(f"phase10 (f): {layers} layers")
+        appf = {"model": tts.StateDict(one), "progress": tts.StateDict(prog)}
+        fbucket = os.path.join(root, "explore_bucket")
+        t1 = {k: v.clone() for k, v in one["layer_0"].items()}
+        step1 = prog["step"].clone()
+
+        def journaled():
+            effect_journal.reset()
+            try:
+                tts.Snapshot.take(os.path.join(fbucket, "t1"), appf, job="ft", step=1)
+                # t2: the LayerNorm weights and the step move, the rest is
+                # linked from t1.
+                one["layer_0"]["ln1_w"].add_(1)
+                prog["step"].add_(1)
+                tts.Snapshot.take(os.path.join(fbucket, "t2"), appf, job="ft", step=2)
+                catalog.retain(fbucket, catalog.RetentionPolicy.parse("last=1"), dry_run=False)
+                tts.Snapshot.gc(fbucket, dry_run=False)
+                return effect_journal.get_journal().effects()
+            finally:
+                effect_journal.reset()
+
+        t0 = time.monotonic()
+        effects = _with_env({"TSS_TORCH_DEBUG_EFFECTS": "1", "TSS_TORCH_DEDUP_DIGESTS": "1"}, journaled)
+        journal_s = time.monotonic() - t0
+        want = {"t1": ({"layer_0": t1}, step1), "t2": (one, prog["step"])}
+        checked = []
+
+        def restore_check(snap_root):
+            name = os.path.basename(snap_root)
+            tree, stp = want[name]
+            _restore_exact(snap_root, tree, {"step": stp}, f"phase10 (f) {name} in a crash state")
+            checked.append(name)
+
+        # The explorer copies the crash state once per prefix: in host RAM
+        # where there is room for it.
+        shm = "/dev/shm"
+        fast = os.path.isdir(shm) and shutil.disk_usage(shm).free > 8 * 2**30
+        workdir = tempfile.mkdtemp(prefix="tss_explore_", dir=shm if fast else root)
+        t0 = time.monotonic()
+        report = crash_explorer.explore(effects, workdir, seed=seed, interior_samples=2, restore_check=restore_check)
+        explore_s = time.monotonic() - t0
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(fbucket, ignore_errors=True)
+        if not report.ok or report.prefixes != len(effects) or report.interior_samples != 2:
+            raise AssertionError(f"phase10 (f): {report.render()}")
+        ops = {}
+        for eff in effects:
+            ops[eff.op] = ops.get(eff.op, 0) + 1
+        return {"effects": len(effects), "ops": ops, "journal_bytes": sum(eff.nbytes for eff in effects),
+                "prefixes": report.prefixes, "interior_samples": report.interior_samples,
+                "violations": len(report.violations), "restore_checks": len(checked),
+                "journal_s": journal_s, "explore_s": explore_s, "workdir_fs": "tmpfs /dev/shm" if fast else "the temp root"}
+
+    out["f"] = step("f", f)
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -1754,6 +2155,8 @@ def main() -> int:
         launches["phase9a"], qos_summary = timed("phase9 (a)", lambda: phase9a(args.seed, device, root, card))
         phase9b_launches, fsdp_tp = timed("phase9 (b)", lambda: phase9b(args.phase9_gb, args.seed, root, card))
         launches.update(phase9b_launches)
+        phase10_launches, robustness = timed("phase10", lambda: phase10(args.gb, args.phase3_gb, args.seed, device, root, card))
+        launches.update(phase10_launches)
         log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1775,6 +2178,7 @@ def main() -> int:
     log(f"phase8 overhead summary on {card}: {json.dumps(overhead)}")
     log(f"phase9 (a) QoS summary on {card}: {json.dumps(qos_summary)}")
     log(f"phase9 (b) FSDP x TP on {card}: {fsdp_tp['layers']} layer(s), {fsdp_tp['state_bytes']} bytes, wall {fsdp_tp['wall_s']:.1f} s")
+    log(f"phase10 robustness summary on {card}: {json.dumps(robustness)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

@@ -588,3 +588,70 @@ def test_traced_async_take_d2h_spans_cover_the_transfers(device, tmp_path, monke
     assert phases.keys() == snapshot_mod.LAST_TAKE_PHASES.keys()
     for k, v in phases.items():
         assert abs(v - snapshot_mod.LAST_TAKE_PHASES[k]) < 1e-5, k
+
+
+def _robust_state(device):
+    """Phase 10's state at a small size: many small bf16 layers (slabbed by
+    K1) and a few larger ones."""
+    g = torch.Generator(device=device).manual_seed(10)
+    state = {f"l{i}": torch.randn(64, 48, generator=g, device=device).to(torch.bfloat16) for i in range(8)}
+    state.update({f"big{i}": torch.randn(300, 200, generator=g, device=device) for i in range(8)})
+    state["step"] = torch.tensor(11, device=device)
+    return state
+
+
+def _restore_exact(path, state):
+    target = tts.StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    tts.Snapshot(path).restore({"m": target})
+    for k, v in state.items():
+        assert target[k].is_cuda and torch.equal(_bytes(target[k]), _bytes(v)), k
+
+
+def test_transient_storm_commits_and_restores_bit_exact(device, tmp_path, monkeypatch):
+    """Phase 10 (a) at a small size: every third write fails once (six
+    times) and is retried; the take commits, K1 launches, the restore is
+    bit-exact."""
+    from torchsnapshot_tpu_torch import telemetry
+
+    state = _robust_state(device)
+    monkeypatch.setenv("TSS_TORCH_FAULTS", "seed=0;backoff=0.01;op=write,every=3,kind=transient,times=6")
+    monkeypatch.setenv("TSS_TORCH_STREAM_WRITES", "off")
+    from torchsnapshot_tpu_torch import batcher
+
+    tm = telemetry.Telemetry()
+    # An 8 KiB slab threshold: one K1 slab per small layer and one object
+    # per large tensor, enough writes for all six injections.
+    monkeypatch.setattr(batcher, "SLAB_SIZE_THRESHOLD_BYTES", 8192)
+    with knobs.override_batching_enabled(True):
+        kernels.reset_launch_counts()
+        tts.Snapshot.take(str(tmp_path / "a"), {"m": tts.StateDict(state)}, _telemetry=tm)
+        assert kernels.LAUNCHES["pack_slab"] >= 1
+    counters = tm.metrics.as_dict()
+    assert counters["faults.transient"] == counters["cloud_retry.faults.retries"] == 6
+    monkeypatch.delenv("TSS_TORCH_FAULTS")
+    assert tts.Snapshot(str(tmp_path / "a")).verify() == {}
+    _restore_exact(str(tmp_path / "a"), state)
+
+
+def test_bit_rot_heals_once_and_persistent_rot_fails(device, tmp_path, monkeypatch):
+    """Phase 10 (d) at a small size, under ``TSS_TORCH_VERIFY_READS=all``:
+    one corrupt read heals by one re-fetch; an object that rots on every
+    read fails the restore with ``ReadVerificationError``."""
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.scheduler import ReadVerificationError
+
+    state = _robust_state(device)
+    path = str(tmp_path / "s0")
+    tts.Snapshot.take(path, {"m": tts.StateDict(state)})
+    monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "all")
+    monkeypatch.setenv("TSS_TORCH_FAULTS", "op=read,at=2,kind=corrupt,bytes=8")
+    tm = telemetry.Telemetry()
+    target = tts.StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    tts.Snapshot(path).restore({"m": target}, _telemetry=tm)
+    for k, v in state.items():
+        assert torch.equal(_bytes(target[k]), _bytes(v)), k
+    counters = tm.metrics.as_dict()
+    assert counters["faults.corrupt"] == counters["scheduler.read_verify_failures"] == 1
+    monkeypatch.setenv("TSS_TORCH_FAULTS", "op=read,after=0,kind=corrupt,path=0/m/big3")
+    with pytest.raises(ReadVerificationError, match="0/m/big3"):
+        _restore_exact(path, state)

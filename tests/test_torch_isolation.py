@@ -374,3 +374,139 @@ def test_qos_and_ledger_import_no_torch():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+_A15_A17_MODULES = [
+    "torchsnapshot_tpu_torch/storage_plugins/cloud_retry.py",
+    "torchsnapshot_tpu_torch/faults.py",
+    "torchsnapshot_tpu_torch/effect_journal.py",
+    "torchsnapshot_tpu_torch/crash_explorer.py",
+    "torchsnapshot_tpu_torch/storage_plugins/gcs.py",
+    "torchsnapshot_tpu_torch/storage_plugins/s3.py",
+]
+
+
+@pytest.mark.parametrize("module", _A15_A17_MODULES)
+def test_a15_a17_modules_are_held_to_the_import_rules(module):
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert module in checked
+
+
+def test_a_plain_take_imports_neither_faults_nor_the_journal():
+    """With both knobs off, a take and a verified restore load neither the
+    fault injector nor the effect journal (nor the cloud SDKs)."""
+    code = (
+        "import sys, tempfile, os, torch\n"
+        "os.environ['TSS_TORCH_VERIFY_READS'] = 'all'\n"
+        "import torchsnapshot_tpu_torch as tts\n"
+        "d = tempfile.mkdtemp()\n"
+        "tts.Snapshot.take(os.path.join(d, 's'), {'m': tts.StateDict(x=torch.ones(2))}, job='j')\n"
+        "t = tts.StateDict(x=torch.zeros(2))\n"
+        "tts.Snapshot(os.path.join(d, 's')).restore({'m': t}, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.endswith(('.faults', '.effect_journal', '.crash_explorer'))\n"
+        "             or m.split('.')[0] in ('jax', 'torchsnapshot_tpu', 'aioboto3') or m == 'google.cloud.storage')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module,sdk", [("gcs", "google"), ("s3", "aioboto3")])
+def test_cloud_plugins_import_without_their_sdk(module, sdk):
+    """The GPU host has neither SDK: importing the plugin module works, and
+    only building a plugin raises, naming the package."""
+    code = (
+        "import builtins, sys\n"
+        "real = builtins.__import__\n"
+        f"def block(name, *a, **k):\n"
+        f"    if name.split('.')[0] == {sdk!r}:\n"
+        "        raise ImportError(name)\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = block\n"
+        f"from torchsnapshot_tpu_torch.storage_plugins import {module} as mod\n"
+        f"cls = getattr(mod, {('GCSStoragePlugin' if module == 'gcs' else 'S3StoragePlugin')!r})\n"
+        "try:\n"
+        "    cls('bucket/prefix')\n"
+        "except RuntimeError as e:\n"
+        f"    assert {('google-cloud-storage' if module == 'gcs' else 'aioboto3')!r} in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('built without the SDK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+# Mutations that make a commit point: a crash right after one leaves
+# whatever it did behind.
+_OS_MUTATIONS = {"os.replace", "os.rename", "os.link", "os.remove", "os.unlink"}
+_PLUGIN_MUTATIONS = {"write", "sync_write", "delete", "write_stream", "link_in"}
+# The injection machinery, the journal and the explorer (which replays into
+# directories of its own) are not commit points of the port.
+_SURFACE_EXEMPT = {"faults.py", "effect_journal.py", "crash_explorer.py"}
+
+
+def _commit_points(root=PORT):
+    """``{"<path under root>:<qualname>": line}`` of every top-level
+    function or method under ``root`` (the port) that calls an ``os``
+    mutation (or hands one to an executor), or a mutating method through a
+    receiver whose name says storage or plugin."""
+    import re
+
+    receiver = re.compile(r"storage|plugin")
+    found = {}
+    paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py"))
+    for path in paths:
+        if os.path.basename(path) in _SURFACE_EXEMPT:
+            continue
+        rel = os.path.relpath(path, root).replace(os.sep, "/")
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        funcs = []
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                funcs.append((node.name, node))
+            elif isinstance(node, ast.ClassDef):
+                funcs += [(f"{node.name}.{m.name}", m) for m in node.body
+                          if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        for qual, fn in funcs:
+            for call in ast.walk(fn):
+                if not isinstance(call, ast.Call):
+                    continue
+                names = [ast.unparse(call.func)] + [ast.unparse(a) for a in call.args if isinstance(a, ast.Attribute)]
+                hit = any(n in _OS_MUTATIONS for n in names)
+                if not hit and isinstance(call.func, ast.Attribute) and call.func.attr in _PLUGIN_MUTATIONS:
+                    hit = bool(receiver.search(ast.unparse(call.func.value).lower()))
+                if hit:
+                    found[f"{rel}:{qual}"] = call.lineno
+                    break
+    return found
+
+
+def test_every_commit_point_is_on_the_crash_surface():
+    """Every durable mutation in the port sits in a function that
+    ``faults._CRASH_SURFACE`` names, each entry names one that exists and
+    mutates, and each is pinned to an op class or ``fail-open``."""
+    from torchsnapshot_tpu_torch import faults
+
+    surface = dict(faults._CRASH_SURFACE)
+    assert len(surface) == len(faults._CRASH_SURFACE), "duplicate crash-surface entries"
+    found = _commit_points()
+    assert sorted(set(found) - set(surface)) == [], "commit points missing from faults._CRASH_SURFACE"
+    assert sorted(set(surface) - set(found)) == [], "stale faults._CRASH_SURFACE entries"
+    assert set(surface.values()) <= set(faults._OPS) | {"fail-open"}
+
+
+def test_the_commit_point_scan_finds_a_planted_mutation(tmp_path):
+    """The scan is not vacuous: a module with a rename, a plugin write and
+    an executor-run remove is reported whole."""
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "planted.py").write_text(
+        "import os\n\n\nclass W:\n    def land(self, a, b):\n        os.replace(a, b)\n\n"
+        "    async def put(self, io):\n        await self.storage.write(io)\n\n\n"
+        "async def drop(loop, p):\n    await loop.run_in_executor(None, os.remove, p)\n\n\n"
+        "def pure(x):\n    return x.write(1)\n"
+    )
+    (tmp_path / "faults.py").write_text("import os\n\n\ndef f(a):\n    os.remove(a)\n")
+    assert _commit_points(str(tmp_path)) == {
+        "sub/planted.py:W.land": 6, "sub/planted.py:W.put": 9, "sub/planted.py:drop": 13,
+    }

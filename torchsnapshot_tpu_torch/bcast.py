@@ -46,6 +46,7 @@ from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
 from .scheduler import MAX_CONCURRENT_IO, _read_digest_record, _verify_checker, verified_fetch
 from .serialization import COMPRESSED, array_nbytes
+from .storage_plugins.cloud_retry import CollectiveProgress
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -201,6 +202,8 @@ class _BcastSession:
         self.prefix = f"bcastx/{token}"
         self.ns = coord.store.prefix(self.prefix)
         self.verify = knobs.get_verify_reads_mode() != "off" and bool(digests)
+        # One transient-retry window for every origin read of this broadcast.
+        self.progress = CollectiveProgress()
 
     async def _store_call(self, fn, *args):
         # Store round trips off the event loop.
@@ -223,7 +226,7 @@ class _BcastSession:
         want = _read_digest_record(self.digests, path) if self.verify else None
         checker = _verify_checker(want, byte_range) if want is not None else None
         read_io = await verified_fetch(
-            self.storage, path, byte_range, checker, self.executor, what="broadcast read",
+            self.storage, path, byte_range, checker, self.executor, self.progress, what="broadcast read",
             failure_counter="bcast.verify_failures",
         )
         return bytes(memoryview(read_io.buf).cast("B"))

@@ -1,9 +1,8 @@
 """Read-only file-like over a memoryview.
 
 Lets an SDK that reads file objects stream a zero-copy staged buffer
-without materialising a ``bytes`` copy of it. A copy of
-``torchsnapshot_tpu/memoryview_stream.py``; its users are the cloud storage
-plugins, which this package does not have yet.
+without materialising a ``bytes`` copy of it (the GCS plugin's uploads).
+A copy of ``torchsnapshot_tpu/memoryview_stream.py``.
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ from . import d2h, hashing, stream_select, telemetry
 from .engine import GraphExecutor, Node
 from .engine.intervals import clip_merged, measure, merge_intervals, stream_stats
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from .storage_plugins.cloud_retry import CollectiveProgress, is_transient_os_error, retry_transient
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -597,13 +598,21 @@ async def fetch_read_io(
     storage: StoragePlugin,
     path: str,
     byte_range: Optional[Tuple[int, int]],
+    progress: CollectiveProgress,
     into: Optional[memoryview] = None,
 ) -> ReadIO:
     """One storage fetch of ``path`` (optionally ranged, optionally into
     the caller's buffer): the one fetch of the read pipeline, the broadcast
-    and the swarm restores."""
+    and the swarm restores. Transient OSErrors retry under the caller's
+    collective-progress window; each attempt starts from an empty buffer
+    (or overwrites ``into`` from offset 0)."""
     read_io = ReadIO(path=path, byte_range=byte_range, into=into)
-    await storage.read(read_io)
+
+    async def attempt() -> None:
+        read_io.buf = None
+        await storage.read(read_io)
+
+    await retry_transient(attempt, is_transient_os_error, progress, "read_pipeline")
     return read_io
 
 
@@ -629,6 +638,7 @@ async def verified_fetch(
     byte_range: Optional[Tuple[int, int]],
     checker: Optional[Callable[[memoryview], Optional[str]]],
     executor: Any,
+    progress: CollectiveProgress,
     into: Optional[memoryview] = None,
     what: str = "read",
     failure_counter: str = "scheduler.read_verify_failures",
@@ -637,7 +647,7 @@ async def verified_fetch(
     quarantines the path's read-cache entries and re-fetches once; a
     second mismatch raises :class:`ReadVerificationError`. Each mismatch
     counts in ``failure_counter``."""
-    read_io = await fetch_read_io(storage, path, byte_range, into)
+    read_io = await fetch_read_io(storage, path, byte_range, progress, into)
     if checker is None:
         return read_io
     loop = asyncio.get_running_loop()
@@ -654,7 +664,7 @@ async def verified_fetch(
     cache = find_read_cache(storage)
     if cache is not None:
         await loop.run_in_executor(executor, cache.quarantine_path, path)
-    read_io = await fetch_read_io(storage, path, byte_range, into)
+    read_io = await fetch_read_io(storage, path, byte_range, progress, into)
     problem = await loop.run_in_executor(executor, checker, memoryview(read_io.buf))
     if problem is not None:
         telemetry.counter_add(failure_counter)
@@ -679,6 +689,8 @@ async def execute_read_reqs(
     t0 = time.monotonic()
     verify = knobs.is_origin_read_verify_enabled() and bool(digests)
     totals = {"bytes_read": 0}
+    # One retry window for every fetch of this pipeline.
+    read_progress = CollectiveProgress()
     engine = GraphExecutor(
         memory_budget_bytes,
         caps={"io": MAX_CONCURRENT_IO, "consume": POOL_THREADS},
@@ -693,7 +705,7 @@ async def execute_read_reqs(
         want = _read_digest_record(digests, req.path) if verify else None
         checker = _verify_checker(want, req.byte_range) if want is not None else None
         read_io = await verified_fetch(
-            storage, req.path, req.byte_range, checker, executor, into
+            storage, req.path, req.byte_range, checker, executor, read_progress, into
         )
         nbytes = memoryview(read_io.buf).nbytes
         totals["bytes_read"] += nbytes

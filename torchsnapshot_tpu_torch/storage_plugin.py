@@ -1,9 +1,18 @@
 """URL -> storage plugin.
 
 ``fs://<path>`` (or a plain path) is the local filesystem, ``memory://<name>``
-an in-process store shared by name; the cloud plugins of the JAX package
-come later. With ``TSS_TORCH_READ_CACHE_DIR`` set, every plugin is wrapped
-in the read-through cache (``storage_plugins/cache.py``).
+an in-process store shared by name, ``gs://<bucket>/<prefix>`` Google Cloud
+Storage and ``s3://<bucket>/<prefix>`` S3 (their SDKs are imported when such
+a plugin is built). Other protocols come from the entry-point group
+``torchsnapshot_tpu_torch.storage_plugins`` (name = protocol, value = a
+callable of the path).
+
+Wrappers, bottom to top: the effect journal (``TSS_TORCH_DEBUG_EFFECTS``,
+``effect_journal.py``) directly above the backend, so it records exactly
+the mutations that reached storage; the read-through cache
+(``TSS_TORCH_READ_CACHE_DIR``, ``storage_plugins/cache.py``); the fault
+injector (``TSS_TORCH_FAULTS``, ``faults.py``) on top, so chaos schedules
+reach the cache too. A wrapper whose knob is off is never imported.
 
 Also the fail-open write of a telemetry artifact
 (:func:`write_telemetry_artifact`): artifacts persist through the
@@ -22,16 +31,26 @@ from .utils import knobs
 
 logger = logging.getLogger(__name__)
 
+ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
+
 # A failed artifact write warns once per process, then logs at debug.
 _artifact_write_warned = False
 
 
 def url_to_storage_plugin(url: str) -> StoragePlugin:
     plugin = _resolve_storage_plugin(url)
+    if knobs.is_debug_effects_enabled():
+        from .effect_journal import maybe_wrap_with_effects
+
+        plugin = maybe_wrap_with_effects(plugin, origin=url)
     if knobs.get_read_cache_dir():
         from .storage_plugins.cache import maybe_wrap_with_read_cache
 
         plugin = maybe_wrap_with_read_cache(plugin, origin_id=url)
+    if knobs.get_faults_spec():
+        from .faults import maybe_wrap_with_faults
+
+        plugin = maybe_wrap_with_faults(plugin)
     return plugin
 
 
@@ -50,9 +69,20 @@ def _resolve_storage_plugin(url: str) -> StoragePlugin:
         from .storage_plugins.memory import SHARED_ROOTS, MemoryStoragePlugin
 
         return SHARED_ROOTS.setdefault(path, MemoryStoragePlugin(root=path))
-    raise NotImplementedError(
-        f"storage protocol {protocol!r} is not supported by this package yet"
-    )
+    if protocol == "gs":
+        from .storage_plugins.gcs import GCSStoragePlugin
+
+        return GCSStoragePlugin(root=path)
+    if protocol == "s3":
+        from .storage_plugins.s3 import S3StoragePlugin
+
+        return S3StoragePlugin(root=path)
+    from importlib.metadata import entry_points
+
+    for ep in entry_points(group=ENTRY_POINT_GROUP):
+        if ep.name == protocol:
+            return ep.load()(path)
+    raise RuntimeError(f"unsupported storage protocol {protocol!r} (in url {url})")
 
 
 def write_telemetry_artifact(

@@ -377,6 +377,12 @@ class CachedStoragePlugin(StoragePlugin):
         try:
             with open(tmp, "wb") as f:
                 f.write(content)
+            if knobs.get_faults_spec():
+                # The rename is a commit point below the fault wrapper; this
+                # is its road into chaos schedules (`op=cache_bitmap`).
+                from ..faults import maybe_inject_local
+
+                maybe_inject_local("cache_bitmap", bitmap_path)
             os.replace(tmp, bitmap_path)
         except BaseException:
             with contextlib.suppress(OSError):

@@ -11,6 +11,8 @@ buffered. A streamed object appends through positioned O_DIRECT writes of
 its sector-aligned spans, carrying the unaligned tail in Python until the
 commit writes it and sets the final size.
 
+Writes and reads retry transient OSErrors (``cloud_retry``: a stale NFS
+handle, a timed-out round trip) under a collective-progress window.
 Blocking work runs on the plugin's own thread pool; a semaphore caps the
 concurrent O_DIRECT transfers (``get_direct_io_concurrency``, divided by
 the ranks sharing the host's disk). An incremental take links unchanged
@@ -36,6 +38,7 @@ from typing import List, Optional
 from .. import native, telemetry
 from ..io_types import BufferType, ReadIO, StoragePlugin, StorageWriteStream, WriteIO
 from ..utils import knobs
+from .cloud_retry import CollectiveProgress, is_transient_os_error, retry_transient
 
 _IO_THREADS = 16
 _DIRECT_ALIGN = 4096  # the native engine's kAlign
@@ -174,6 +177,9 @@ class FSStoragePlugin(StoragePlugin):
         # first use, after the operation has fixed the local world size.
         self._direct_sem: Optional[threading.Semaphore] = None
         self._sem_lock = threading.Lock()
+        # Transient OSErrors of a network file system (a stale handle, a
+        # timed-out round trip) retry under the cloud plugins' policy.
+        self._progress = CollectiveProgress()
 
     @property
     def _native(self):
@@ -232,7 +238,14 @@ class FSStoragePlugin(StoragePlugin):
     async def write(self, write_io: WriteIO) -> None:
         nbytes = memoryview(write_io.buf).nbytes
         with telemetry.span("storage.write", cat="storage", plugin="fs", path=write_io.path, nbytes=nbytes):
-            await self._run(self._write_file, write_io)
+            # Each attempt writes a fresh temp file, which its error path
+            # unlinks: a retry never sees or leaves an earlier attempt's bytes.
+            await retry_transient(
+                lambda: self._run(self._write_file, write_io),
+                is_transient_os_error,
+                self._progress,
+                "fs",
+            )
         telemetry.counter_add("storage.fs.write_bytes", nbytes)
 
     async def write_stream(self, path: str) -> StorageWriteStream:
@@ -279,8 +292,15 @@ class FSStoragePlugin(StoragePlugin):
 
     async def read(self, read_io: ReadIO) -> None:
         with telemetry.span("storage.read", cat="storage", plugin="fs", path=read_io.path) as sp:
-            read_io.buf = await self._run(
-                self._read_file, self._abs(read_io.path), read_io.byte_range, read_io.into
+            # Each attempt reads into a fresh buffer, or overwrites the
+            # caller's ``into`` from offset 0.
+            read_io.buf = await retry_transient(
+                lambda: self._run(
+                    self._read_file, self._abs(read_io.path), read_io.byte_range, read_io.into
+                ),
+                is_transient_os_error,
+                self._progress,
+                "fs",
             )
             nbytes = memoryview(read_io.buf).nbytes
             sp.set_attrs(nbytes=nbytes)

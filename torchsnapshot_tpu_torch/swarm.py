@@ -59,6 +59,7 @@ from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .scheduler import ReadVerificationError, fetch_read_io
 from .serialization import Serializer, string_to_dtype
+from .storage_plugins.cloud_retry import CollectiveProgress
 from .bcast import REELECT_MAX, stall_watchdog
 from .utils import knobs
 
@@ -332,6 +333,13 @@ class _SwarmSession:
         self.ns = coord.store.prefix(self.prefix)
         self.posted: List[str] = []
         self.cache = find_read_cache(storage)
+        # One transient-retry window for every origin read of this session.
+        self.progress = CollectiveProgress()
+        self._injector = None
+        if knobs.get_faults_spec():
+            from .faults import find_fault_injector
+
+            self._injector = find_fault_injector(storage)
 
     async def _store_call(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(self.executor, fn, *args)
@@ -366,7 +374,7 @@ class _SwarmSession:
         await engine_qos.pause_point()
 
         async def fetch_once() -> bytes:
-            read_io = await fetch_read_io(self.storage, plan.path, extent)
+            read_io = await fetch_read_io(self.storage, plan.path, extent, self.progress)
             return bytes(memoryview(read_io.buf).cast("B"))
 
         data = await fetch_once()
@@ -397,6 +405,14 @@ class _SwarmSession:
                 "persistent corruption at the source"
             )
         return data
+
+    async def post_served(self, plan: ObjectPlan, obj: int, k: int, attempt: int, data) -> None:
+        """Post chunk ``k`` for the peers. Under ``TSS_TORCH_FAULTS`` the
+        ``peer_serve`` fault point runs first, on the posted copy only."""
+        if self._injector is not None:
+            data = bytearray(data)
+            await self._injector.inject_peer_serve(f"{plan.path}#chunk{k}", data)
+        await self.post(obj, k, attempt, _OK + bytes(data))
 
     async def cache_probe(self, plan: ObjectPlan) -> Optional[bytes]:
         if self.cache is None:
@@ -565,7 +581,7 @@ def run_swarm(
                     if not have[k]:
                         land(k, await origin_fetch(plan, k))
                     b, e = plan.extents[k]
-                    await session.post(obj, k, 0, _OK + bytes(buf[b:e]))
+                    await session.post_served(plan, obj, k, 0, buf[b:e])
                 except ReadVerificationError:
                     raise
                 except Exception as e:  # noqa: BLE001 - reported to peers
@@ -606,7 +622,7 @@ def run_swarm(
                     await session.post(obj, k, attempt[k], _ERR + repr(e).encode())
                     raise
                 land(k, data)
-                await session.post(obj, k, attempt[k], _OK + data)
+                await session.post_served(plan, obj, k, attempt[k], data)
                 served_now.append(k)
             for k in served_now:
                 wanted.remove(k)

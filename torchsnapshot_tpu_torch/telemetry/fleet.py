@@ -288,6 +288,14 @@ class FleetBus:
             self._last_publish = now
         key = beacon_key(self.rank)
         try:
+            from ..utils import knobs
+
+            if knobs.get_faults_spec():
+                # The `beacon` fault point: a failed, stalled or killed
+                # publisher (fail-open, like any publish failure).
+                from ..faults import maybe_inject_local
+
+                maybe_inject_local("beacon", key)
             from ..parallel.store import telemetry_op_scope
 
             with telemetry_op_scope():

@@ -7,7 +7,8 @@ collective sanitizer, compression (codec, level, frame size), the plan and
 prepared-take caches, the streaming mode, the native O_DIRECT engine,
 read verification, the read cache, the broadcast and swarm restores, and
 telemetry (trace, artifacts, stall watchdog, flight recorder, step records,
-fleet beacons, CLI tracebacks), the QoS arbiter and the budget ledger.
+fleet beacons, CLI tracebacks), the QoS arbiter, the budget ledger, fault
+injection, the effect journal and the cloud plugins' chunk sizes.
 The JAX package's tuning knobs (thread and I/O widths, the D2H window,
 device batching, the async device copy, checksums off) are constants here
 until a workload needs another value. The prefix differs from the JAX package's on purpose, so
@@ -615,3 +616,56 @@ def override_qos_max_pause_s(value: float):
 
 def override_debug_ledger(enabled: bool):
     return _override_env(_ENV_DEBUG_LEDGER, "1" if enabled else "0")
+
+
+# -- robustness and cloud storage (the JAX package's defaults) -------------
+
+_ENV_FAULTS = _P + "FAULTS"
+_ENV_DEBUG_EFFECTS = _P + "DEBUG_EFFECTS"
+_ENV_GCS_CHUNK = _P + "GCS_CHUNK_BYTES"
+_ENV_S3_CHUNK = _P + "S3_CHUNK_BYTES"
+
+
+def get_faults_spec() -> Optional[str]:
+    """The deterministic fault-injection spec (``faults.py``): when set,
+    ``url_to_storage_plugin`` wraps every plugin it builds in
+    ``faults.FaultyStoragePlugin``. Tests only; unset, ``faults`` is never
+    imported."""
+    return os.environ.get(_ENV_FAULTS) or None
+
+
+def is_debug_effects_enabled() -> bool:
+    """The durable-effect journal (``effect_journal.py``): every plugin
+    ``url_to_storage_plugin`` builds records each mutating op, the input of
+    ``crash_explorer``. Off allocates nothing and imports nothing."""
+    return os.environ.get(_ENV_DEBUG_EFFECTS, "") not in _FALSE
+
+
+def get_gcs_chunk_bytes() -> int:
+    """GCS resumable-upload chunk (default 100 MB): larger objects upload
+    through a resumable session with cursor recovery, smaller ones in one
+    PUT. The session rounds up to the wire's 256 KiB quantum."""
+    return max(1, _get_int(_ENV_GCS_CHUNK, 100 * 1024 * 1024))
+
+
+def get_s3_chunk_bytes() -> int:
+    """S3 multipart part size (default 100 MB): larger objects upload in
+    parts, each retried alone; smaller ones in one PUT. Real S3 needs parts
+    of at least 5 MiB; smaller values serve fake backends in tests."""
+    return max(1, _get_int(_ENV_S3_CHUNK, 100 * 1024 * 1024))
+
+
+def override_faults(spec: str):
+    return _override_env(_ENV_FAULTS, spec)
+
+
+def override_debug_effects(enabled: bool):
+    return _override_env(_ENV_DEBUG_EFFECTS, "1" if enabled else "0")
+
+
+def override_gcs_chunk_bytes(value: int):
+    return _override_env(_ENV_GCS_CHUNK, str(value))
+
+
+def override_s3_chunk_bytes(value: int):
+    return _override_env(_ENV_S3_CHUNK, str(value))

@@ -48,12 +48,15 @@ uninterrupted run, and restores a sync take of the step-6 state into
 zeroed tensors in place; all bit-exact (``dryrun.train_checkpoint_resume``).
 Phase 5 drives the write-path features (compressed, incremental and
 plan-cached takes) on a partial fine-tune of phase 4's transformer at the
-same width, its token and position embeddings and first 4 blocks frozen
+same width (``--phase5-layers``, 4 since phase 11 came; 8 before), its
+token and position embeddings and first half of its blocks frozen
 (``requires_grad=False``, out of the optimizer): steps 1-2, ``async_take``
 to c0 (a prepared-take miss), step 3 racing its drain; ``async_take`` to c1
 (a hit, other values), step 4 racing; a sync take to c2 with ``base=c1``
-(the frozen tensors hard-linked); step 5, a sync take to c3 with zlib and
-member-framed compressed slabs; steps 6-7; then c1, c2 and c3 restored
+(the frozen tensors hard-linked); step 5, a sync take to c3 with slabs
+(``--phase5-codecs``, zlib by default, and zstd where ``zstandard`` is
+installed, one run of the drive each: member-framed compressed slabs);
+steps 6-7; then c1, c2 and c3 restored
 into a fresh model and materialised optimizer, each bit-exact, and steps
 6-7 resumed from c3 bit-identically. c0-c2 are taken without slab
 batching; then, with batching, on the uninterrupted run: step 8,
@@ -65,8 +68,8 @@ It prints the stalls with their phases and cache hits, the deduped bytes
 of c2 and c6 against the frozen bytes and their hard links, c3's raw and
 on-disk bytes and rates, each take's streaming decision and scorecard
 (``TSS_TORCH_STREAM_WRITES=auto``), device memory around each take, and the
-launches. The phase runs again with zstd in place of zlib when
-``zstandard`` imports. Phase 4 prints its takes' streaming decisions too.
+launches. The phase runs once per codec of ``--phase5-codecs`` (``zstd``
+only when ``zstandard`` imports). Phase 4 prints its takes' streaming decisions too.
 Phase 0 also builds the native O_DIRECT I/O engine (``g++``, beside the
 kernels' ``nvcc``) and fails if it does not load.
 Phase 6 drives a serving fleet: two ranks on the one card (gloo) each hold
@@ -120,8 +123,9 @@ moment from the seed, 11.25 GB) is taken with ``async_take(qos=
 "background")``; as soon as its drain has staged its first bytes,
 ``restore(qos="foreground")`` of a snapshot of the same model's weights
 (phase 6's 3.75 GB) goes into a fresh model's live CUDA tensors
-(``dryrun.qos_race``): three interleaved pairs with QoS on and with
-``TSS_TORCH_QOS=0``, the first pair under ``TSS_TORCH_DEBUG_LEDGER=1``.
+(``dryrun.qos_race``): two interleaved pairs (three before phase 11 came)
+with QoS on and with ``TSS_TORCH_QOS=0``, the first pair under
+``TSS_TORCH_DEBUG_LEDGER=1``.
 It prints per race the restore's seconds and GB/s, the drain's seconds
 and the drain engine's ``engine.preemptions`` and
 ``engine.preempted_wait_s`` (its artifact's ``engine`` section), which
@@ -163,10 +167,39 @@ fit) journaled under ``TSS_TORCH_DEBUG_EFFECTS=1`` (t1, t2 a delta of t1,
 ``retain("last=1")``, gc) and explored by ``crash_explorer`` with 2
 interior cuts, a restore into CUDA tensors of every committed snapshot in
 every crash state: 0 violations.
+Phase 11 drives the capture and transfer controls on phase 4's trainer
+at phase 4's width and depth (``--phase11-layers``, 8: 11.25 GB of AdamW
+state in 408 tensors): (a) ``async_take`` with the fork, eager D2H on
+against off (``TSS_TORCH_ASYNC_EAGER_D2H``), two alternating pairs
+(``--phase11-pairs``, cut from 3 for the script's time), each raced by two
+in-place AdamW steps: the stall, the drain, the racing steps' times
+against two unraced ones, the fork's device memory and the ``stage.d2h``
+busy time and bytes of each take's telemetry; the last pair's snapshots
+restore bit-exactly into a second model and optimizer, and the racing
+steps resumed from them give the same state bit for bit. (b)
+``TSS_TORCH_ASYNC_CAPTURE=donate``: a take that keeps the promise commits
+with no K2 launch and no device memory above the live state, and restores
+bit-exactly; a take whose state a training step updates in place before
+its copies end (the card asleep before the capture point) fails at
+``wait()`` with no ``.snapshot_metadata``, and the kept snapshot still
+restores bit-exactly. (c) ``TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES`` at half
+the state: the forked and host-captured leaves and bytes, the stall, a
+bit-exact restore. (d) the state set from the seed and taken, then
+restored into live CUDA tensors with ``TSS_TORCH_RESTORE_OVERLAP`` on
+against off, two pairs, each in a fresh child process (forked from a
+server that has imported torch and the port): the rate, the resident-set
+peak above the child's start (``VmRSS`` sampled every 5 ms: the card's
+kernel reports no ``VmHWM``) and the pinned host allocator's peak, every
+tensor held against its seeded value. (e) two ranks on the card (gloo) at phase 3's depth,
+``LOCAL_WORLD_SIZE`` withheld: each rank's budget (0.6 x ``MemAvailable``
+/ 2) and fs I/O cap (8) from the hostname gather, and a swapped-placement
+restore under overlapped restore with K3 on both ranks, bit-exact.
 Every phase's wall seconds are printed.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
+Every process it starts (ranks, children, the ``multiprocessing``
+forkserver and resource tracker) is stopped and reaped before it exits.
 It exits non-zero too on a host without CUDA. The last line of its output
 is ``{"ok": true, "device": {...}}``.
 """
@@ -188,6 +221,101 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The processes the script starts
+# ---------------------------------------------------------------------------
+
+
+def _become_subreaper() -> None:
+    """Make this process the parent of its orphaned descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so that :func:`_stop_processes` finds a
+    process whose own parent ended first."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants(pid):
+    """``[(pid, state)]`` of every live descendant of ``pid``, from ``/proc``."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        children.setdefault(int(fields[1]), []).append((int(entry), fields[0]))
+    out, todo = [], [pid]
+    while todo:
+        for child, state in children.get(todo.pop(), []):
+            out.append((child, state))
+            todo.append(child)
+    return out
+
+
+def _stop_forkserver() -> None:
+    """End the ``multiprocessing`` forkserver, if one runs, and wait for
+    it. Left alone it would outlive the script: it ends only when it reads
+    EOF on a pipe that this process holds, and then unloads torch first."""
+    import signal
+    from multiprocessing import forkserver
+
+    server = forkserver._forkserver
+    if server._forkserver_pid is None:
+        return
+    try:
+        os.kill(server._forkserver_pid, signal.SIGTERM)
+    except ProcessLookupError:
+        pass
+    server._stop()
+
+
+def _stop_processes(grace_s: float = 10.0):
+    """Stop every process this script started and reap it: the forkserver,
+    the ``multiprocessing`` resource tracker (it ends at EOF on its pipe),
+    then any descendant still alive, SIGTERM first and SIGKILL after
+    ``grace_s``. Returns the pids that had to be signalled."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    _stop_forkserver()
+    tracker = resource_tracker._resource_tracker
+    if tracker._fd is not None:
+        os.close(tracker._fd)
+        tracker._fd = None
+    signalled = []
+    deadline = time.monotonic() + grace_s
+    while True:
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        live = [pid for pid, state in _descendants(os.getpid()) if state != "Z"]
+        if not live:
+            return signalled
+        late = time.monotonic() > deadline
+        if late and time.monotonic() > deadline + grace_s:
+            raise RuntimeError(f"processes {live} survived SIGKILL")
+        for pid in live:
+            if pid == tracker._pid and not late:
+                continue
+            try:
+                os.kill(pid, signal.SIGKILL if late else signal.SIGTERM)
+            except ProcessLookupError:
+                continue
+            if pid not in signalled:
+                signalled.append(pid)
+        time.sleep(0.1)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -859,19 +987,23 @@ def phase4(seed, device, root, card):
 # ---------------------------------------------------------------------------
 
 
-def phase5(seed, device, root, card):
+def phase5(seed, device, root, card, codecs=("zlib", "zstd"), n_layers=4):
+    """``codecs``: c3's codec, one run of the drive each (``zstd`` only
+    where ``zstandard`` is installed; ``none`` takes c3 uncompressed).
+    ``n_layers``: the fine-tune's depth (4 since phase 11 came, cut from
+    8 for the script's time), its first half frozen."""
     from torchsnapshot_tpu_torch import dryrun, kernels
     from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
 
     cfg = TransformerConfig(
-        vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512
+        vocab_size=32000, d_model=4096, n_heads=32, n_layers=n_layers, d_ff=16384, max_seq_len=512
     )
-    try:
-        import zstandard  # noqa: F401
-
-        codecs = ["zlib", "zstd"]
-    except ImportError:
-        codecs = ["zlib"]
+    codecs = list(codecs)
+    if "zstd" in codecs:
+        try:
+            import zstandard  # noqa: F401
+        except ImportError:
+            codecs.remove("zstd")
     log(f"phase5 codecs run: {codecs}; disk free {shutil.disk_usage(root).free} bytes")
     results, launches = {}, {}
     for codec in codecs:
@@ -880,7 +1012,9 @@ def phase5(seed, device, root, card):
         torch.cuda.reset_peak_memory_stats(device)
         kernels.reset_launch_counts()
         t0 = time.monotonic()
-        out = dryrun.frozen_finetune_checkpoints(cfg, root, device=device, batch=4, seed=seed, frozen_blocks=4, codec=codec)
+        out = dryrun.frozen_finetune_checkpoints(
+            cfg, root, device=device, batch=4, seed=seed, frozen_blocks=n_layers // 2, codec=codec
+        )
         out["wall_s"] = time.monotonic() - t0
         launches[codec] = dict(kernels.LAUNCHES)
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -896,7 +1030,7 @@ def phase5(seed, device, root, card):
             log(f"phase5 {codec} {c} take(base={base}, batching {'on' if batched else 'off'}) on {card}: {out[c + '_take_s']:.3f} s, deduped {out[c + '_bytes_deduped']} bytes vs frozen {out['frozen_bytes']}, objects linked {out[c + '_objects_linked']}, samefile {out[c + '_samefile']} of {out[c + '_objects']}, allocated before/after {out[c + '_allocated']}")
         for c in ("c0", "c1", "c2", "c3", "c4", "c5", "c6"):
             log(f"phase5 {codec} {c} stream decision on {card}: {json.dumps(out[c + '_stream'])}")
-        log(f"phase5 {codec} c3 compressed take on {card}: raw {nbytes} bytes, on disk {out['c3_disk_bytes']} bytes (ratio {nbytes / out['c3_disk_bytes']:.4f}), take {out['c3_take_s']:.3f} s ({nbytes / out['c3_take_s'] / 1e9:.3f} GB/s), restore {out['c3_restore_s']:.3f} s ({nbytes / out['c3_restore_s'] / 1e9:.3f} GB/s), allocated before/after {out['c3_allocated']}")
+        log(f"phase5 {codec} c3 take (codec {codec}) on {card}: raw {nbytes} bytes, on disk {out['c3_disk_bytes']} bytes (ratio {nbytes / out['c3_disk_bytes']:.4f}), take {out['c3_take_s']:.3f} s ({nbytes / out['c3_take_s'] / 1e9:.3f} GB/s), restore {out['c3_restore_s']:.3f} s ({nbytes / out['c3_restore_s'] / 1e9:.3f} GB/s), allocated before/after {out['c3_allocated']}")
         restores = ", ".join(f"{c} {nbytes / out[c + '_restore_s'] / 1e9:.3f} GB/s" for c in ("c1", "c2", "c4", "c5", "c6"))
         log(f"phase5 {codec} restores (bit-exact) on {card}: {restores}; step times {out['step_s']}")
         log(f"phase5 {codec} launches on {card}: {json.dumps(launches[codec])}; peak device memory {out['peak_device_bytes']} bytes; wall {out['wall_s']:.1f} s")
@@ -1590,11 +1724,12 @@ def _trainer_cfg(n_layers=8):
     )
 
 
-def phase9a(seed, device, root, card):
+def phase9a(seed, device, root, card, pairs=2):
     """A foreground restore of phase 6's serving weights (3.75 GB) racing
     the background drain of phase 4's trainer state (8 layers, AdamW,
-    11.25 GB) in one process: three interleaved pairs, QoS on and
-    ``TSS_TORCH_QOS=0``; the first pair under ``TSS_TORCH_DEBUG_LEDGER=1``."""
+    11.25 GB) in one process: ``pairs`` interleaved pairs (2, cut from 3
+    for the script's time), QoS on and ``TSS_TORCH_QOS=0``; the first pair
+    under ``TSS_TORCH_DEBUG_LEDGER=1``."""
     import statistics
 
     from torchsnapshot_tpu_torch import dryrun, kernels
@@ -1602,7 +1737,7 @@ def phase9a(seed, device, root, card):
     cfg = _trainer_cfg()
     races = {"on": [], "off": []}
     launches = {"pack_slab": 0, "fork_copy": 0, "copy_blocks": 0}
-    for pair in range(3):
+    for pair in range(pairs):
         for qos in ("on", "off"):
             env = {"TSS_TORCH_QOS": "1" if qos == "on" else "0", "TSS_TORCH_DEBUG_LEDGER": "1" if pair == 0 else None}
             _set_env(env)
@@ -2069,6 +2204,433 @@ def phase10(gb, tp_gb, seed, device, root, card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the capture and transfer controls on the trainer
+# ---------------------------------------------------------------------------
+
+
+def _rss_kib():
+    """(resident KiB now, peak resident KiB, where the peak came from):
+    ``VmRSS`` and ``VmHWM`` of ``/proc/self/status`` where the kernel
+    reports them, else ``/proc/self/statm`` and ``getrusage``'s
+    ``ru_maxrss`` (the same peak, in KiB on Linux)."""
+    import resource
+
+    fields = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in ("VmRSS", "VmHWM") and rest.split():
+                fields[key] = int(rest.split()[0])
+    if "VmRSS" in fields:
+        now = fields["VmRSS"]
+    else:
+        with open("/proc/self/statm") as f:
+            now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+    if "VmHWM" in fields:
+        return now, fields["VmHWM"], "VmHWM"
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss, "ru_maxrss"
+
+
+def phase11d_child(path, seed, layers, overlap, out_path):
+    """Phase 11 (d) in a fresh process (forked from a server that has
+    imported torch and the port, so each restore starts in seconds): a
+    fresh model's live CUDA tensors and the AdamW state as a plain state
+    dict restored from ``path`` with ``TSS_TORCH_RESTORE_OVERLAP`` =
+    ``overlap``, every tensor held against its seeded value; the rate and
+    the process's resident-set peak above its start (``VmRSS`` sampled
+    every 5 ms) go to ``out_path`` as JSON."""
+    import traceback
+
+    try:
+        os.environ["TSS_TORCH_RESTORE_OVERLAP"] = overlap
+        import torchsnapshot_tpu_torch as tts
+        from torchsnapshot_tpu_torch import dryrun, scheduler
+        from torchsnapshot_tpu_torch.utils.rss_profiler import measure_rss_deltas
+
+        t_start = time.monotonic()
+        device = torch.device("cuda", 0)
+        model = dryrun.init_params(_trainer_cfg(layers), seed=seed + 5, device=device)
+        # State i belongs to the model's i-th parameter, as in AdamW.
+        moments = {
+            i: {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+            for i, (_, p) in enumerate(model.named_parameters())
+        }
+        optim = tts.StateDict(state=moments, param_groups=[])
+        torch.cuda.synchronize()
+        rss_before, hwm_before, _ = _rss_kib()
+        deltas = []
+        t0 = time.monotonic()
+        with measure_rss_deltas(deltas, interval_ms=5.0):
+            tts.Snapshot(path).restore({"model": model, "optim": optim})
+            torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _, hwm, source = _rss_kib()
+        host = torch.cuda.host_memory_stats()
+        nbytes = 0
+        for i, (name, p) in enumerate(model.named_parameters()):
+            for label, t in ((name, p), (name + "/exp_avg", moments[i]["exp_avg"]), (name + "/exp_avg_sq", moments[i]["exp_avg_sq"])):
+                if not dryrun.same_bits(t, dryrun.seeded_global(label, t.shape, t.dtype, seed, device)):
+                    raise AssertionError(f"phase11 (d) restore: {label} differs from its seeded value")
+                nbytes += t.numel() * t.element_size()
+            if float(optim["state"][i]["step"]) != float(seed):
+                raise AssertionError(f"phase11 (d) restore: {name}/step")
+        out = {
+            "restore_s": restore_s, "gbps": nbytes / restore_s / 1e9, "state_bytes": nbytes,
+            "rss_before_kib": rss_before, "peak_rss_before_kib": hwm_before, "peak_rss_kib": hwm,
+            "peak_rss_source": source, "rss_peak_above_start_bytes": max(deltas), "rss_samples": len(deltas),
+            "pinned_peak_bytes": host.get("allocated_bytes.peak", 0),
+            "budget_bytes": scheduler.get_process_memory_budget_bytes(None),
+            "child_targets_s": t0 - t_start,
+        }
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase11d_restores(path_d, seed, n_layers, root, card, pairs):
+    """Phase 11 (d)'s ``pairs`` pairs of restores of ``path_d``, overlap
+    on and off, each in a fresh child process (:func:`phase11d_child`)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "torch._dynamo", "torchsnapshot_tpu_torch.dryrun"])
+    restores = {"on": [], "off": []}
+    for pair in range(pairs):
+        for mode in ("on", "off"):
+            out_path = os.path.join(root, f"p11d_{pair}_{mode}.json")
+            t_child = time.monotonic()
+            proc = ctx.Process(
+                target=phase11d_child, args=(path_d, seed, n_layers, "1" if mode == "on" else "0", out_path)
+            )
+            proc.start()
+            proc.join(600)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+                raise AssertionError("phase11 (d): a restore child did not end within 600 s")
+            if proc.exitcode != 0 or not os.path.exists(out_path):
+                raise AssertionError(f"phase11 (d): a restore child exited {proc.exitcode}")
+            with open(out_path) as f:
+                out = json.load(f)
+            if "error" in out:
+                raise AssertionError(f"phase11 (d) child failed: {out['error'][-3000:]}")
+            out["child_wall_s"] = time.monotonic() - t_child
+            restores[mode].append(out)
+            log(f"phase11 (d) pair {pair} overlap {mode} on {card}: {json.dumps(out)}")
+    _stop_forkserver()
+    return restores
+
+
+def phase11e_worker(rank, world_size, gb, seed, root, out_dir):
+    """Phase 11 (e) on one of two ranks sharing the card: phase 3's TP
+    state taken, then restored with swapped placements under overlapped
+    restore (K3 per read); the budget and the fs I/O cap come from the
+    hostname gather (``LOCAL_WORLD_SIZE`` withheld)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels, scheduler
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.utils import knobs
+
+    os.environ.pop("LOCAL_WORLD_SIZE", None)
+    knobs._local_world_size = None
+    os.environ["TSS_TORCH_RESTORE_OVERLAP"] = "1"
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = DeviceMesh("cuda", list(range(world_size)))
+    params = tp_state(gb, seed, device, mesh, "save")
+    path = os.path.join(root, "p11e")
+    tts.Snapshot.take(path, {"model": tts.StateDict(params)})
+    del params
+    mem_available = scheduler._mem_available_bytes()
+    result = {
+        "rank": rank,
+        "local_world_size": knobs.get_local_world_size(),
+        "mem_available_bytes": mem_available,
+        "budget_bytes": scheduler.get_process_memory_budget_bytes(None),
+        "fs_io_cap": knobs.get_max_concurrent_io_for(FSStoragePlugin(root=path)),
+        "direct_io_concurrency": knobs.get_direct_io_concurrency(),
+    }
+    target = {"model": tts.StateDict(tp_state(gb, seed, device, mesh, "swap", zeros=True))}
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    tts.Snapshot(path).restore(target)
+    torch.cuda.synchronize()
+    result["reshard_restore_s"] = time.monotonic() - t0
+    result["launches"] = dict(kernels.LAUNCHES)
+    check_tp_state(dict(target["model"]), gb, seed, device, "swap", "phase11 (e) overlapped reshard restore")
+    result["reshard_restore_gbps"] = _tensor_bytes(dict(target["model"])) / result["reshard_restore_s"] / 1e9
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(path)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase11(seed, device, root, card, n_layers=8, tp_gb=2.0, pairs=2):
+    """The capture and transfer controls on phase 4's trainer (``n_layers``
+    layers, AdamW): (a) eager D2H on and off, (b) ``donate``, (c) the HBM
+    cap at half the state, (d) overlapped restore on and off in fresh
+    processes, (e) two ranks at phase 3's depth. (a) and (d) run
+    ``pairs`` alternating on/off pairs."""
+    import statistics
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import dryrun, io_preparer, kernels, telemetry
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+    from torchsnapshot_tpu_torch.tricks.train_state import init_optimizer_state
+
+    cfg = _trainer_cfg(n_layers)
+    launches = {}
+    summary = {"layers": n_layers, "walls_s": {}}
+    step_no = [0]
+    t_mark = [time.monotonic(), "setup"]
+
+    def mark(name):
+        now = time.monotonic()
+        summary["walls_s"][t_mark[1]] = round(now - t_mark[0], 1)
+        t_mark[:] = [now, name]
+
+    def tokens():
+        step_no[0] += 1
+        return dryrun.tokens_for_step(cfg, step_no[0], 4, seed, device)
+
+    def drive(label, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = dict(kernels.LAUNCHES)
+        return out
+
+    def run(fn):
+        return dryrun._deterministic(fn)
+
+    model = dryrun.init_params(cfg, seed=seed, device=device)
+    optimizer = dryrun.adamw(model.parameters())
+    app = {"model": model, "optim": optimizer}
+    run(lambda: dryrun.train_step(model, optimizer, tokens()))
+    state = dryrun.train_state_tensors(model, optimizer)
+    nbytes = dryrun._state_bytes(state)
+    summary["state_bytes"], summary["n_tensors"] = nbytes, len(state)
+    log(f"phase11 state on {card}: {n_layers} layers, {len(state)} tensors, {nbytes} bytes")
+    model2 = dryrun.init_params(cfg, seed=seed + 1, device=device)
+    optimizer2 = init_optimizer_state(dryrun.adamw(model2.parameters()))
+    app2 = {"model": model2, "optim": optimizer2}
+
+    def restore_into_2(path, what):
+        t0 = time.monotonic()
+        tts.Snapshot(path).restore(app2)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    # (a) eager D2H on against off, alternating pairs, fork capture.
+    mark("a")
+    alone = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        run(lambda: dryrun.train_step(model, optimizer, tokens()))
+        torch.cuda.synchronize()
+        alone.append(time.monotonic() - t0)
+    runs = {"on": [], "off": []}
+    for pair in range(pairs):
+        for mode in ("on", "off"):
+            check = pair == pairs - 1
+            path = os.path.join(root, f"p11a_{mode}_{pair}")
+            copy = [t.detach().clone() for _, t in state] if check else None
+
+            def one():
+                tm = telemetry.Telemetry()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                t0 = time.monotonic()
+                pending = tts.Snapshot.async_take(path, app, _telemetry=tm)
+                stall = time.monotonic() - t0
+                hbm = torch.cuda.max_memory_allocated(device) - base
+                racing, racing_tokens = [], []
+                allocs0 = dryrun._allocations(device)
+                for _ in range(2):
+                    tk = tokens()
+                    racing_tokens.append(tk)
+                    t1 = time.monotonic()
+                    run(lambda: dryrun.train_step(model, optimizer, tk))
+                    torch.cuda.synchronize()
+                    racing.append(time.monotonic() - t1)
+                allocs1 = dryrun._allocations(device)
+                pending.wait()
+                drain = time.monotonic() - t0 - stall
+                d2h_spans = [sp for sp in tm.spans() if sp.name == "stage.d2h"]
+                return {
+                    "stall_s": stall, "drain_s": drain, "racing_step_s": racing, "hbm_overhead_bytes": hbm,
+                    "stage_d2h_busy_s": dryrun._union_s(tm.spans(), ("stage.d2h",)),
+                    "stage_d2h_bytes": sum(sp.attrs.get("nbytes", 0) for sp in d2h_spans),
+                    "drain_stage_d2h_s": pending.drain_stats.get("stage_d2h_s"),
+                    "phases": {k: round(v, 4) for k, v in tts.snapshot.LAST_TAKE_PHASES.items()},
+                    "racing_host_allocs": allocs1["host_allocs"] - allocs0["host_allocs"],
+                    "racing_host_alloc_us": allocs1["host_alloc_us"] - allocs0["host_alloc_us"],
+                }, racing_tokens
+
+            out, racing_tokens = _with_env(
+                {"TSS_TORCH_ASYNC_EAGER_D2H": "1" if mode == "on" else "0"},
+                lambda: drive(f"phase11_a_{mode}_{pair}", one),
+            )
+            if out["stage_d2h_bytes"] < nbytes - 1024:  # the CPU step counters cross no D2H
+                raise AssertionError(f"phase11 (a): stage.d2h covers {out['stage_d2h_bytes']} of {nbytes} bytes")
+            if launches[f"phase11_a_{mode}_{pair}"]["fork_copy"] != 1:
+                raise AssertionError(f"phase11 (a): K2 must launch once: {launches}")
+            if check:
+                # The snapshot is the state at the take, bit for bit; resumed
+                # from it, the racing steps give the same state again.
+                out["restore_s"] = restore_into_2(path, "a")
+                dryrun._check_same_state(
+                    dryrun.train_state_tensors(model2, optimizer2),
+                    [(n, c) for (n, _), c in zip(state, copy)], f"phase11 (a) eager {mode} restore",
+                )
+                del copy
+                for tk in racing_tokens:
+                    run(lambda tk=tk: dryrun.train_step(model2, optimizer2, tk))
+                dryrun._check_same_state(
+                    dryrun.train_state_tensors(model2, optimizer2), dryrun.train_state_tensors(model, optimizer),
+                    f"phase11 (a) eager {mode} resume",
+                )
+            shutil.rmtree(path)
+            runs[mode].append(out)
+            log(f"phase11 (a) pair {pair} eager D2H {mode} on {card}: {json.dumps(out)}")
+    summary["a"] = {
+        "step_alone_s": alone,
+        **{
+            mode: {key: statistics.median(o[key] for o in outs) for key in ("stall_s", "drain_s", "stage_d2h_busy_s", "hbm_overhead_bytes")}
+            | {"racing_step_s": [o["racing_step_s"] for o in outs]}
+            for mode, outs in runs.items()
+        },
+    }
+    log(f"phase11 (a) summary on {card}: {json.dumps(summary['a'])}")
+
+    # (b) donate: a kept promise commits; a broken one fails the take.
+    mark("b")
+    path_b1, path_b2 = os.path.join(root, "p11b_kept"), os.path.join(root, "p11b_broken")
+
+    def kept():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.monotonic()
+        pending = tts.Snapshot.async_take(path_b1, app)
+        stall = time.monotonic() - t0
+        at_return = torch.cuda.max_memory_allocated(device) - base
+        pending.wait()
+        return {"stall_s": stall, "drain_s": time.monotonic() - t0 - stall, "hbm_overhead_bytes": at_return,
+                "hbm_overhead_through_drain_bytes": torch.cuda.max_memory_allocated(device) - base}
+
+    b1 = _with_env({"TSS_TORCH_ASYNC_CAPTURE": "donate"}, lambda: drive("phase11_b_kept", kept))
+    if launches["phase11_b_kept"]["fork_copy"] != 0:
+        raise AssertionError(f"phase11 (b): donate launched K2: {launches['phase11_b_kept']}")
+    b1["restore_s"] = restore_into_2(path_b1, "b")
+    dryrun._check_same_state(dryrun.train_state_tensors(model2, optimizer2), state, "phase11 (b) donate restore")
+
+    def broken():
+        # The card sleeps before the capture point: every copy waits, so the
+        # step's in-place updates are enqueued before any copy ends.
+        torch.cuda._sleep(3_000_000_000)
+        t0 = time.monotonic()
+        pending = tts.Snapshot.async_take(path_b2, app2)
+        stall = time.monotonic() - t0
+        run(lambda: dryrun.train_step(model2, optimizer2, tokens()))
+        try:
+            pending.wait()
+        except tts.snapshot.CheckpointAbortedError as e:
+            return {"stall_s": stall, "raised": type(e).__name__, "detail": str(e)[:300]}
+        raise AssertionError("phase11 (b): a broken donate promise committed")
+
+    b2 = _with_env({"TSS_TORCH_ASYNC_CAPTURE": "donate"}, lambda: drive("phase11_b_broken", broken))
+    if "changed in place" not in b2["detail"] or os.path.exists(os.path.join(path_b2, ".snapshot_metadata")):
+        raise AssertionError(f"phase11 (b): the broken promise did not fail the take as it should: {b2}")
+    b2["previous_restore_s"] = restore_into_2(path_b1, "b previous")
+    dryrun._check_same_state(dryrun.train_state_tensors(model2, optimizer2), state, "phase11 (b) previous snapshot")
+    shutil.rmtree(path_b1)
+    shutil.rmtree(path_b2, ignore_errors=True)
+    summary["b"] = {"kept": b1, "broken": b2, "fork_hbm_overhead_bytes": summary["a"]["on"]["hbm_overhead_bytes"]}
+    log(f"phase11 (b) donate on {card}: kept {json.dumps(b1)}; broken {json.dumps(b2)}; fork HBM overhead (a) {summary['b']['fork_hbm_overhead_bytes']} bytes")
+
+    # (c) the HBM cap at half the state.
+    mark("c")
+    path_c = os.path.join(root, "p11c")
+    before = dict(io_preparer.HOST_CAPTURED)
+
+    def capped():
+        t0 = time.monotonic()
+        pending = tts.Snapshot.async_take(path_c, app)
+        stall = time.monotonic() - t0
+        pending.wait()
+        return {"stall_s": stall, "drain_s": time.monotonic() - t0 - stall}
+
+    c = _with_env({"TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES": str(nbytes // 2)}, lambda: drive("phase11_c", capped))
+    c["captured_leaves"] = io_preparer.HOST_CAPTURED["leaves"] - before["leaves"]
+    c["captured_bytes"] = io_preparer.HOST_CAPTURED["bytes"] - before["bytes"]
+    cuda_leaves = sum(1 for _, t in state if t.is_cuda)
+    cuda_bytes = sum(t.numel() * t.element_size() for _, t in state if t.is_cuda)
+    c["forked_leaves"], c["forked_bytes"] = cuda_leaves - c["captured_leaves"], cuda_bytes - c["captured_bytes"]
+    if not (0 < c["captured_leaves"] < cuda_leaves and c["forked_bytes"] <= nbytes // 2):
+        raise AssertionError(f"phase11 (c): the capped fork did not split: {c}")
+    if launches["phase11_c"]["fork_copy"] < 1:
+        raise AssertionError(f"phase11 (c): K2 did not launch: {launches['phase11_c']}")
+    c["restore_s"] = restore_into_2(path_c, "c")
+    dryrun._check_same_state(dryrun.train_state_tensors(model2, optimizer2), state, "phase11 (c) capped restore")
+    shutil.rmtree(path_c)
+    summary["c"] = c
+    log(f"phase11 (c) HBM cap {nbytes // 2} bytes on {card}: {json.dumps(c)}")
+
+    # (d) overlapped restore on and off, each in a fresh process.
+    mark("d")
+    path_d = os.path.join(root, "p11d")
+    dryrun.fill_from_seed(model, optimizer, seed)
+    drive("phase11_d_take", lambda: tts.Snapshot.take(path_d, app))
+    del model, optimizer, model2, optimizer2, app, app2, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    restores = phase11d_restores(path_d, seed, n_layers, root, card, pairs)
+    shutil.rmtree(path_d)
+    summary["d"] = {
+        mode: {key: statistics.median(o[key] for o in outs) for key in ("gbps", "rss_peak_above_start_bytes", "peak_rss_kib", "pinned_peak_bytes")}
+        | {"gbps_all": [o["gbps"] for o in outs], "rss_peak_above_start_bytes_all": [o["rss_peak_above_start_bytes"] for o in outs],
+           "peak_rss_source": outs[0]["peak_rss_source"]}
+        for mode, outs in restores.items()
+    }
+    log(f"phase11 (d) summary on {card}: {json.dumps(summary['d'])}")
+
+    # (e) two ranks at phase 3's depth.
+    mark("e")
+    out_dir = os.path.join(root, "p11e_out")
+    os.makedirs(out_dir)
+    run_with_processes(phase11e_worker, 2, args=(tp_gb, seed, root, out_dir), timeout_s=600, process_group=True)
+    summary["e"] = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            r = json.load(f)
+        launches[f"phase11_e_rank{rank}"] = r["launches"]
+        if r["local_world_size"] != 2 or r["fs_io_cap"] != 8 or r["launches"]["copy_blocks"] < 1:
+            raise AssertionError(f"phase11 (e) rank {rank}: {r}")
+        want = int(r["mem_available_bytes"] * 0.6 / 2)
+        if not 0.8 * want <= r["budget_bytes"] <= 1.2 * want and r["budget_bytes"] != 32 * 1024**3:
+            raise AssertionError(f"phase11 (e) rank {rank}: budget {r['budget_bytes']} against 0.6 x MemAvailable / 2 = {want}")
+        summary["e"].append(r)
+        log(f"phase11 (e) rank {rank} on {card}: {json.dumps(r)}")
+    mark("end")
+    log(f"phase11 walls on {card}: {json.dumps(summary['walls_s'])}")
+    log(f"phase11 launches on {card}: {json.dumps(launches)}")
+    return launches, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -2080,6 +2642,22 @@ def main() -> int:
         "--phase9-gb", type=float, default=2.0,
         help="size of phase 9 (b)'s FSDP x TP train state over four ranks (whole layers, at least one)",
     )
+    parser.add_argument(
+        "--phase5-codecs", default="zlib,zstd",
+        help="c3's codecs in phase 5, comma-separated (none, zlib, zstd; zstd only where zstandard is installed)",
+    )
+    parser.add_argument(
+        "--phase5-layers", type=int, default=4,
+        help="depth of phase 5's fine-tune, its first half frozen (cut from 8 for the script's time)",
+    )
+    parser.add_argument(
+        "--phase11-layers", type=int, default=8,
+        help="depth of phase 11's trainer at phase 4's width (8: phase 4's 11.25 GB in 408 tensors)",
+    )
+    parser.add_argument(
+        "--phase11-pairs", type=int, default=2,
+        help="alternating on/off pairs in phase 11 (a) and (d) (2, cut from 3 for the script's time)",
+    )
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     # Phase 4 runs cuBLAS deterministically, which needs this before CUDA starts.
@@ -2090,6 +2668,8 @@ def main() -> int:
         return 2
     import torchsnapshot_tpu_torch as tts  # noqa: F401 - fails outside a checkout
     from torchsnapshot_tpu_torch import kernels
+
+    _become_subreaper()
 
     os.environ.setdefault("TSS_TORCH_ENABLE_BATCHING", "1")
     device = torch.device("cuda", 0)
@@ -2142,7 +2722,10 @@ def main() -> int:
         k3_times = timed("K3 timing", lambda: time_k3(device, args.gb, gen))
         ranks = timed("phase3", lambda: phase3(args.phase3_gb, args.seed, root, card))
         launches["phase4"], trainer = timed("phase4", lambda: phase4(args.seed, device, root, card))
-        phase5_launches, finetune = timed("phase5", lambda: phase5(args.seed, device, root, card))
+        phase5_launches, finetune = timed(
+            "phase5",
+            lambda: phase5(args.seed, device, root, card, args.phase5_codecs.split(","), args.phase5_layers),
+        )
         for codec, counts in phase5_launches.items():
             launches[f"phase5_{codec}"] = counts
         phase6_launches, serving = timed("phase6", lambda: phase6(args.seed, device, gen, args.gb, root, card))
@@ -2157,6 +2740,10 @@ def main() -> int:
         launches.update(phase9b_launches)
         phase10_launches, robustness = timed("phase10", lambda: phase10(args.gb, args.phase3_gb, args.seed, device, root, card))
         launches.update(phase10_launches)
+        phase11_launches, controls = timed(
+            "phase11", lambda: phase11(args.seed, device, root, card, args.phase11_layers, args.phase3_gb, args.phase11_pairs)
+        )
+        launches.update(phase11_launches)
         log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2179,6 +2766,7 @@ def main() -> int:
     log(f"phase9 (a) QoS summary on {card}: {json.dumps(qos_summary)}")
     log(f"phase9 (b) FSDP x TP on {card}: {fsdp_tp['layers']} layer(s), {fsdp_tp['state_bytes']} bytes, wall {fsdp_tp['wall_s']:.1f} s")
     log(f"phase10 robustness summary on {card}: {json.dumps(robustness)}")
+    log(f"phase11 capture and transfer controls summary on {card}: {json.dumps(controls)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "
@@ -2217,6 +2805,9 @@ def main() -> int:
         })
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    signalled = _stop_processes()
+    if signalled:
+        print(f"chip_smoke: stopped processes left running: {signalled}", file=sys.stderr, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2227,4 +2818,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        _stop_processes()
+    sys.exit(rc)

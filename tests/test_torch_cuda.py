@@ -616,12 +616,10 @@ def test_transient_storm_commits_and_restores_bit_exact(device, tmp_path, monkey
     state = _robust_state(device)
     monkeypatch.setenv("TSS_TORCH_FAULTS", "seed=0;backoff=0.01;op=write,every=3,kind=transient,times=6")
     monkeypatch.setenv("TSS_TORCH_STREAM_WRITES", "off")
-    from torchsnapshot_tpu_torch import batcher
-
     tm = telemetry.Telemetry()
     # An 8 KiB slab threshold: one K1 slab per small layer and one object
     # per large tensor, enough writes for all six injections.
-    monkeypatch.setattr(batcher, "SLAB_SIZE_THRESHOLD_BYTES", 8192)
+    monkeypatch.setenv("TSS_TORCH_SLAB_SIZE_THRESHOLD_BYTES", "8192")
     with knobs.override_batching_enabled(True):
         kernels.reset_launch_counts()
         tts.Snapshot.take(str(tmp_path / "a"), {"m": tts.StateDict(state)}, _telemetry=tm)
@@ -655,3 +653,145 @@ def test_bit_rot_heals_once_and_persistent_rot_fails(device, tmp_path, monkeypat
     monkeypatch.setenv("TSS_TORCH_FAULTS", "op=read,after=0,kind=corrupt,path=0/m/big3")
     with pytest.raises(ReadVerificationError, match="0/m/big3"):
         _restore_exact(path, state)
+
+
+# ---------------------------------------------------------------------------
+# Capture modes, eager D2H, the HBM cap, overlapped restore
+# ---------------------------------------------------------------------------
+
+
+def _capture_state(device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "w": torch.randn(512, 256, generator=g, device=device).to(torch.bfloat16),
+        "m": torch.randn(512, 256, generator=g, device=device),
+        "b": torch.randn(256, generator=g, device=device),
+        "ids": torch.arange(100, device=device),
+    }
+
+
+def _restored(path, like):
+    target = tts.StateDict({k: torch.zeros_like(v) for k, v in like.items()})
+    tts.Snapshot(path).restore({"m": target})
+    return target
+
+
+@pytest.mark.parametrize("eager", [True, False], ids=["eager", "drain"])
+def test_donate_capture_forks_nothing_and_spends_no_device_memory(device, tmp_path, monkeypatch, eager):
+    monkeypatch.setenv("TSS_TORCH_ASYNC_CAPTURE", "donate")
+    monkeypatch.setenv("TSS_TORCH_ASYNC_EAGER_D2H", "1" if eager else "0")
+    state = _capture_state(device)
+    want = {k: v.clone() for k, v in state.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    kernels.reset_launch_counts()
+    tts.Snapshot.async_take(str(tmp_path / "d"), {"m": tts.StateDict(state)}).wait()
+    assert kernels.LAUNCHES["fork_copy"] == 0
+    assert torch.cuda.max_memory_allocated(device) - base < 1 << 20
+    got = _restored(str(tmp_path / "d"), want)
+    for k, v in want.items():
+        assert torch.equal(_bytes(got[k]), _bytes(v)), k
+
+
+@pytest.mark.parametrize("eager", [True, False], ids=["eager", "drain"])
+def test_donate_broken_promise_fails_the_take(device, tmp_path, monkeypatch, eager):
+    """The caller's stream sleeps before the capture point, so every D2H
+    copy waits; an in-place update enqueued right after ``async_take``
+    returns is certain to precede the copies' end, and the version check
+    must catch it."""
+    monkeypatch.setenv("TSS_TORCH_ASYNC_CAPTURE", "donate")
+    monkeypatch.setenv("TSS_TORCH_ASYNC_EAGER_D2H", "1" if eager else "0")
+    state = _capture_state(device)
+    path = str(tmp_path / "bad")
+    torch.cuda._sleep(2_000_000_000)
+    pending = tts.Snapshot.async_take(path, {"m": tts.StateDict(state)})
+    state["w"].add_(1)  # the promise broken
+    with pytest.raises(tts.snapshot.CheckpointAbortedError) as ei:
+        pending.wait()
+    assert "changed in place" in repr(ei.value)
+    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+
+
+@pytest.mark.parametrize("eager", [True, False], ids=["eager", "drain"])
+def test_eager_d2h_restores_bit_exact_after_in_place_updates(device, tmp_path, monkeypatch, eager):
+    from torchsnapshot_tpu_torch import d2h
+
+    monkeypatch.setenv("TSS_TORCH_ASYNC_EAGER_D2H", "1" if eager else "0")
+    counts = {"submit": 0, "to_host": 0}
+    submit, to_host = d2h.TransferLanes.submit_to_host, d2h.TransferLanes.to_host
+
+    def counted_submit(self, *a, **k):
+        counts["submit"] += 1
+        return submit(self, *a, **k)
+
+    async def counted_to_host(self, *a, **k):
+        counts["to_host"] += 1
+        return await to_host(self, *a, **k)
+
+    monkeypatch.setattr(d2h.TransferLanes, "submit_to_host", counted_submit)
+    monkeypatch.setattr(d2h.TransferLanes, "to_host", counted_to_host)
+    state = _capture_state(device)
+    want = {k: v.clone() for k, v in state.items()}
+    kernels.reset_launch_counts()
+    pending = tts.Snapshot.async_take(str(tmp_path / "e"), {"m": tts.StateDict(state)})
+    for v in state.values():
+        v.add_(1)
+    pending.wait()
+    assert kernels.LAUNCHES["fork_copy"] == 1
+    # Eager: each leaf's hinted copy is what its staging consumes.
+    assert counts == ({"submit": 4, "to_host": 0} if eager else {"submit": 0, "to_host": 4})
+    got = _restored(str(tmp_path / "e"), want)
+    for k, v in want.items():
+        assert torch.equal(_bytes(got[k]), _bytes(v)), k
+
+
+def test_hbm_cap_at_half_forks_what_fits_and_captures_the_rest(device, tmp_path, monkeypatch):
+    state = _capture_state(device)
+    want = {k: v.clone() for k, v in state.items()}
+    total = sum(v.numel() * v.element_size() for v in state.values())
+    group = [state[k] for k in state]
+    expect = []
+    io_preparer._fork_or_capture(
+        [t.cpu() for t in group], lambda g: g, lambda g: g, expect, limit=total // 2
+    )
+    monkeypatch.setenv("TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES", str(total // 2))
+    before = dict(io_preparer.HOST_CAPTURED)
+    kernels.reset_launch_counts()
+    pending = tts.Snapshot.async_take(str(tmp_path / "h"), {"m": tts.StateDict(state)})
+    for v in state.values():
+        v.add_(1)
+    pending.wait()
+    assert io_preparer.HOST_CAPTURED["leaves"] - before["leaves"] == len(expect) > 0
+    assert 0 < io_preparer.HOST_CAPTURED["bytes"] - before["bytes"] < total
+    assert kernels.LAUNCHES["fork_copy"] >= 1
+    got = _restored(str(tmp_path / "h"), want)
+    for k, v in want.items():
+        assert torch.equal(_bytes(got[k]), _bytes(v)), k
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "phase_split"])
+def test_overlapped_restore_into_live_tensors(device, tmp_path, monkeypatch, overlap):
+    monkeypatch.setenv("TSS_TORCH_RESTORE_OVERLAP", "1" if overlap else "0")
+    monkeypatch.setenv("TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES", str(300_000))
+    state = _capture_state(device)
+    path = str(tmp_path / "o")
+    with knobs.override_max_chunk_size_bytes(100_000):
+        tts.Snapshot.take(path, {"m": tts.StateDict(state)})
+    target = tts.StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    ptrs = {k: v.data_ptr() for k, v in target.items()}
+    tts.Snapshot(path).restore({"m": target})
+    for k, v in state.items():
+        assert target[k].data_ptr() == ptrs[k]
+        assert torch.equal(_bytes(target[k]), _bytes(v)), k
+
+
+def _overlap_reshard(rank, world_size, root):
+    os.environ["TSS_TORCH_RESTORE_OVERLAP"] = "1"
+    _two_rank_reshard(rank, world_size, root)
+
+
+def test_overlapped_reshard_into_dtensors(device, tmp_path):
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_overlap_reshard, 2, args=(str(tmp_path),), process_group=True)

@@ -692,10 +692,8 @@ def _worker_env(endpoint):
     os.environ["TSS_TORCH_ENABLE_BATCHING"] = "1"
     os.environ["TSS_TORCH_COMPRESSION"] = "zlib"
     os.environ["TSS_TORCH_GCS_CHUNK_BYTES"] = str(CHUNK_BYTES)
-    from torchsnapshot_tpu_torch import batcher
-
     # Objects above 8 KiB stand alone, as the JAX test's slab threshold.
-    batcher.SLAB_SIZE_THRESHOLD_BYTES = 8192
+    os.environ["TSS_TORCH_SLAB_SIZE_THRESHOLD_BYTES"] = "8192"
 
 
 def _worker_cloud_composition(rank, world_size, endpoint, prefix):

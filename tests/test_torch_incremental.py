@@ -85,7 +85,7 @@ def test_unchanged_objects_are_linked_changed_ones_written(tmp_path, monkeypatch
     monkeypatch.setenv("TSS_TORCH_ENABLE_BATCHING", "1" if batching else "0")
     # Slabs close at 128 bytes here: the four frozen 32-byte members fill
     # one slab, the live ones another.
-    monkeypatch.setattr("torchsnapshot_tpu_torch.batcher.SLAB_SIZE_THRESHOLD_BYTES", 128)
+    monkeypatch.setenv("TSS_TORCH_SLAB_SIZE_THRESHOLD_BYTES", "128")
     tree0 = _tree(0)
     base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
     tts.Snapshot.take(base, {"m": tts.StateDict(from_numpy_tree(tree0, device="cpu"))})

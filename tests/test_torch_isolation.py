@@ -17,7 +17,8 @@ PORT = os.path.join(REPO, "torchsnapshot_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    # The GPU tests run on a host without JAX (``--noconftest``).
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_cuda.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

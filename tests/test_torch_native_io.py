@@ -321,3 +321,96 @@ def test_knobs_match_the_jax_package(monkeypatch):
     monkeypatch.setenv("TSS_TORCH_DIRECT_IO_CONCURRENCY", "3")
     assert knobs.get_direct_io_concurrency() == 3
     assert FSStoragePlugin.scales_io_with_local_world is True
+
+
+# ---------------------------------------------------------------------------
+# The per-rank budget and the I/O cap of ranks sharing a host
+# ---------------------------------------------------------------------------
+
+_AVAILABLE = 10 * 1024**3 + 12345
+
+
+class _VM:
+    available = _AVAILABLE
+
+
+@pytest.mark.parametrize("local_world", [1, 2, 4])
+def test_budget_and_io_cap_match_the_jax_package(monkeypatch, local_world):
+    from torchsnapshot_tpu import scheduler as jsched
+    from torchsnapshot_tpu.storage_plugins.memory import MemoryStoragePlugin as JaxMemory
+
+    from torchsnapshot_tpu_torch import scheduler
+    from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
+
+    monkeypatch.setattr(jsched.psutil, "virtual_memory", lambda: _VM())
+    monkeypatch.setattr(scheduler, "_mem_available_bytes", lambda: _AVAILABLE)
+    monkeypatch.setattr(jax_knobs, "_local_world_size", local_world)
+    monkeypatch.setattr(knobs, "_local_world_size", local_world)
+    for prefix in ("TSS_TORCH_", "TORCHSNAPSHOT_TPU_"):
+        monkeypatch.delenv(prefix + "PER_RANK_MEMORY_BUDGET_BYTES", raising=False)
+        monkeypatch.delenv(prefix + "MAX_CONCURRENT_IO", raising=False)
+    budget = scheduler.get_process_memory_budget_bytes(None)
+    assert budget == jsched.get_process_memory_budget_bytes(None) == int(_AVAILABLE * 0.6 / local_world)
+    fs = FSStoragePlugin(root="/nonexistent-root")
+    assert knobs.get_max_concurrent_io_for(fs) == jax_knobs.get_max_concurrent_io_for(JaxFSPlugin(root="/x"))
+    assert knobs.get_max_concurrent_io_for(fs) == 16 // local_world
+    assert knobs.get_max_concurrent_io_for(MemoryStoragePlugin(root="io_cap")) == 16
+    assert jax_knobs.get_max_concurrent_io_for(JaxMemory(root="io_cap")) == 16
+    # The override replaces the derived budget verbatim, in both packages.
+    monkeypatch.setenv("TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES", "777")
+    monkeypatch.setenv("TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES", "777")
+    assert scheduler.get_process_memory_budget_bytes(None) == jsched.get_process_memory_budget_bytes(None) == 777
+
+
+def test_budget_reads_mem_available_not_free_pages():
+    """``MemAvailable`` counts the reclaimable page cache, which free pages
+    (``SC_AVPHYS_PAGES``) leave out."""
+    from torchsnapshot_tpu_torch import scheduler
+
+    with open("/proc/meminfo") as f:
+        fields = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    got = scheduler._mem_available_bytes()
+    # Both read the same moment's meminfo within a few MB of churn.
+    assert abs(got - fields["MemAvailable"]) < 256 * 1024**2
+
+
+def _cohosted_worker(rank, world_size, root):
+    """Two ranks on one host: the take's write pipeline plans against half
+    of 0.6 x MemAvailable and runs 8 storage operations, learned from the
+    hostname gather (LOCAL_WORLD_SIZE is withheld here)."""
+    import json
+
+    from torchsnapshot_tpu_torch import scheduler, snapshot
+
+    os.environ.pop("LOCAL_WORLD_SIZE", None)
+    knobs._local_world_size = None
+    scheduler._mem_available_bytes = lambda: _AVAILABLE
+    seen = []
+    real = snapshot.sync_execute_write_reqs
+
+    def spy(write_reqs, storage, budget, *a, **k):
+        pending = real(write_reqs, storage, budget, *a, **k)
+        seen.append((budget, pending._pipeline.io_cap))
+        return pending
+
+    snapshot.sync_execute_write_reqs = spy
+    state = {"m": tts.StateDict(w=torch.full((64,), float(rank)))}
+    tts.Snapshot.take(os.path.join(root, "a"), state)
+    tts.Snapshot.take(os.path.join(root, "b"), state)  # a plan-cache hit
+    restored = tts.StateDict(w=torch.zeros(64))
+    tts.Snapshot(os.path.join(root, "b")).restore({"m": restored}, device="cpu")
+    assert torch.equal(restored["w"], state["m"]["w"])
+    with open(os.path.join(root, f"seen.{rank}.json"), "w") as f:
+        json.dump({"seen": seen, "local": knobs.get_local_world_size()}, f)
+
+
+def test_cohosted_ranks_split_the_budget_and_the_io_cap(tmp_path):
+    import json
+
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_cohosted_worker, 2, args=(str(tmp_path),))
+    for rank in range(2):
+        got = json.loads((tmp_path / f"seen.{rank}.json").read_text())
+        assert got["local"] == 2
+        assert got["seen"] == [[int(_AVAILABLE * 0.6 / 2), 8]] * 2

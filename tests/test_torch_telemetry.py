@@ -33,17 +33,15 @@ from torchsnapshot_tpu_torch.engine.intervals import measure, merge_intervals
 # - the take phases: the port keeps the phase names its LAST_TAKE_PHASES
 #   always had (flatten, fingerprint, ..., rng_restore), where the JAX
 #   package's are gather_keys_and_flatten, prepare_write, partition, ...;
-# - stage.prepare.d2h_hint / stage.prepare.plan: the port has no D2H hint
-#   step, and its prepare is one stager-construction pass
+#   both record the d2h_hint phase and its stage.prepare.d2h_hint bucket;
+# - stage.prepare.plan: the port's prepare is one stager-construction pass
 #   (stage.prepare.stager_construction, which the JAX package also has).
 PHASES_JAX_ONLY = {
     "gather_keys_and_flatten",
     "prepare_write",
     "partition",
-    "d2h_hint",
     "manifest_gather",
     "memory_budget",
-    "stage.prepare.d2h_hint",
     "stage.prepare.plan",
 }
 PHASES_PORT_ONLY = {

@@ -198,8 +198,8 @@ def _cmd_trace(args: argparse.Namespace) -> int:
     import asyncio
 
     from . import telemetry
+    from .utils import knobs
     from .io_types import ReadIO
-    from .scheduler import MAX_CONCURRENT_IO
     from .snapshot import Snapshot, _manifest_storage_locations
     from .storage_plugin import url_to_storage_plugin
 
@@ -220,7 +220,7 @@ def _cmd_trace(args: argparse.Namespace) -> int:
                 # in flight (each treated as one-eighth of the budget),
                 # further capped by the IO-concurrency knob — tracing a
                 # snapshot of 512 MB shards can't OOM a small operator VM.
-                sem = asyncio.Semaphore(min(8, MAX_CONCURRENT_IO))
+                sem = asyncio.Semaphore(min(8, knobs.get_max_concurrent_io_for(storage)))
                 total = 0
 
                 async def read_one(path: str) -> None:

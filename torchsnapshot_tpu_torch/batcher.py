@@ -1,6 +1,7 @@
 """Small-write batching: coalesce many small tensors into slab objects.
 
-Every raw tensor below :data:`SLAB_SIZE_THRESHOLD_BYTES` joins a
+Every raw tensor below the slab threshold
+(``TSS_TORCH_SLAB_SIZE_THRESHOLD_BYTES``, 128 MiB) joins a
 ``batched/<uuid>`` slab; its entry is relocated with ``byte_range``. The
 member byte sizes are known from (shape, dtype) at planning time, so the
 slab layout is fixed before any data moves. Members are sorted
@@ -12,8 +13,14 @@ A slab whose members are all tensors of one device and of a packable
 dtype is staged by :class:`DeviceBatchedBufferStager` over kernel K1
 (:func:`..kernels.pack_slab`): one launch packs the slab on the card, and
 one D2H copy fetches it. There is no fallback to host packing for CUDA
-members: a failed pack raises. Other slabs concatenate their members'
-staged bytes on the host (:class:`BatchedBufferStager`).
+members: a failed pack raises. Other slabs, and every slab with
+``TSS_TORCH_DEVICE_BATCHING=0``, concatenate their members' staged bytes on
+the host (:class:`BatchedBufferStager`).
+
+Eager D2H (``start_d2h_hint``): a host-concatenated slab hints each member,
+a compressed slab its inner slab; a device-packed slab hints nothing (its
+pack would run inside the stall and hold the packed slab on the card until
+the drain).
 
 Compressed small tensors (``raw_zstd``/``raw_zlib``, unframed, not shard
 pieces) form slabs of their own, one codec per slab: the slab is packed
@@ -24,6 +31,7 @@ unknown at planning, so the manifest gives each member its raw range
 bytes (:class:`SlabFrameTableStager`).
 
 The read side merges adjacent byte ranges of one object into one read,
+and near-adjacent ones up to ``TSS_TORCH_READ_MERGE_GAP_BYTES`` apart,
 except the framed groups of a big compressed object (``merge_exempt``).
 """
 
@@ -41,10 +49,7 @@ from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayBufferStager, PollingTa
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .serialization import COMPRESSED, Serializer, array_nbytes, compress_member_framed
-
-# Slabs close at this size; smaller tensors join them (the JAX package's
-# default threshold).
-SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
+from .utils import knobs
 
 
 def _collect_array_entries(entries: List[Entry]) -> Dict[str, ArrayEntry]:
@@ -89,6 +94,10 @@ class BatchedBufferStager(BufferStager):
     def get_staging_cost_bytes(self) -> int:
         return self.total
 
+    def start_d2h_hint(self, lanes: d2h.TransferLanes, stream: bool = False) -> None:
+        for req, _, _ in self.members:
+            req.buffer_stager.start_d2h_hint(lanes)
+
 
 class DeviceBatchedBufferStager(BatchedBufferStager):
     """Packs the members into one uint8 slab with K1 on their device, then
@@ -118,7 +127,12 @@ class DeviceBatchedBufferStager(BatchedBufferStager):
             raise RuntimeError(
                 f"Device-packed slab is {host.numel()} bytes, planned {self.total}"
             )
+        for s in stagers:
+            s.check_version()
         return memoryview(host.numpy())
+
+    def start_d2h_hint(self, lanes: d2h.TransferLanes, stream: bool = False) -> None:
+        pass  # packed and fetched in the drain
 
 
 class CompressedSlabStager(BufferStager):
@@ -169,6 +183,9 @@ class CompressedSlabStager(BufferStager):
         # The raw slab and its compressed output coexist.
         return 2 * self.inner.get_staging_cost_bytes()
 
+    def start_d2h_hint(self, lanes: d2h.TransferLanes, stream: bool = False) -> None:
+        self.inner.start_d2h_hint(lanes)
+
 
 class SlabFrameTableStager(PollingTableStager):
     """A compressed slab's ``.ftab``: per-frame raw and compressed sizes
@@ -188,6 +205,8 @@ def _device_key(req: WriteReq) -> str:
 
 
 def _device_packable(members: List[Tuple[WriteReq, int, int]]) -> bool:
+    if not knobs.is_device_batching_enabled():
+        return False
     stagers = [req.buffer_stager for req, _, _ in members]
     if not all(isinstance(s, ArrayBufferStager) for s in stagers):
         return False
@@ -204,7 +223,7 @@ def batch_write_requests(
     Mutates the members' entries in place (new ``location`` and
     ``byte_range``, or ``raw_range`` when compressed); runs before the
     manifest is serialized."""
-    threshold = SLAB_SIZE_THRESHOLD_BYTES
+    threshold = knobs.get_slab_size_threshold_bytes()
     by_location = _collect_array_entries(entries)
     # Shard pieces never join compressed slabs: the sharded read path
     # speaks file byte ranges, not raw slab coordinates.
@@ -353,12 +372,18 @@ def batch_read_requests(
     read_reqs: List[ReadReq],
     max_merged_bytes: Optional[int] = None,
     merge_large: bool = False,
+    merge_gap_bytes: Optional[int] = None,
 ) -> List[ReadReq]:
-    """Merge exactly adjacent small byte-range reads per object into one
-    read, each merged run capped at ``max_merged_bytes``. ``merge_large``
+    """Merge adjacent small byte-range reads per object into one read,
+    each merged run capped at ``max_merged_bytes``. ``merge_gap_bytes``
+    (default ``TSS_TORCH_READ_MERGE_GAP_BYTES``, 0) also merges ranges at
+    most that many bytes apart: the gap is read and dropped, and each
+    member consumer still receives exactly its own range. ``merge_large``
     merges large reads too, as the JAX package does: over a read cache a
     slab read whole populates one whole entry, where its members' ranges
     would each cover its hash chunks only in part."""
+    if merge_gap_bytes is None:
+        merge_gap_bytes = knobs.get_read_merge_gap_bytes()
     member_cap = None if merge_large else _MERGE_MAX_MEMBER_BYTES
     ranged: Dict[str, List[ReadReq]] = {}
     out: List[ReadReq] = []
@@ -391,7 +416,8 @@ def batch_read_requests(
 
         for req in reqs:
             if run and (
-                req.byte_range[0] != run[-1].byte_range[1]
+                req.byte_range[0] - run[-1].byte_range[1] > merge_gap_bytes
+                or req.byte_range[0] < run[-1].byte_range[1]
                 or (
                     max_merged_bytes is not None
                     and req.byte_range[1] - run[0].byte_range[0] > max_merged_bytes

@@ -44,7 +44,7 @@ from .engine import qos as engine_qos
 from .io_preparer import is_dtensor
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
-from .scheduler import MAX_CONCURRENT_IO, _read_digest_record, _verify_checker, verified_fetch
+from .scheduler import _read_digest_record, _verify_checker, verified_fetch
 from .serialization import COMPRESSED, array_nbytes
 from .storage_plugins.cloud_retry import CollectiveProgress
 from .utils import knobs
@@ -306,7 +306,7 @@ def run_broadcast(
     pending_count = [len(keys)]
 
     async def fetch_assigned() -> None:
-        sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+        sem = asyncio.Semaphore(knobs.get_max_concurrent_io_for(storage))
 
         async def fetch_one(key: Key) -> None:
             idx = key_to_idx[key]

@@ -9,8 +9,13 @@ event *on the lane thread* before it hands the host tensor on. Nothing
 downstream (hasher, writer) can therefore see a buffer whose copy is still
 in flight. Pinned buffers come from PyTorch's caching host allocator,
 which pools them across transfers. A byte window bounds the transfers in
-flight; every byte of it belongs to a staging reservation already debited
-against the pipeline's memory budget.
+flight (``TSS_TORCH_D2H_WINDOW_BYTES``, over ``TSS_TORCH_D2H_LANES``
+threads); every byte of it belongs to a staging reservation already
+debited against the pipeline's memory budget, except the eager copies an
+``async_take`` submits before it returns (:meth:`TransferLanes.submit_to_host`):
+their pinned buffers sit outside the budget, bounded by the captured
+state. A transfer may carry a ``check`` that runs on the lane once its
+copy has completed (the zero-copy capture's version check).
 
 A strided CUDA source (a piece of a shard cut along an inner dim) is first
 gathered into a contiguous device buffer by kernel K3 on the lane's
@@ -45,16 +50,12 @@ import asyncio
 import contextvars
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from . import kernels
-
-_LANES = 4
-# Device-to-host bytes in flight at once on the lanes.
-_WINDOW_BYTES = 512 * 1024 * 1024
 
 
 def require_cuda(device) -> torch.device:
@@ -138,9 +139,12 @@ class StageTimes:
 
 
 class TransferLanes:
-    def __init__(self, lanes: int = _LANES, window_bytes: int = _WINDOW_BYTES) -> None:
+    def __init__(self, lanes: int, window_bytes: int, times: Optional[StageTimes] = None) -> None:
         self._executor = ThreadPoolExecutor(max_workers=lanes, thread_name_prefix="tss-d2h")
         self.window_bytes = window_bytes
+        # The pipeline's sub-stream record, for transfers submitted outside
+        # its staging context (the eager copies).
+        self.times = times
         self._cond = threading.Condition()
         self._outstanding = 0
 
@@ -165,6 +169,7 @@ class TransferLanes:
         sources: Sequence[torch.Tensor],
         times: Optional[StageTimes] = None,
         path: str = "",
+        check: Optional[Callable[[], None]] = None,
     ) -> torch.Tensor:
         self._admit(nbytes)
         try:
@@ -183,25 +188,50 @@ class TransferLanes:
             done.synchronize()
             if times is not None:
                 times.record("d2h", t0, time.monotonic(), path=path, nbytes=nbytes)
+            if check is not None:
+                check()
             return host
         finally:
             self._release(nbytes)
 
-    async def to_host(
-        self, src: torch.Tensor, wait: Optional[torch.cuda.Event] = None, path: str = ""
-    ) -> torch.Tensor:
-        """A pinned, C-contiguous host copy of CUDA tensor ``src`` (a
-        ``stage.d2h`` of ``path``)."""
-
+    @staticmethod
+    def _copy_out(src: torch.Tensor) -> Callable[[torch.cuda.Stream], torch.Tensor]:
         def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
             dense = src if src.is_contiguous() else kernels.gather(src, stream)
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             host.copy_(dense, non_blocking=True)
             return host
 
+        return enqueue
+
+    async def to_host(
+        self,
+        src: torch.Tensor,
+        wait: Optional[torch.cuda.Event] = None,
+        path: str = "",
+        check: Optional[Callable[[], None]] = None,
+    ) -> torch.Tensor:
+        """A pinned, C-contiguous host copy of CUDA tensor ``src`` (a
+        ``stage.d2h`` of ``path``); ``check`` runs once the copy is done."""
         nbytes = src.numel() * src.element_size()
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._run, src.device, nbytes, wait, enqueue, [src], current_times(), path
+            self._executor, self._run, src.device, nbytes, wait, self._copy_out(src), [src],
+            current_times(), path, check,
+        )
+
+    def submit_to_host(
+        self,
+        src: torch.Tensor,
+        wait: Optional[torch.cuda.Event] = None,
+        path: str = "",
+        check: Optional[Callable[[], None]] = None,
+    ) -> "Future[torch.Tensor]":
+        """:meth:`to_host` from outside the event loop: returns at once
+        with the future of the pinned host copy. The pinned allocation and
+        the enqueue run on a lane thread, never on the caller's."""
+        nbytes = src.numel() * src.element_size()
+        return self._executor.submit(
+            self._run, src.device, nbytes, wait, self._copy_out(src), [src], self.times, path, check
         )
 
     async def run_to_host(
@@ -228,7 +258,8 @@ class TransferLanes:
         )
 
     def shutdown(self) -> None:
-        self._executor.shutdown(wait=True)
+        # Eager copies no staging took (an aborted take) are not started.
+        self._executor.shutdown(wait=True, cancel_futures=True)
 
 
 class StagingContext:

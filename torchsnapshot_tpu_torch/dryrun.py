@@ -605,7 +605,8 @@ def frozen_finetune_checkpoints(
     3. a sync ``take`` to ``c2`` with ``base=c1``: the frozen tensors are
        hard-linked from ``c1``;
     4. step 5, a sync ``take`` to ``c3`` with ``codec`` compression and slab
-       batching (member-framed compressed slabs, packed by K1);
+       batching (member-framed compressed slabs, packed by K1; ``none``:
+       plain slabs);
     5. steps 6-7 of the uninterrupted run;
     6. ``c1``, ``c2`` and ``c3`` restored into a fresh model and a
        materialised optimizer, each equal to its step's copy bit for bit;

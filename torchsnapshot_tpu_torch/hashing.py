@@ -27,6 +27,7 @@ import zlib
 from typing import Any, List, Optional, Sequence, Tuple
 
 from . import telemetry
+from .utils import knobs
 
 
 # ---------------------------------------------------------------------------
@@ -486,9 +487,10 @@ class ChunkHasher:
     independent job on ``executor``; ``finalize()`` gathers the per-chunk
     digests in order and combines them into a sidecar record.
 
-    At most ``max_inflight`` chunk jobs are dispatched and unfinished at
-    once (``feed`` awaits past that), which bounds the staged views the
-    hash backlog keeps alive to ``max_inflight x grain`` bytes."""
+    At most ``max_inflight`` chunk jobs (default twice the hash pool's
+    width) are dispatched and unfinished at once (``feed`` awaits past
+    that), which bounds the staged views the hash backlog keeps alive to
+    ``max_inflight x grain`` bytes."""
 
     def __init__(
         self,
@@ -496,7 +498,7 @@ class ChunkHasher:
         want_sha: bool,
         loop: asyncio.AbstractEventLoop,
         executor,
-        max_inflight: int = 8,
+        max_inflight: Optional[int] = None,
         times: Optional[Any] = None,
         path: str = "",
     ) -> None:
@@ -509,6 +511,8 @@ class ChunkHasher:
         self._parts: List[memoryview] = []
         self._filled = 0
         self._futures: List[asyncio.Future] = []
+        if max_inflight is None:
+            max_inflight = 2 * knobs.get_hash_workers()
         self._sem = asyncio.Semaphore(max(1, max_inflight))
         self._times = times
         self._path = path

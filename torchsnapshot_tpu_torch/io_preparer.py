@@ -29,11 +29,21 @@ stream with edges in both directions:
   the next in-place update cannot overwrite a tensor before the fork has
   read it.
 
-The forks' D2H runs later, in the background drain, after the same
-completion event. When the fork runs out of device memory, the group is
-bisected (depth 2) so what fits stays forked; the leaves that still do not
-fit are captured through pinned host RAM before ``async_take`` returns,
-with a warning and a count in :data:`HOST_CAPTURED`.
+The forks' D2H runs later (eagerly on the transfer lanes, or in the
+background drain), after the same completion event. When the fork runs
+out of device memory (a real ``torch.cuda.OutOfMemoryError``, or the
+cumulative forked bytes passing ``TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES``),
+the group is bisected (depth 2) so what fits stays forked; the leaves that
+still do not fit are captured through pinned host RAM before
+``async_take`` returns, with a warning and a count in
+:data:`HOST_CAPTURED`. The decision is :func:`_fork_or_capture`, a plain
+function the CPU tests drive with a CPU fork.
+
+Under ``TSS_TORCH_ASYNC_CAPTURE=donate`` (or ``ASYNC_DEVICE_COPY=0``) CUDA
+tensors are captured zero-copy: no K2 launch and no device memory. The
+caller promises not to change them in place until the snapshot commits;
+each captured tensor's version counter is checked once its D2H has
+completed, and a broken promise fails the take.
 """
 
 from __future__ import annotations
@@ -48,12 +58,13 @@ import torch
 
 from . import d2h, kernels
 from .io_types import WriteReq
-from .io_preparers.array import ArrayIOPreparer, is_pickled_array
+from .io_preparers.array import ArrayBufferStager, ArrayIOPreparer, is_pickled_array
 from .io_preparers.chunked_array import ChunkedArrayIOPreparer, should_chunk, should_chunk_pickled
 from .io_preparers.object import ObjectIOPreparer
 from .io_preparers.sharded_array import DTensorLeaf, ShardedArrayIOPreparer, dtensor_leaf
 from .manifest import PRIMITIVE_TYPES, Manifest, PrimitiveEntry
 from .serialization import numpy_dtype_to_string
+from .utils import knobs
 
 logger = logging.getLogger(__name__)
 
@@ -129,26 +140,43 @@ def _host_capture_group(group: List[torch.Tensor], stream: torch.cuda.Stream) ->
     return outs
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _fork_or_capture(
     group: List[torch.Tensor],
     fork: Callable[[List[torch.Tensor]], List[torch.Tensor]],
     capture: Callable[[List[torch.Tensor]], List[torch.Tensor]],
     captured: List[torch.Tensor],
     depth: int = 0,
+    limit: Optional[int] = None,
+    forked_bytes: Optional[List[int]] = None,
 ) -> List[torch.Tensor]:
     """Fork ``group``; on ``torch.cuda.OutOfMemoryError`` bisect so what
-    fits stays forked, and capture the rest through host RAM."""
+    fits stays forked, and capture the rest through host RAM. ``limit``
+    (``TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES``) makes a fork that would
+    bring the take's cumulative forked bytes (``forked_bytes[0]``) above
+    it count as out of memory, before it runs."""
+    forked_bytes = forked_bytes if forked_bytes is not None else [0]
+    need = sum(_nbytes(t) for t in group)
     try:
-        return fork(group)
+        if limit is not None and forked_bytes[0] + need > limit:
+            raise torch.cuda.OutOfMemoryError(
+                f"simulated device memory limit ({forked_bytes[0]} + {need} > {limit} bytes)"
+            )
+        out = fork(group)
+        forked_bytes[0] += need
+        return out
     except torch.cuda.OutOfMemoryError:
         pass
     if len(group) == 1 or depth >= _MAX_FORK_BISECT_DEPTH:
         captured.extend(group)
         return capture(group)
     mid = len(group) // 2
-    return _fork_or_capture(group[:mid], fork, capture, captured, depth + 1) + _fork_or_capture(
-        group[mid:], fork, capture, captured, depth + 1
-    )
+    return _fork_or_capture(
+        group[:mid], fork, capture, captured, depth + 1, limit, forked_bytes
+    ) + _fork_or_capture(group[mid:], fork, capture, captured, depth + 1, limit, forked_bytes)
 
 
 def _defensive_device_copies(
@@ -162,6 +190,9 @@ def _defensive_device_copies(
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     events: Dict[torch.device, torch.cuda.Event] = {}
     captured: List[torch.Tensor] = []
+    limit = knobs.get_async_fork_hbm_limit_bytes()
+    # Cumulative forked bytes of this take, for the simulated limit.
+    forked_bytes = [0]
     for device, indices in groups.items():
         current = torch.cuda.current_stream(device)
         stream = d2h.side_stream(device, "fork")
@@ -171,6 +202,8 @@ def _defensive_device_copies(
             lambda g: kernels.fork_copy(g, stream=stream),
             lambda g: _host_capture_group(g, stream),
             captured,
+            limit=limit,
+            forked_bytes=forked_bytes,
         )
         done = torch.cuda.Event()
         done.record(stream)
@@ -179,7 +212,7 @@ def _defensive_device_copies(
         for i, c in zip(indices, copies):
             out[i] = c
     if captured:
-        nbytes = sum(t.numel() * t.element_size() for t in captured)
+        nbytes = sum(_nbytes(t) for t in captured)
         HOST_CAPTURED["leaves"] += len(captured)
         HOST_CAPTURED["bytes"] += nbytes
         logger.warning(
@@ -204,10 +237,15 @@ def capture_flattened(
     """Replace CUDA tensor leaves, and the local shards of DTensor leaves,
     by private captures (their K2 forks). Returns the new dict (the input
     is not mutated), the captured paths, and the per-device events after
-    which the forks are final."""
+    which the captures are final. Under a zero-copy capture (``donate``,
+    or the device copy off) the leaves stay as they are; the events mark
+    the caller's streams, and the stagers check the tensors' versions."""
     paths = [p for p, v in flattened.items() if cuda_source(v) is not None]
     if not paths:
         return flattened, set(), {}
+    if knobs.get_async_capture_mode() == "donate":
+        devices = {cuda_source(flattened[p]).device for p in paths}
+        return flattened, set(paths), {dev: d2h.ready_event(dev) for dev in devices}
     copies, events = _defensive_device_copies(
         [cuda_source(flattened[p]).detach() for p in paths]
     )
@@ -237,9 +275,10 @@ def prepare_write(
 
     ``ready``: per CUDA device, the event after which the tensors to stage
     are final (the caller's stream at take time, or the fork's event).
-    ``captured_paths``: leaves that are already private captures
-    (:func:`capture_flattened`); nothing the caller does can reach them, so
-    their staging is deferred past ``async_take``'s return.
+    ``captured_paths``: leaves that are already captures
+    (:func:`capture_flattened`): private forks, or zero-copy captures
+    under the caller's promise; their staging is deferred past
+    ``async_take``'s return, and each CUDA one's version is pinned.
     ``leaf_index``: filled with each leaf's write requests (for the
     prepared-take cache)."""
     manifest: Manifest = {}
@@ -281,8 +320,7 @@ def _prepare_leaf(
             ready.get(value.local.device),
         )
         manifest[logical_path] = entry
-        for r in reqs:
-            r.defer_staging = captured
+        _mark_captured(reqs, captured)
         write_reqs.extend(reqs)
         return
     if isinstance(value, DTensorLeaf):
@@ -310,6 +348,13 @@ def _prepare_leaf(
         dtype_str,
     )
     manifest[logical_path] = entry
+    _mark_captured(reqs, captured)
+    write_reqs.extend(reqs)
+
+
+def _mark_captured(reqs: List[WriteReq], captured: bool) -> None:
+    """Defer a captured leaf's staging and pin its tensors' versions."""
     for r in reqs:
         r.defer_staging = captured
-    write_reqs.extend(reqs)
+        if captured and isinstance(r.buffer_stager, ArrayBufferStager):
+            r.buffer_stager.pin_version()

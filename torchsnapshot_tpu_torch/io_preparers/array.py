@@ -7,6 +7,18 @@ lanes (``d2h.py``), after the event that marks it ready. A CPU tensor is
 staged zero-copy in a sync take; in an async take it is copied first, so
 training may mutate it as soon as ``async_take`` returns.
 
+Eager D2H (:meth:`ArrayBufferStager.start_d2h_hint`): an ``async_take``
+submits the copy of a captured CUDA tensor to the lanes before it returns;
+the staging in the drain then consumes that pinned host tensor instead of
+transferring again. A request that will stream hints its first chunk only;
+the later chunks follow one ahead, as without a hint.
+
+A captured CUDA tensor's version counter is recorded at capture
+(:meth:`ArrayBufferStager.pin_version`) and checked once each of its D2H
+copies has completed: a zero-copy capture (``ASYNC_CAPTURE=donate``)
+whose tensor was changed in place before its bytes were copied fails the
+take with :class:`~..io_types.CaptureViolationError`.
+
 Compressed entries (``TSS_TORCH_COMPRESSION``): the stager takes the raw
 bytes the same way (a CUDA tensor's D2H copy into pinned host memory) and
 compresses them on the staging pool, as one blob or, above the frame size,
@@ -17,7 +29,9 @@ JAX package's. A compressed slab member stages its raw bytes; its slab
 compresses them (``batcher.CompressedSlabStager``).
 
 Restore reads raw bytes into a flat uint8 host view of the target (the
-live tensor itself when it is a CPU tensor of the same dtype and shape).
+live tensor itself when it is a CPU tensor of the same dtype and shape;
+for a CUDA target a pinned host tensor, allocated when the entry's first
+read arrives: :class:`LazyHostTarget`).
 A compressed payload is decoded on the host first
 (:class:`FramedSliceConsumer`); a budgeted read of a framed object fetches
 and decodes only the frames each piece covers, and a slab member's read
@@ -30,6 +44,7 @@ import asyncio
 import json
 import math
 import pickle
+import threading
 import time
 from concurrent.futures import Executor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -38,7 +53,14 @@ import numpy as np
 import torch
 
 from .. import d2h
-from ..io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
+from ..io_types import (
+    BufferConsumer,
+    BufferStager,
+    BufferType,
+    CaptureViolationError,
+    ReadReq,
+    WriteReq,
+)
 from ..manifest import ArrayEntry
 from ..serialization import (
     COMPRESSED,
@@ -123,21 +145,83 @@ class ArrayBufferStager(BufferStager):
         # Set by the batcher for a member of a compressed slab: stage the
         # raw bytes; the slab compresses all its members.
         self.stage_raw = False
+        # A captured CUDA tensor's version at capture (pin_version).
+        self.expect_version: Optional[int] = None
+        # The eager D2H (start_d2h_hint): (row range or None for the whole
+        # tensor, future of its pinned host copy).
+        self._hint: Optional[Tuple[Optional[Tuple[int, int]], Any]] = None
 
-    def rebind(self, tensor: torch.Tensor, ready: Optional[Any]) -> None:
+    def rebind(self, tensor: torch.Tensor, ready: Optional[Any], captured: bool = False) -> None:
         """Point this stager at the next take's tensor (same dtype, shape
         and layout, which the prepared-take cache's key guarantees) and
-        clear this take's frame publication."""
+        clear this take's frame publication and hint."""
+        self.unbind()
         self.tensor = tensor
         self.ready = ready
         self.frame_sizes = None
         self.frame_error = None
+        if captured:
+            self.pin_version()
 
     def unbind(self) -> None:
         """Drop the tensor between takes, so a cached stager pins no
         device or host memory."""
         self.tensor = None
         self.ready = None
+        self.expect_version = None
+        if self._hint is not None:
+            self._hint[1].cancel()
+            self._hint = None
+
+    def pin_version(self) -> None:
+        """Record a captured CUDA tensor's version counter (views share
+        it); :meth:`check_version` fails the take if it moves before the
+        bytes are copied."""
+        if self.tensor is not None and self.tensor.device.type == "cuda":
+            self.expect_version = self.tensor._version
+
+    def check_version(self) -> None:
+        """Raise if the captured tensor was changed in place since capture
+        (called once its D2H copy has completed)."""
+        if self.expect_version is not None and self.tensor._version != self.expect_version:
+            raise CaptureViolationError(
+                f"{self.entry.location}: the tensor was changed in place after "
+                "async_take captured it without a copy (TSS_TORCH_ASYNC_CAPTURE="
+                "donate or TSS_TORCH_ASYNC_DEVICE_COPY=0) and before its bytes "
+                "were copied; the take is abandoned"
+            )
+
+    def start_d2h_hint(self, lanes: Any, stream: bool = False) -> None:
+        """Submit the D2H copy of the tensor (``stream``: of its first
+        stream chunk only) to ``lanes``; the staging consumes its result."""
+        t = self.tensor
+        if t is None or t.device.type == "cpu" or self._hint is not None:
+            return
+        rows = self._stream_row_ranges()[0] if stream else None
+        src = t[rows[0] : rows[1]] if rows is not None else t
+        fut = lanes.submit_to_host(src, self.ready, path=self.entry.location, check=self.check_version)
+        self._hint = (rows, fut)
+
+    def _take_hint(self, rows: Optional[Tuple[int, int]]) -> Optional[Any]:
+        """The hint's future when it covers ``rows``; a hint of other rows
+        is dropped."""
+        hint, self._hint = self._hint, None
+        if hint is None:
+            return None
+        if hint[0] != rows:
+            hint[1].cancel()
+            return None
+        return hint[1]
+
+    async def _to_host(self, src: torch.Tensor, rows: Optional[Tuple[int, int]]) -> torch.Tensor:
+        """The pinned host copy of ``src`` (the tensor, or its ``rows``):
+        the hint's when it covers them, else a transfer on the lanes."""
+        hint = self._take_hint(rows)
+        if hint is not None:
+            return await asyncio.wrap_future(hint)
+        return await d2h.get_active().lanes.to_host(
+            src, self.ready, path=self.entry.location, check=self.check_version
+        )
 
     @property
     def _compressed(self) -> bool:
@@ -165,7 +249,7 @@ class ArrayBufferStager(BufferStager):
         those bytes are what gets written after ``async_take`` returns;
         compressed output and a slab member's bytes are private anyway."""
         if t.device.type == "cuda":
-            host = await d2h.get_active().lanes.to_host(t, self.ready, path=self.entry.location)
+            host = await self._to_host(t, None)
             t0 = time.monotonic()
             view = _host_view(host)
         else:
@@ -236,16 +320,15 @@ class ArrayBufferStager(BufferStager):
             for r0, r1 in ranges:
                 yield await self._cpu_bytes(t[r0:r1], executor, False)
             return
-        lanes = d2h.get_active().lanes
-        path = self.entry.location
-        nxt = asyncio.ensure_future(lanes.to_host(t[ranges[0][0] : ranges[0][1]], self.ready, path=path))
+        r0, r1 = ranges[0]
+        nxt = asyncio.ensure_future(self._to_host(t[r0:r1], ranges[0]))
         try:
             for i in range(len(ranges)):
                 cur = nxt
                 nxt = None
                 if i + 1 < len(ranges):
                     r0, r1 = ranges[i + 1]
-                    nxt = asyncio.ensure_future(lanes.to_host(t[r0:r1], self.ready, path=path))
+                    nxt = asyncio.ensure_future(self._to_host(t[r0:r1], ranges[i + 1]))
                 yield _host_view(await cur)
         finally:
             if nxt is not None:
@@ -368,17 +451,47 @@ def plan_frame_groups(  # spmd-pure
     return groups
 
 
-class ByteRangeConsumer(BufferConsumer):
-    """Copies one buffer into ``target[begin:end]`` of a flat uint8 view."""
+class LazyHostTarget:
+    """A flat uint8 host buffer made by ``alloc`` on its first use (the
+    first read of its entry that arrives), not when the restore is
+    planned, so a restore holds only the buffers of entries in flight.
+    Thread-safe: reads of one entry may arrive on several threads."""
 
-    def __init__(self, target: np.ndarray, begin: int, end: int) -> None:
+    def __init__(self, alloc: Callable[[], np.ndarray]) -> None:
+        self._alloc = alloc
+        self._arr: Optional[np.ndarray] = None
+        self._lock = threading.Lock()
+
+    def get(self) -> np.ndarray:
+        with self._lock:
+            if self._arr is None:
+                self._arr = self._alloc()
+            return self._arr
+
+    def release(self) -> None:
+        """Drop the buffer (its entry is finalized)."""
+        with self._lock:
+            self._arr = None
+
+
+def resolve_target(target: Any) -> np.ndarray:
+    """The flat uint8 array behind ``target`` (a :class:`LazyHostTarget`
+    is allocated here on its first use)."""
+    return target.get() if isinstance(target, LazyHostTarget) else target
+
+
+class ByteRangeConsumer(BufferConsumer):
+    """Copies one buffer into ``target[begin:end]`` of a flat uint8 view
+    (an array, or a :class:`LazyHostTarget`)."""
+
+    def __init__(self, target: Any, begin: int, end: int) -> None:
         self.target = target
         self.begin = begin
         self.end = end
         self._into: Optional[memoryview] = None
 
     def read_into(self) -> memoryview:
-        self._into = memoryview(self.target[self.begin : self.end])
+        self._into = memoryview(resolve_target(self.target)[self.begin : self.end])
         return self._into
 
     async def consume_buffer(
@@ -393,7 +506,7 @@ class ByteRangeConsumer(BufferConsumer):
             )
 
         def work() -> None:
-            self.target[self.begin : self.end] = np.frombuffer(mv, dtype=np.uint8)
+            resolve_target(self.target)[self.begin : self.end] = np.frombuffer(mv, dtype=np.uint8)
 
         if executor is None:
             work()
@@ -456,11 +569,12 @@ class FramedSliceConsumer(BufferConsumer):
         return 2 * (self.decoded_raw_bytes or (self.raw_end - self.raw_begin))
 
 
-def flat_range_deliver(target: np.ndarray, begin: int) -> Callable[[memoryview], None]:
-    """Copies delivered raw bytes into flat uint8 ``target`` from ``begin``."""
+def flat_range_deliver(target: Any, begin: int) -> Callable[[memoryview], None]:
+    """Copies delivered raw bytes into flat uint8 ``target`` (an array or
+    a :class:`LazyHostTarget`) from ``begin``."""
 
     def deliver(mv: memoryview) -> None:
-        target[begin : begin + mv.nbytes] = np.frombuffer(mv, dtype=np.uint8)
+        resolve_target(target)[begin : begin + mv.nbytes] = np.frombuffer(mv, dtype=np.uint8)
 
     return deliver
 
@@ -490,13 +604,10 @@ def member_framed_reads(
         return [ReadReq(path=entry.location, buffer_consumer=consumer, byte_range=(cprefix[i], cprefix[j]))]
     # The slab's raw extent is unknown here: bill the slab threshold.
     consumer = FramedSliceConsumer(
-        entry.serializer, 0, a, b, deliver, decoded_raw_bytes=max(_SLAB_BYTES, b - a)
+        entry.serializer, 0, a, b, deliver,
+        decoded_raw_bytes=max(knobs.get_slab_size_threshold_bytes(), b - a),
     )
     return [ReadReq(path=entry.location, buffer_consumer=consumer)]
-
-
-# Slabs close at this many raw bytes (batcher.SLAB_SIZE_THRESHOLD_BYTES).
-_SLAB_BYTES = 128 * 1024 * 1024
 
 
 class PickledArrayConsumer(BufferConsumer):

@@ -13,9 +13,15 @@ import abc
 import asyncio
 from concurrent.futures import Executor
 from dataclasses import dataclass
-from typing import AsyncIterator, List, Optional, Tuple, Union
+from typing import Any, AsyncIterator, List, Optional, Tuple, Union
 
 BufferType = Union[bytes, bytearray, memoryview]
+
+
+class CaptureViolationError(RuntimeError):
+    """A tensor that ``async_take`` captured without a copy was changed in
+    place before its bytes were copied: the caller broke the zero-copy
+    capture's promise, and the take is abandoned."""
 
 
 class BufferStager(abc.ABC):
@@ -42,6 +48,12 @@ class BufferStager(abc.ABC):
     ) -> AsyncIterator[BufferType]:
         raise NotImplementedError
         yield  # pragma: no cover
+
+    def start_d2h_hint(self, lanes: Any, stream: bool = False) -> None:
+        """Start the device-to-host copy of this request's bytes now, on
+        the transfer ``lanes``, for the later staging to consume (eager
+        D2H: ``async_take`` calls it for this rank's deferred requests
+        right after partition). Only submits; default: nothing to move."""
 
 
 @dataclass

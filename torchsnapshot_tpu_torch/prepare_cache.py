@@ -119,7 +119,8 @@ class PreparedTake:
                 _rebind(path, pickled_array_pieces(value), reqs, PickledArrayStager, lambda s, a: s.rebind(a))
             else:
                 pieces = _pieces_for(kind, value)
-                _rebind(path, pieces, reqs, ArrayBufferStager, lambda s, t: s.rebind(t, ready.get(t.device)))
+                cap = path in captured
+                _rebind(path, pieces, reqs, ArrayBufferStager, lambda s, t: s.rebind(t, ready.get(t.device), cap))
         from .batcher import CompressedSlabStager
 
         for req in self.write_reqs:

@@ -7,7 +7,8 @@ chunks: the storage append of one chunk overlaps the staging of the next,
 at most ``STREAM_INFLIGHT`` chunks deep. Whether a pipeline streams at all
 is decided once, by measurement (``stream_select``). The staged bytes of
 every object are digested into the ``.checksums.<rank>`` sidecar, written
-before the caller commits ``.snapshot_metadata``.
+before the caller commits ``.snapshot_metadata`` (none under
+``TSS_TORCH_CHECKSUMS=0``: the objects are then written unhashed).
 
 Incremental takes (``base_loader``): the base's digests load lazily, on
 the first write (in an async take's background drain, never in its
@@ -53,6 +54,7 @@ import hashlib
 import json
 import logging
 import os
+import socket
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -77,10 +79,50 @@ class ReadVerificationError(RuntimeError):
 
 CHECKSUM_FILE_PREFIX = ".checksums."  # one JSON sidecar per rank
 _STAGE_POOLS = ("staging", "streaming")
-# Pool widths (the JAX package's defaults): staging, hashing and consuming
-# threads, and storage operations in flight per pipeline.
-POOL_THREADS = 4
-MAX_CONCURRENT_IO = 16
+# The per-rank staging budget: this share of the host's available memory,
+# split among the ranks sharing the host, and at most this many bytes.
+_AVAILABLE_MEMORY_MULTIPLIER = 0.6
+_MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024**3
+
+
+def derive_local_world_size(coordinator: Any = None) -> int:
+    """Ranks sharing this host (one disk, one pool of RAM). With a
+    coordinator of several processes: a hostname gather to rank 0 and a
+    broadcast of the list back, cached in ``knobs.set_local_world_size``
+    (every rank calls this at the same program point, gated on the world
+    size only). Without one (or at world size 1): the cached value of the
+    last gather, else ``LOCAL_WORLD_SIZE``, else 1."""
+    if coordinator is None or coordinator.get_world_size() <= 1:
+        return knobs.get_local_world_size()
+    gathered = coordinator.gather_object(socket.gethostname(), dst=0)
+    hostnames = coordinator.broadcast_object(gathered, src=0)
+    local_world_size = max(1, hostnames.count(socket.gethostname()))
+    knobs.set_local_world_size(local_world_size)
+    return local_world_size
+
+
+def _mem_available_bytes() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``: free pages plus the page cache
+    and slab the kernel can reclaim."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def get_process_memory_budget_bytes(coordinator: Any = None) -> int:
+    """Host bytes one rank's pipeline may hold staged at once:
+    ``min(0.6 x MemAvailable / local world size, 32 GiB)``, or
+    ``TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES`` verbatim. The local world
+    size is derived (and cached, for the I/O caps) even when the budget is
+    overridden, so every rank runs the same collective."""
+    local_world_size = derive_local_world_size(coordinator)
+    override = knobs.get_memory_budget_override_bytes()
+    if override is not None:
+        return override
+    budget = int(_mem_available_bytes() * _AVAILABLE_MEMORY_MULTIPLIER / local_world_size)
+    return min(budget, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
 
 
 def _chunk_size_bucket(nbytes: int) -> str:
@@ -104,17 +146,17 @@ class PipelinePools:
 
     def staging_executor(self) -> ThreadPoolExecutor:
         if self._staging is None:
-            self._staging = ThreadPoolExecutor(POOL_THREADS, thread_name_prefix="tss-stage")
+            self._staging = ThreadPoolExecutor(knobs.get_staging_threads(), thread_name_prefix="tss-stage")
         return self._staging
 
     def hash_executor(self) -> ThreadPoolExecutor:
         if self._hash is None:
-            self._hash = ThreadPoolExecutor(POOL_THREADS, thread_name_prefix="tss-hash")
+            self._hash = ThreadPoolExecutor(knobs.get_hash_workers(), thread_name_prefix="tss-hash")
         return self._hash
 
     def transfer_lanes(self) -> d2h.TransferLanes:
         if self._lanes is None:
-            self._lanes = d2h.TransferLanes()
+            self._lanes = d2h.TransferLanes(knobs.get_d2h_lanes(), knobs.get_d2h_window_bytes())
         return self._lanes
 
     def shutdown(self) -> None:
@@ -137,8 +179,10 @@ class _WritePipeline:
         self.rank = rank
         self.pools = PipelinePools()
         self.checksums: Dict[str, object] = {}
+        self._write_reqs = write_reqs
         # Resolved once: a deferred background drain must not re-read knobs
         # whose environment changed since the take was planned.
+        self._checksums_on = knobs.is_checksums_enabled()
         self._want_sha = knobs.is_dedup_digests_enabled(has_base=base_loader is not None)
         self._grain = knobs.get_hash_chunk_bytes()
         self._stream_chunk = knobs.get_stream_chunk_bytes()
@@ -169,9 +213,10 @@ class _WritePipeline:
             bytes_=sum(r.buffer_stager.get_staging_cost_bytes() for r in write_reqs),
         )
         telemetry.fleet.set_progress(self.progress)
+        self.io_cap = knobs.get_max_concurrent_io_for(storage)
         self._engine = GraphExecutor(
             memory_budget_bytes,
-            caps={"staging": None, "streaming": MAX_CONCURRENT_IO, "io": MAX_CONCURRENT_IO},
+            caps={"staging": None, "streaming": self.io_cap, "io": self.io_cap},
             task_context=self._staging_scope,
             kind="write",
             span_prefix="scheduler",
@@ -189,12 +234,26 @@ class _WritePipeline:
         for req in sorted(write_reqs, key=lambda r: -r.buffer_stager.get_staging_cost_bytes()):
             self._add_request(req)
 
+    def _lanes(self) -> d2h.TransferLanes:
+        lanes = self.pools.transfer_lanes()
+        lanes.times = self.times
+        return lanes
+
+    def start_d2h_hints(self) -> None:
+        """Eager D2H: submit the device-to-host copy of every deferred
+        request (this rank's share, after partition) to the transfer lanes;
+        a request that will stream submits its first chunk only."""
+        lanes = self._lanes()
+        for req in self._write_reqs:
+            if req.defer_staging:
+                req.buffer_stager.start_d2h_hint(lanes, stream=self._stream_eligible(req))
+
     @contextlib.contextmanager
     def _staging_scope(self):
         """Makes the pipeline's transfer lanes visible to stagers (and the
         tasks they spawn) through ``d2h.get_active()``."""
         if self._staging_ctx is None:
-            self._staging_ctx = d2h.StagingContext(self.pools.transfer_lanes(), self.times)
+            self._staging_ctx = d2h.StagingContext(self._lanes(), self.times)
         token = d2h.activate(self._staging_ctx)
         try:
             yield
@@ -316,6 +375,9 @@ class _WritePipeline:
 
     async def _write_object(self, path: str, buf) -> None:
         loop = asyncio.get_running_loop()
+        if not self._checksums_on:
+            await self._storage_write(WriteIO(path=path, buf=buf))
+            return
         if not self._base_resolved:
             await self._resolve_base()
         if self._base is not None:
@@ -370,9 +432,11 @@ class _WritePipeline:
         overlaps this chunk's append (a one-chunk queue between the two);
         a failure aborts the storage stream, so no partial object lands."""
         loop = asyncio.get_running_loop()
-        hasher = hashing.make_stream_hasher(
-            self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=req.path
-        )
+        hasher = None
+        if self._checksums_on:
+            hasher = hashing.make_stream_hasher(
+                self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=req.path
+            )
         totals = {"bytes": 0, "chunks": 0}
         stream = await self.storage.write_stream(req.path)
         # One chunk in staging, one being appended, the rest queued.
@@ -406,7 +470,8 @@ class _WritePipeline:
                 buf = await queue.get()
                 if buf is end:
                     return
-                await hasher.feed(buf)
+                if hasher is not None:
+                    await hasher.feed(buf)
                 nbytes = memoryview(buf).nbytes
                 t0 = time.monotonic()
                 await stream.append(buf)
@@ -430,7 +495,8 @@ class _WritePipeline:
             for t in tasks:
                 t.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)
-            hasher.abort()
+            if hasher is not None:
+                hasher.abort()
             await stream.abort()
             raise
         self.bytes_staged += totals["bytes"]
@@ -438,7 +504,8 @@ class _WritePipeline:
         self.progress.adjust_total_bytes(totals["bytes"] - req.buffer_stager.get_staging_cost_bytes())
         self.progress.note_request_done()
         telemetry.counter_add("scheduler.stream_chunks", totals["chunks"])
-        self.checksums[req.path] = await hasher.finalize()
+        if hasher is not None:
+            self.checksums[req.path] = await hasher.finalize()
 
     async def run_until_staged(self) -> None:
         """Run until every non-deferred request's bytes are held privately
@@ -575,12 +642,16 @@ def sync_execute_write_reqs(
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
     base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
+    on_built: Optional[Callable[[_WritePipeline], None]] = None,
 ) -> PendingIOWork:
     """Run the write pipeline to its capture point; the returned handle
     finishes the rest (deferred staging and every write). ``base_loader``
     returns an incremental take's base as ``(root, {path: record})``, or
-    None to write everything."""
+    None to write everything. ``on_built`` runs on the pipeline before it
+    starts (an async take's eager D2H)."""
     pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank, base_loader)
+    if on_built is not None:
+        on_built(pipeline)
     event_loop.run_until_complete(pipeline.run_until_staged())
     return PendingIOWork(pipeline)
 
@@ -693,7 +764,7 @@ async def execute_read_reqs(
     read_progress = CollectiveProgress()
     engine = GraphExecutor(
         memory_budget_bytes,
-        caps={"io": MAX_CONCURRENT_IO, "consume": POOL_THREADS},
+        caps={"io": knobs.get_max_concurrent_io_for(storage), "consume": knobs.get_consuming_threads()},
         kind="read",
         span_prefix="scheduler",
         owner="read",
@@ -755,7 +826,7 @@ def sync_execute_read_reqs(
     event_loop: asyncio.AbstractEventLoop,
     digests: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, float]:
-    with ThreadPoolExecutor(POOL_THREADS, thread_name_prefix="tss-consume") as ex:
+    with ThreadPoolExecutor(knobs.get_consuming_threads(), thread_name_prefix="tss-consume") as ex:
         return event_loop.run_until_complete(
             execute_read_reqs(read_reqs, storage, memory_budget_bytes, ex, digests)
         )

@@ -96,7 +96,7 @@ from .io_preparer import (
     capture_flattened,
     prepare_write,
 )
-from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayIOPreparer, PickledArrayConsumer
+from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayIOPreparer, LazyHostTarget, PickledArrayConsumer
 from .io_preparers.chunked_array import ChunkedArrayIOPreparer
 from .io_preparers.object import ObjectIOPreparer
 from .io_preparers.sharded_array import (
@@ -136,7 +136,6 @@ from .engine import Node, run_graph
 from .engine import qos as engine_qos
 from .scheduler import (
     CHECKSUM_FILE_PREFIX,
-    MAX_CONCURRENT_IO,
     PendingIOWork,
     sync_execute_read_reqs,
     sync_execute_write_reqs,
@@ -757,7 +756,9 @@ class Snapshot:
                 p for p in plan.flattened if any(fnmatch.fnmatch(p, g) for g in plan.replicated_globs)
             }
             if is_async:
+                t_capture = time.monotonic()
                 flattened, captured, ready = capture_flattened(plan.flattened)
+                prepare_timings["d2h_hint"] = time.monotonic() - t_capture
             else:
                 flattened, captured = plan.flattened, set()
                 sources = [cuda_source(v) for v in flattened.values()]
@@ -850,17 +851,17 @@ class Snapshot:
                 manifest=global_manifest,
                 codec_versions=codec_versions,
             )
+        # A plan-cache hit skips the hostname gather: the take that stored
+        # the plan derived (and cached) the local world size.
+        memory_budget = scheduler.get_process_memory_budget_bytes(None if plan.cache_hit else coord)
         phase("plan")
-        # Out-of-band sub-spans: they decompose the prepare and plan phases
-        # without moving the phase boundary.
-        for bucket, dur in sorted(prepare_timings.items()):
-            tracker.note(f"stage.prepare.{bucket}", dur)
         phase_out[0] = "write"
         base = plan.base
-        if base and not knobs.is_dedup_digests_enabled(has_base=True):
+        if base and not (knobs.is_checksums_enabled() and knobs.is_dedup_digests_enabled(has_base=True)):
             logger.warning(
-                "base=%s ignored: incremental dedup needs dedup digests "
-                "(TSS_TORCH_DEDUP_DIGESTS is off); taking a full snapshot",
+                "base=%s ignored: incremental dedup needs checksums and dedup "
+                "digests (TSS_TORCH_CHECKSUMS or TSS_TORCH_DEDUP_DIGESTS is "
+                "off); taking a full snapshot",
                 base,
             )
             base = None
@@ -875,10 +876,24 @@ class Snapshot:
                     logger.warning("base=%s digest load failed; taking a full snapshot", base, exc_info=True)
                     return None
 
+        def eager_d2h(pipeline: Any) -> None:
+            # After partition: only the requests this rank writes. The
+            # stall only submits; the lanes allocate and copy.
+            if is_async and knobs.is_async_eager_d2h_enabled():
+                t_hint = time.monotonic()
+                pipeline.start_d2h_hints()
+                prepare_timings["d2h_hint"] = prepare_timings.get("d2h_hint", 0.0) + time.monotonic() - t_hint
+            phase("d2h_hint")
+
         pending = sync_execute_write_reqs(
-            write_reqs, storage, knobs.get_memory_budget_bytes(), rank, event_loop, base_loader
+            write_reqs, storage, memory_budget, rank, event_loop, base_loader, on_built=eager_d2h
         )
         phase("stage_until_capture_point")
+        # Out-of-band sub-spans: they decompose the capture, prepare and
+        # d2h_hint phases without moving the phase boundaries.
+        prepare_timings.setdefault("d2h_hint", 0.0)
+        for bucket, dur in sorted(prepare_timings.items()):
+            tracker.note(f"stage.prepare.{bucket}", dur)
         for stateful, state in plan.rng_states.values():
             stateful.load_state_dict(state)
         phase("rng_restore")
@@ -1015,6 +1030,8 @@ class Snapshot:
         rank = coord.get_rank()
         world = coord.get_world_size()
         barrier = self._barrier(coord, "restore", self.path)
+        # Before the plugin: its O_DIRECT width reads the local world size.
+        memory_budget = scheduler.get_process_memory_budget_bytes(coord)
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path)
         t0 = time.monotonic()
@@ -1042,7 +1059,7 @@ class Snapshot:
                     stateful = app_state[key]
                     _, live = flatten(stateful.state_dict(), prefix=key)
                     state, stats = self._read_tree(
-                        key, manifest, live, storage, event_loop, device, None,
+                        key, manifest, live, storage, event_loop, device, memory_budget,
                         include=include, modes=modes, digests=digests,
                     )
                     stateful.load_state_dict(state)
@@ -1148,7 +1165,7 @@ class Snapshot:
         }
         if not scoped:
             raise KeyError(f"{logical_path!r} not found in snapshot {self.path!r}")
-        budget = memory_budget_bytes or knobs.get_memory_budget_bytes()
+        budget = memory_budget_bytes or scheduler.get_process_memory_budget_bytes(None)
         loaded: Dict[str, Any] = {}
         entries = {p: e for p, e in scoped.items() if not is_container_entry(e)}
         if include:
@@ -1159,6 +1176,15 @@ class Snapshot:
             entries = selected
         h2d = d2h.HostToDevice()
         read_reqs: List[ReadReq] = []
+        # Overlap on: each entry's finalizer (its H2D) runs as its last
+        # read is consumed, so the copies overlap the reads in flight and
+        # each pinned host buffer goes as its entry lands. Off: every read
+        # first, then every finalizer (phase-split).
+        platforms = _target_device_types(live, entries)
+        overlap = knobs.is_restore_overlap_enabled(
+            has_device_targets=bool(platforms), target_platforms=lambda: platforms
+        )
+        pending_finalizers: Dict[int, Callable[[], None]] = {}
         finalizers: List[Callable[[], None]] = []
         bcast_items: List[bcast_mod.BroadcastItem] = []
         swarm_items: List[swarm_mod.SwarmItem] = []
@@ -1203,12 +1229,23 @@ class Snapshot:
             reqs, fin = _prepare_restore_one(
                 p, entry, target, loaded, device, budget, h2d, frame_tables, align
             )
-            read_reqs.extend(reqs)
             if fin is not None:
-                finalizers.append(fin)
+                if not reqs:
+                    fin()
+                elif overlap:
+                    idx = len(pending_finalizers)
+                    pending_finalizers[idx] = fin
+                    countdown = _ReadCountdown(idx, len(reqs), pending_finalizers)
+                    reqs = [
+                        ReadReq(path=r.path, buffer_consumer=_CountingConsumer(r.buffer_consumer, countdown), byte_range=r.byte_range)
+                        for r in reqs
+                    ]
+                else:
+                    finalizers.append(fin)
+            read_reqs.extend(reqs)
         if bcast_items or swarm_items:
             with ThreadPoolExecutor(
-                scheduler.POOL_THREADS, thread_name_prefix="tss-collective"
+                knobs.get_consuming_threads(), thread_name_prefix="tss-collective"
             ) as executor:
                 bcast_mod.run_broadcast(bcast_items, storage, coord, event_loop, executor, digests)
                 swarm_mod.run_swarm(
@@ -1218,6 +1255,9 @@ class Snapshot:
             read_reqs, max_merged_bytes=budget, merge_large=find_read_cache(storage) is not None
         )
         stats = sync_execute_read_reqs(read_reqs, storage, budget, event_loop, digests)
+        if pending_finalizers:
+            # A pipeline that ended cleanly consumed every read.
+            raise RuntimeError(f"restore left {len(pending_finalizers)} entries unfinalized")
         for fin in finalizers:
             fin()
         h2d.finish()
@@ -1256,7 +1296,7 @@ class Snapshot:
                 storage,
                 event_loop,
                 device,
-                memory_budget_bytes,
+                memory_budget_bytes or scheduler.get_process_memory_budget_bytes(None),
                 digests=digests,
             )
             return value
@@ -1346,7 +1386,7 @@ class Snapshot:
 
             # One BACKGROUND engine.verify node per object, costed at its
             # recorded size.
-            budget = knobs.get_memory_budget_bytes()
+            budget = scheduler.get_process_memory_budget_bytes(None)
             nodes = [
                 Node(
                     "verify",
@@ -1360,7 +1400,7 @@ class Snapshot:
                 for size in [hashing.record_size(rec)]
             ]
             event_loop.run_until_complete(
-                run_graph(nodes, budget_bytes=budget, owner="verify", kind="verify", caps={"io": MAX_CONCURRENT_IO})
+                run_graph(nodes, budget_bytes=budget, owner="verify", kind="verify", caps={"io": knobs.get_max_concurrent_io_for(storage)})
             )
             return problems
         finally:
@@ -1453,8 +1493,8 @@ class Snapshot:
                 for key in hashing.record_content_keys(want):
                     clean_by_content.setdefault((size_want, key), []).append(path)
 
-        budget = knobs.get_memory_budget_bytes()
-        hash_pool = ThreadPoolExecutor(scheduler.POOL_THREADS, thread_name_prefix="tss-scrub")
+        budget = scheduler.get_process_memory_budget_bytes(None)
+        hash_pool = ThreadPoolExecutor(knobs.get_hash_workers(), thread_name_prefix="tss-scrub")
 
         async def scan(path: str, want: Any) -> None:
             read_io = ReadIO(path=path)
@@ -1486,7 +1526,7 @@ class Snapshot:
             # BACKGROUND: the sweep yields its next read to any take or
             # restore of a higher class in this process.
             event_loop.run_until_complete(
-                run_graph(nodes, budget_bytes=budget, owner="scrub", kind="scrub", caps={"io": MAX_CONCURRENT_IO})
+                run_graph(nodes, budget_bytes=budget, owner="scrub", kind="scrub", caps={"io": knobs.get_max_concurrent_io_for(storage)})
             )
         finally:
             hash_pool.shutdown()
@@ -1762,7 +1802,7 @@ class Snapshot:
                         Node("delete", lambda ctx, _payload, p=p: delete(p), pool="io", stream="io", path=p)
                         for p in sorted(set(paths))
                     ]
-                    await run_graph(nodes, budget_bytes=0, owner="gc", kind="gc", caps={"io": MAX_CONCURRENT_IO})
+                    await run_graph(nodes, budget_bytes=0, owner="gc", kind="gc", caps={"io": knobs.get_max_concurrent_io_for(storage)})
                     return done[0]
 
                 # Metadata first (each condemned snapshot stops being
@@ -2112,7 +2152,7 @@ async def _scrub_ftabs(
         Node("ftab", lambda ctx, _p, loc=loc: check_one(loc), pool="io", stream="io", path=loc + FRAME_TABLE_SUFFIX)
         for loc in sorted(framed)
     ]
-    await run_graph(nodes, budget_bytes=0, owner="scrub-ftab", kind="scrub", caps={"io": MAX_CONCURRENT_IO})
+    await run_graph(nodes, budget_bytes=0, owner="scrub-ftab", kind="scrub", caps={"io": knobs.get_max_concurrent_io_for(storage)})
 
 
 async def _scrub_repair(
@@ -2299,7 +2339,7 @@ def _fetch_frame_tables(
             )
 
     async def fetch_all() -> None:
-        sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+        sem = asyncio.Semaphore(knobs.get_max_concurrent_io_for(storage))
 
         async def bounded(loc: str) -> None:
             async with sem:
@@ -2323,8 +2363,10 @@ def _prepare_restore_one(
     digests: Optional[Dict[str, Any]] = None,
 ) -> Tuple[List[ReadReq], Optional[Callable[[], None]]]:
     """Plan the reads of one entry; returns (read_reqs, finalizer). The
-    finalizer (run after every read) moves a filled host buffer onto its
-    CUDA device. A compressed entry is decoded into that host buffer.
+    finalizer (run after the entry's last read) moves a filled pinned host
+    buffer onto its CUDA device on ``h2d``'s stream; the buffer is
+    allocated when the entry's first read arrives and released by the
+    finalizer. A compressed entry is decoded into that host buffer.
     ``digests`` aligns a sharded entry's sub-reads to the sidecars' hash
     chunks, so each read covers whole chunks (verifiable, cacheable, and
     the need-aware swarm's unit)."""
@@ -2391,10 +2433,22 @@ def _prepare_restore_one(
         target = live.reshape(-1).view(np.uint8)
     else:
         dest = live.device if isinstance(live, torch.Tensor) else d2h.require_cuda(device)
-        if dest.type == "cuda":
-            host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        if _stages_through_host(dest):
+            h2d.stream(dest)  # on this (the caller's) thread
+            pinned: Dict[str, torch.Tensor] = {}
+
+            def alloc() -> np.ndarray:
+                pinned["host"] = torch.empty(shape, dtype=dtype, pin_memory=dest.type == "cuda")
+                return pinned["host"].reshape(-1).view(torch.uint8).numpy()
+
+            lazy = LazyHostTarget(alloc)
 
             def finalize() -> None:
+                lazy.get()  # an entry with no bytes to read
+                host = pinned.pop("host")
+                lazy.release()
+                # The caching host allocator keeps the block until the copy
+                # that reads it has run.
                 loaded[logical_path] = h2d.copy(host, live, dest)
 
         elif (
@@ -2408,7 +2462,7 @@ def _prepare_restore_one(
         else:
             host = torch.empty(shape, dtype=dtype)
             loaded[logical_path] = host
-        target = host.reshape(-1).view(torch.uint8).numpy()
+        target = lazy if finalize is not None else host.reshape(-1).view(torch.uint8).numpy()
     if isinstance(entry, ChunkedArrayEntry):
         reqs = ChunkedArrayIOPreparer.prepare_read(entry, target, buffer_size_limit_bytes, frame_tables)
     else:
@@ -2416,6 +2470,73 @@ def _prepare_restore_one(
             entry, target, 0, buffer_size_limit_bytes, frame_tables.get(entry.location)
         )
     return reqs, finalize
+
+
+class _ReadCountdown:
+    """One entry's outstanding reads; runs the entry's finalizer, popped
+    from the shared ``finalizers`` so it and its buffers go once it has
+    run, when the last read has been consumed. Consumers finish on the
+    restore's event loop (the caller's thread); the lock keeps the count
+    right from any thread."""
+
+    __slots__ = ("idx", "remaining", "finalizers", "lock")
+
+    def __init__(self, idx: int, n_reads: int, finalizers: Dict[int, Callable[[], None]]) -> None:
+        self.idx = idx
+        self.remaining = n_reads
+        self.finalizers = finalizers
+        self.lock = threading.Lock()
+
+    def __call__(self) -> None:
+        with self.lock:
+            self.remaining -= 1
+            done = self.remaining == 0
+        if done:
+            self.finalizers.pop(self.idx)()
+
+
+class _CountingConsumer:
+    """Proxies one read's consumer, reports its completion to the entry's
+    countdown, and drops the inner consumer (and its view of the entry's
+    host buffer) once it has consumed."""
+
+    def __init__(self, inner: Any, countdown: _ReadCountdown) -> None:
+        self.inner = inner
+        self.countdown = countdown
+        # The read batcher keeps framed sub-reads unmerged by this flag.
+        self.merge_exempt = getattr(inner, "merge_exempt", False)
+
+    def read_into(self) -> Optional[memoryview]:
+        return self.inner.read_into()
+
+    async def consume_buffer(self, buf: Any, executor: Any = None) -> None:
+        inner = self.inner
+        await inner.consume_buffer(buf, executor)
+        self.inner = None
+        self.countdown()
+
+    def get_consuming_cost_bytes(self) -> int:
+        inner = self.inner
+        return inner.get_consuming_cost_bytes() if inner is not None else 0
+
+
+def _stages_through_host(dest: torch.device) -> bool:
+    """Whether a whole entry for ``dest`` is read into a host buffer that
+    its finalizer then copies onto the device (a CUDA device)."""
+    return dest.type == "cuda"
+
+
+def _target_device_types(live: Dict[str, Any], entries: Dict[str, Entry]) -> Set[str]:
+    """Device types of the live tensor targets of ``entries`` (a DTensor's
+    local shard's)."""
+    types: Set[str] = set()
+    for p in entries:
+        v = live.get(p)
+        if is_dtensor(v):
+            v = v.to_local()
+        if isinstance(v, torch.Tensor):
+            types.add(v.device.type)
+    return types
 
 
 def _as_sharded(logical_path: str, entry: Entry) -> ShardedArrayEntry:

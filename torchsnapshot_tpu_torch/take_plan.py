@@ -103,10 +103,13 @@ def compute_fingerprint(flattened: Dict[str, Any], world_size: int, replicated_g
     knob_sig = (
         knobs.get_max_chunk_size_bytes(),
         knobs.get_max_shard_size_bytes(),
+        knobs.get_slab_size_threshold_bytes(),
         knobs.is_batching_enabled(),
+        knobs.is_device_batching_enabled(),
         knobs.get_compression(),
         knobs.get_compression_level(),
         knobs.get_compression_frame_bytes(),
+        knobs.is_checksums_enabled(),
         # Raw strings, not resolved values: ``auto`` resolves per host, and
         # ranks with the same environment must agree.
         knobs.get_dedup_digests_env(),

@@ -31,6 +31,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..utils import knobs
 from .artifact import artifact_path, parse_artifact
 from .export import TRACE_FORMAT_VERSION
 
@@ -49,14 +50,13 @@ def read_artifacts(
     usual per-plugin IO cap.
     """
     from ..io_types import ReadIO
-    from ..scheduler import MAX_CONCURRENT_IO
     from . import span
 
     artifacts: Dict[int, Dict[str, Any]] = {}
     problems: Dict[int, str] = {}
 
     async def read_all() -> None:
-        sem = asyncio.Semaphore(MAX_CONCURRENT_IO)
+        sem = asyncio.Semaphore(knobs.get_max_concurrent_io_for(storage))
 
         async def read_one(rank: int) -> None:
             async with sem:

@@ -1,26 +1,25 @@
 """Environment knobs of the port, under the ``TSS_TORCH_`` prefix.
 
-A subset of ``torchsnapshot_tpu/utils/knobs.py``, with the same defaults:
-the layout and digest settings the format tests pin, batching, the
-host memory budget, the shard size, the barrier timeout, the
-collective sanitizer, compression (codec, level, frame size), the plan and
-prepared-take caches, the streaming mode, the native O_DIRECT engine,
-read verification, the read cache, the broadcast and swarm restores, and
-telemetry (trace, artifacts, stall watchdog, flight recorder, step records,
-fleet beacons, CLI tracebacks), the QoS arbiter, the budget ledger, fault
-injection, the effect journal and the cloud plugins' chunk sizes.
-The JAX package's tuning knobs (thread and I/O widths, the D2H window,
-device batching, the async device copy, checksums off) are constants here
-until a workload needs another value. The prefix differs from the JAX package's on purpose, so
-the two packages' settings never alias. Context-manager overrides let
-tests force chunking, batching or small hash grains on tiny tensors.
+Every knob of ``torchsnapshot_tpu/utils/knobs.py`` has a counterpart here
+with the same parsing and default, except the deliberate differences
+``ROADMAP.md`` lists: the coordinator's address, rank and world size (the
+port's coordinator rides ``torch.distributed``'s c10d store), the test
+launcher's drain, the catalog switch and chain length (``take(job=,
+max_chain_len=)`` instead), the swarm's fan-out and the broadcast's
+re-election bound (constants), and two defaults: the D2H window's (512 MiB,
+where the JAX package's is 128 MB) and eager D2H's (off, where the JAX
+package's is on). The prefix differs from the JAX package's on
+purpose, so the two packages' settings never alias. Context-manager
+overrides let tests force chunking, batching or small hash grains on tiny
+tensors.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
-from typing import Generator, Optional
+from typing import Any, Generator, Optional
 
 _P = "TSS_TORCH_"
 _ENV_MAX_CHUNK = _P + "MAX_CHUNK_SIZE_BYTES"
@@ -55,6 +54,8 @@ _ENV_BCAST_READER_DEADLINE = _P + "BCAST_READER_DEADLINE_S"
 _ENV_SWARM_RESTORE = _P + "SWARM_RESTORE"
 _ENV_SWARM_CHUNK_DEADLINE = _P + "SWARM_CHUNK_DEADLINE_S"
 
+logger = logging.getLogger(__name__)
+
 _FALSE = ("0", "", "false", "False", "off")
 
 
@@ -63,9 +64,36 @@ def _get_int(name: str, default: int) -> int:
     return int(val) if val is not None else default
 
 
-def _get_bool(name: str, default: bool) -> bool:
+# Switches that read some strings otherwise than the port did before it
+# took the JAX package's parsing: name -> the strings whose meaning changed.
+_warned_reparsed: set = set()
+
+
+def _warn_if_reparsed(name: str, val: Optional[str], changed: tuple, now: bool) -> None:
+    """Log once per switch when it reads a string whose meaning changed."""
+    if val in changed and name not in _warned_reparsed:
+        _warned_reparsed.add(name)
+        logger.warning(
+            "%s=%r now turns it %s, as the JAX package reads it; it turned it %s "
+            "before. Set 0 or 1.", name, val, "on" if now else "off", "off" if now else "on",
+        )
+
+
+def _on_unless_off(name: str) -> bool:
+    """A default-on switch, parsed as the JAX package parses its own
+    (``off`` and the empty string, once off, now leave it on)."""
     val = os.environ.get(name)
-    return default if val is None else val not in _FALSE
+    _warn_if_reparsed(name, val, ("off", ""), True)
+    return (val if val is not None else "1") not in ("0", "false", "False")
+
+
+def _off_unless_on(name: str) -> bool:
+    """A default-off switch, parsed as the JAX package parses its own
+    (``off``, once off, now turns it on)."""
+    val = os.environ.get(name)
+    on = (val if val is not None else "") not in ("", "0", "false", "False")
+    _warn_if_reparsed(name, val, ("off",), on)
+    return on
 
 
 def get_max_chunk_size_bytes() -> int:
@@ -90,12 +118,12 @@ def is_debug_collectives_enabled() -> bool:
     """The collective lockstep sanitizer (``collective_tracer.py``): every
     coordinator collective and barrier phase is journaled and cross-checked
     across ranks at each barrier. Off allocates nothing."""
-    return _get_bool(_ENV_DEBUG_COLLECTIVES, False)
+    return _off_unless_on(_ENV_DEBUG_COLLECTIVES)
 
 
 def is_batching_enabled() -> bool:
     """Coalesce small arrays into ``batched/<uuid>`` slab objects."""
-    return _get_bool(_ENV_ENABLE_BATCHING, False)
+    return _off_unless_on(_ENV_ENABLE_BATCHING)
 
 
 def get_dedup_digests_env() -> str:
@@ -179,7 +207,7 @@ def is_plan_cache_enabled() -> bool:
     """Reuse a multi-rank take's plan (replicated-write assignment, the
     manifest baseline) when the next take has the same structure
     (``take_plan.py``). A rank with it off forces a global miss."""
-    return _get_bool(_ENV_PLAN_CACHE, True)
+    return _on_unless_off(_ENV_PLAN_CACHE)
 
 
 def get_plan_cache_size() -> int:
@@ -190,7 +218,7 @@ def get_plan_cache_size() -> int:
 def is_prepared_cache_enabled() -> bool:
     """Reuse a take's prepared stagers and write requests when the next
     take has the same structure (``prepare_cache.py``)."""
-    return _get_bool(_ENV_PREPARED_CACHE, True)
+    return _on_unless_off(_ENV_PREPARED_CACHE)
 
 
 def get_prepared_cache_size() -> int:
@@ -240,19 +268,19 @@ def get_stream_inflight() -> int:
     return max(1, _get_int(_ENV_STREAM_INFLIGHT, 4))
 
 
-def get_memory_budget_bytes() -> int:
-    """Host bytes a pipeline may hold staged at once."""
+def get_memory_budget_override_bytes() -> Optional[int]:
+    """The per-rank staging budget, verbatim, when set; else None and
+    ``scheduler.get_process_memory_budget_bytes`` derives it."""
     val = os.environ.get(_ENV_MEMORY_BUDGET)
-    if val is not None:
-        return int(val)
-    available = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    return min(int(available * 0.6), 32 * 1024**3)
+    return int(val) if val is not None else None
 
 
 def is_native_io_enabled() -> bool:
     """Use the native O_DIRECT engine (``native/``) for large transfers;
     ``TSS_TORCH_DISABLE_NATIVE_IO=1`` turns it off."""
-    return os.environ.get(_ENV_DISABLE_NATIVE_IO, "0") in _FALSE
+    val = os.environ.get(_ENV_DISABLE_NATIVE_IO)
+    _warn_if_reparsed(_ENV_DISABLE_NATIVE_IO, val, ("off",), True)
+    return (val if val is not None else "0") in ("0", "", "false", "False")
 
 
 def get_direct_io_threshold_bytes() -> int:
@@ -261,8 +289,10 @@ def get_direct_io_threshold_bytes() -> int:
     return _get_int(_ENV_DIRECT_IO_THRESHOLD, 4 * 1024 * 1024)
 
 
-# Ranks sharing this host (one disk): from LOCAL_WORLD_SIZE, which torchrun
-# and this package's launcher set, else 1.
+# Ranks sharing this host (one disk): set by
+# ``scheduler.derive_local_world_size`` from a hostname gather over a
+# coordinator of several processes; before any such gather,
+# LOCAL_WORLD_SIZE (which torchrun and this package's launcher set), else 1.
 _local_world_size: Optional[int] = None
 
 
@@ -327,7 +357,7 @@ def is_read_cache_verify_enabled() -> bool:
     (default on; ``VERIFY_READS=off`` turns it off too)."""
     if get_verify_reads_mode() == "off":
         return False
-    return _get_bool(_ENV_READ_CACHE_VERIFY, True)
+    return _on_unless_off(_ENV_READ_CACHE_VERIFY)
 
 
 def _collective_restore_enabled(name: str, world_size: int) -> bool:
@@ -341,7 +371,7 @@ def _collective_restore_enabled(name: str, world_size: int) -> bool:
         # (700 W) two ranks restored through it at 0.10-0.17 GB/s each
         # against 1.16-1.42 GB/s for direct reads (chip_smoke.py phase 6).
         return False
-    return val not in _FALSE
+    return val not in ("0", "false", "off")
 
 
 def is_broadcast_restore_enabled(world_size: int) -> bool:
@@ -411,7 +441,7 @@ def is_telemetry_artifacts_enabled() -> bool:
     """Persist the per-rank artifact ``.telemetry/rank_<k>.json`` inside
     every snapshot (fail-open; on by default). Off, and with no trace or
     ``_telemetry=``, an operation runs with no session at all."""
-    return _get_bool(_ENV_TELEMETRY_ARTIFACTS, True)
+    return _on_unless_off(_ENV_TELEMETRY_ARTIFACTS)
 
 
 def get_stall_warn_s() -> float:
@@ -423,7 +453,7 @@ def get_stall_warn_s() -> float:
 
 def is_recorder_enabled() -> bool:
     """The process-wide flight recorder of engine samples (on by default)."""
-    return _get_bool(_ENV_RECORDER, True)
+    return _on_unless_off(_ENV_RECORDER)
 
 
 def get_recorder_capacity() -> int:
@@ -449,7 +479,7 @@ def is_step_telemetry_enabled() -> bool:
     """A ``job=`` take's commit appends a step record under
     ``<bucket>/.catalog/telemetry/``, and a ``restore(job=)`` a rollout
     record (on by default; needs the artifacts)."""
-    return _get_bool(_ENV_STEP_TELEMETRY, True)
+    return _on_unless_off(_ENV_STEP_TELEMETRY)
 
 
 def get_fleet_telemetry_mode() -> str:
@@ -473,7 +503,7 @@ def get_fleet_beacon_s() -> float:
 
 def is_cli_traceback_enabled() -> bool:
     """The CLI raises with a traceback instead of a one-line error."""
-    return _get_bool(_ENV_CLI_TRACEBACK, False)
+    return _off_unless_on(_ENV_CLI_TRACEBACK)
 
 
 def env_fingerprint() -> dict:
@@ -518,6 +548,200 @@ def is_debug_ledger_enabled() -> bool:
     zero outstanding bytes at close and on every abort path, raising
     ``LedgerLeakError`` naming the leaking sites. Off allocates nothing."""
     return os.environ.get(_ENV_DEBUG_LEDGER, "") not in ("", "0", "false", "False")
+
+
+# -- capture, transfer and pipeline sizing (the JAX package's defaults) -----
+
+_ENV_SLAB_SIZE_THRESHOLD = _P + "SLAB_SIZE_THRESHOLD_BYTES"
+_ENV_DEVICE_BATCHING = _P + "DEVICE_BATCHING"
+_ENV_ASYNC_DEVICE_COPY = _P + "ASYNC_DEVICE_COPY"
+_ENV_ASYNC_FORK_HBM_LIMIT = _P + "ASYNC_FORK_HBM_LIMIT_BYTES"
+_ENV_ASYNC_EAGER_D2H = _P + "ASYNC_EAGER_D2H"
+_ENV_ASYNC_CAPTURE = _P + "ASYNC_CAPTURE"
+_ENV_CHECKSUMS = _P + "CHECKSUMS"
+_ENV_RESTORE_OVERLAP = _P + "RESTORE_OVERLAP"
+_ENV_D2H_LANES = _P + "D2H_LANES"
+_ENV_D2H_WINDOW = _P + "D2H_WINDOW_BYTES"
+_ENV_HASH_WORKERS = _P + "HASH_WORKERS"
+_ENV_STAGING_THREADS = _P + "STAGING_THREADS"
+_ENV_MAX_CONCURRENT_IO = _P + "MAX_CONCURRENT_IO"
+_ENV_CONSUMING_THREADS = _P + "CONSUMING_THREADS"
+_ENV_READ_MERGE_GAP = _P + "READ_MERGE_GAP_BYTES"
+
+_OFF = ("0", "false", "False")
+
+
+def get_slab_size_threshold_bytes() -> int:
+    """Raw tensors below this many bytes join ``batched/<uuid>`` slabs,
+    and a slab closes at it (default 128 MiB)."""
+    return _get_int(_ENV_SLAB_SIZE_THRESHOLD, 128 * 1024 * 1024)
+
+
+def is_device_batching_enabled() -> bool:
+    """Pack a slab of one device's tensors on the card (K1) and fetch it
+    with one D2H copy (default on). Off, a CUDA slab stages each member's
+    own D2H and concatenates on the host."""
+    return os.environ.get(_ENV_DEVICE_BATCHING, "1") not in _OFF
+
+
+def is_async_device_copy_enabled() -> bool:
+    """Fork CUDA tensors on the card (K2) at ``async_take`` (default on).
+    Off is ``ASYNC_CAPTURE=donate``: :func:`get_async_capture_mode` reads
+    both and decides."""
+    return os.environ.get(_ENV_ASYNC_DEVICE_COPY, "1") not in _OFF
+
+
+def get_async_fork_hbm_limit_bytes() -> Optional[int]:
+    """A simulated free-device-memory cap for the async fork: a fork that
+    would bring the take's cumulative forked bytes above it counts as out
+    of memory, which sends the capture down its degraded path (bisect,
+    fork what fits, host-capture the rest) without real memory pressure.
+    Unset (default): only a real ``torch.cuda.OutOfMemoryError`` does."""
+    val = os.environ.get(_ENV_ASYNC_FORK_HBM_LIMIT)
+    return int(val) if val is not None else None
+
+
+def is_async_eager_d2h_enabled() -> bool:
+    """Start the D2H of this rank's deferred requests at ``async_take``,
+    right after partition: the copies run on the transfer lanes while
+    training resumes, into pinned host buffers that the background staging
+    consumes. Those buffers sit outside the staging budget, bounded by the
+    captured state. Off (default, where the JAX package's is on): every
+    byte is budgeted and the D2H runs in the drain. On one NVIDIA H100
+    80GB HBM3 at 700 W the drain is write-bound either way, and eager D2H
+    lengthened the stall and, in most runs, the first training step after
+    it (``chip_smoke.py`` phase 11 (a))."""
+    val = os.environ.get(_ENV_ASYNC_EAGER_D2H)
+    return val is not None and val not in _OFF
+
+
+def get_async_capture_mode() -> str:
+    """How ``async_take`` detaches CUDA tensors from the training step:
+    ``fork`` (default) copies them on the card (K2), paying device memory
+    equal to the captured state; ``donate`` (``ASYNC_CAPTURE=donate``, or
+    ``ASYNC_DEVICE_COPY=0``) captures them zero-copy. Under ``donate`` the
+    caller promises not to change the captured tensors in place until the
+    snapshot commits; each tensor's version counter is checked once its
+    D2H has completed, and a broken promise fails the take
+    (``PendingSnapshot.wait()`` raises, nothing is committed)."""
+    val = os.environ.get(_ENV_ASYNC_CAPTURE, "fork").lower()
+    return "donate" if val == "donate" or not is_async_device_copy_enabled() else "fork"
+
+
+def is_checksums_enabled() -> bool:
+    """Write the ``.checksums.<rank>`` sidecars (default on). Off, a take
+    records no digest: its reads cannot be verified and it cannot serve
+    as an incremental base."""
+    return os.environ.get(_ENV_CHECKSUMS, "1") not in _OFF
+
+
+def is_restore_overlap_enabled(
+    has_device_targets: bool = False, target_platforms: Any = None
+) -> bool:
+    """Finalize each restored entry (its H2D copy) as its last read is
+    consumed, so the copies overlap the reads still in flight and each
+    entry's pinned host buffer is released as it lands. ``auto``
+    (default): on with more than one usable CPU; on one CPU only where
+    the restore has live device targets and all of them are on an
+    accelerator (``target_platforms``: a set of device types, or a
+    callable returning one, evaluated only on that branch). ``1``/``0``
+    force it. Off: every read first, then every finalizer."""
+    val = os.environ.get(_ENV_RESTORE_OVERLAP, "auto").lower()
+    if val in ("auto", ""):
+        if _usable_cpu_count() > 1:
+            return True
+        if not has_device_targets:
+            return False
+        if callable(target_platforms):
+            target_platforms = target_platforms()
+        if target_platforms:
+            return all(p != "cpu" for p in target_platforms)
+        return False
+    return val not in ("0", "false", "off")
+
+
+def _usable_cpu_count() -> int:
+    """CPUs this process may run on (affinity aware)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:  # pragma: no cover - non-Linux
+        return os.cpu_count() or 1
+
+
+def get_d2h_lanes() -> int:
+    """Concurrent device-to-host transfer lanes per write pipeline
+    (default 4)."""
+    return max(1, _get_int(_ENV_D2H_LANES, 4))
+
+
+def get_d2h_window_bytes() -> int:
+    """Device-to-host bytes in flight at once on the lanes (default
+    512 MiB; the JAX package's default is 128 MB). A transfer larger than
+    the window runs alone."""
+    return max(0, _get_int(_ENV_D2H_WINDOW, 512 * 1024 * 1024))
+
+
+def get_hash_workers() -> int:
+    """Width of the hash pool (default: the staging width)."""
+    val = os.environ.get(_ENV_HASH_WORKERS)
+    if val is not None:
+        return max(1, int(val))
+    return get_staging_threads()
+
+
+def get_staging_threads() -> int:
+    """Width of the staging (serialize, compress) pool (default 4)."""
+    return max(1, _get_int(_ENV_STAGING_THREADS, 4))
+
+
+def get_consuming_threads() -> int:
+    """Width of the restore's consuming (copy, decode, scatter) pool
+    (default 4)."""
+    return max(1, _get_int(_ENV_CONSUMING_THREADS, 4))
+
+
+def get_max_concurrent_io(shared_local_device: bool = False) -> int:
+    """Storage operations in flight per pipeline (default 16). With
+    ``shared_local_device`` (a plugin whose ``scales_io_with_local_world``
+    is set: the local disk) the default divides by the ranks sharing this
+    host, so co-hosted ranks keep about 16 together. An explicit value is
+    used as it is."""
+    val = os.environ.get(_ENV_MAX_CONCURRENT_IO)
+    if val is not None:
+        return max(1, int(val))
+    if shared_local_device:
+        return max(1, 16 // get_local_world_size())
+    return 16
+
+
+def get_max_concurrent_io_for(storage: Any) -> int:
+    """The I/O cap for ``storage``: the one reader of its
+    ``scales_io_with_local_world`` flag."""
+    return get_max_concurrent_io(bool(getattr(storage, "scales_io_with_local_world", False)))
+
+
+def get_read_merge_gap_bytes() -> int:
+    """Largest gap between two ranged reads of one object that the read
+    batcher still merges into one read (default 0: exactly adjacent only).
+    Gap bytes are read and dropped; each consumer gets exactly its own
+    range."""
+    return max(0, _get_int(_ENV_READ_MERGE_GAP, 0))
+
+
+def override_async_fork_hbm_limit_bytes(value: int):
+    return _override_env(_ENV_ASYNC_FORK_HBM_LIMIT, str(value))
+
+
+def override_async_eager_d2h(enabled: bool):
+    return _override_env(_ENV_ASYNC_EAGER_D2H, "1" if enabled else "0")
+
+
+def override_restore_overlap(enabled: bool):
+    return _override_env(_ENV_RESTORE_OVERLAP, "1" if enabled else "0")
+
+
+def override_max_concurrent_io(value: int):
+    return _override_env(_ENV_MAX_CONCURRENT_IO, str(value))
 
 
 @contextlib.contextmanager
@@ -571,7 +795,6 @@ def override_compression_frame_bytes(value: int):
 
 def override_stream_writes_mode(mode: str):
     return _override_env(_ENV_STREAM_WRITES, mode)
-
 
 
 def override_trace_path(path: str):
@@ -638,7 +861,7 @@ def is_debug_effects_enabled() -> bool:
     """The durable-effect journal (``effect_journal.py``): every plugin
     ``url_to_storage_plugin`` builds records each mutating op, the input of
     ``crash_explorer``. Off allocates nothing and imports nothing."""
-    return os.environ.get(_ENV_DEBUG_EFFECTS, "") not in _FALSE
+    return _off_unless_on(_ENV_DEBUG_EFFECTS)
 
 
 def get_gcs_chunk_bytes() -> int:

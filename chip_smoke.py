@@ -158,7 +158,10 @@ child exits 87, the catalog's latest is ``s0``, ``Snapshot.gc`` removes
 exactly ``s1``'s debris and a second run nothing, ``s0`` restores
 bit-exactly; (d) ``s0`` under ``TSS_TORCH_VERIFY_READS=all``: one corrupt
 read heals by one re-fetch, bit-exact, and an object that rots on every
-read raises ``ReadVerificationError``; (e) two ranks (gloo) on phase 3's
+read raises ``CheckpointAbortedError(rank=0, phase="restore.read")`` from
+the ``ReadVerificationError`` naming it, and a sync take under
+``op=write,at=2,kind=fail`` raises ``CheckpointAbortedError(rank=0,
+phase="write")`` and leaves no ``.snapshot_metadata``; (e) two ranks (gloo) on phase 3's
 TP state: a take failing on rank 1 aborts both ranks naming rank 1, and a
 swapped-placement restore under a transient read storm on rank 0 is
 bit-exact with K3 on both ranks; (f) continuous checkpointing of phase 2's
@@ -194,6 +197,19 @@ tensor held against its seeded value. (e) two ranks on the card (gloo) at phase 
 ``LOCAL_WORLD_SIZE`` withheld: each rank's budget (0.6 x ``MemAvailable``
 / 2) and fs I/O cap (8) from the hostname gather, and a swapped-placement
 restore under overlapped restore with K3 on both ranks, bit-exact.
+Phase 12 drives K1 under a real out of memory, in a child process of its
+own (the allocator's cap and segments stay there): phase 2's widths at 4
+layers; with the caching allocator capped 99 MiB above the live state
+(``torch.cuda.set_per_process_memory_fraction``), room for a layer's attn
+(96 MiB, the largest slab member) and K1's descriptor table (a 2 MiB
+segment) and none for its slab (attn and the layer's small tensors, which
+the allocator rounds to 98 MiB) and the table, a sync
+take and a ``TSS_TORCH_ASYNC_CAPTURE=donate`` ``async_take`` commit with
+every slab packed by K1 in groups (the whole slab's allocation raises
+``torch.cuda.OutOfMemoryError``; one warning per slab); with the cap
+lifted both restore bit-exactly and verify, and an uncapped take (one K1
+launch per slab) holds the same bytes for every slab member, read back by
+``read_object``.
 Every phase's wall seconds are printed.
 The launch counts are set to 0 just before each drive and read just after.
 
@@ -483,13 +499,15 @@ def time_kernels(device, slab_members, state_tensors):
 # ---------------------------------------------------------------------------
 
 
-def build_state(gb: float, device, gen):
+def build_state(gb: float, device, gen, n_layers=None):
     """Transformer-shaped params (bench.py's d_model 4096 / d_ff 16384
     layers, bf16, plus LayerNorm weights in fp32 and bf16 biases), an int64
-    step tensor, primitives and a pickled object."""
+    step tensor, primitives and a pickled object; ``n_layers`` layers, by
+    default as many as make ``gb`` GB."""
     d_model, d_ff = 4096, 16384
     layer_bytes = (3 * d_model * d_model + 2 * d_model * d_ff) * 2
-    n_layers = max(1, round(gb * 1e9 / layer_bytes))
+    if n_layers is None:
+        n_layers = max(1, round(gb * 1e9 / layer_bytes))
     bf16 = torch.bfloat16
     params = {}
     for i in range(n_layers):
@@ -1253,8 +1271,10 @@ def phase6_scrub(root, card):
         one = Coordinator(LocalStore(), 0, 1)
         try:
             tts.Snapshot(copy).restore({"model": _fresh_model(TransformerConfig(**SERVE_CFG), torch.device("cuda", 0))}, coordinator=one)
-        except FileNotFoundError as e:
-            raised = repr(e)[:200]
+        except tts.CheckpointAbortedError as e:
+            if not isinstance(e.__cause__, FileNotFoundError):
+                raise AssertionError(f"phase6: the quarantined copy's restore failed from {e.__cause__!r}") from e
+            raised = repr(e.__cause__)[:200]
         if raised is None:
             raise AssertionError("phase6: a restore of the quarantined copy did not raise")
     shutil.rmtree(copy)
@@ -1851,6 +1871,20 @@ def _counters(tm):
     return {k: v for k, v in tm.metrics.as_dict().items() if k.startswith(("faults.", "cloud_retry.", "scheduler.read_verify"))}
 
 
+def _rot_abort(e, victim):
+    """The text of the root error of a world-1 restore that persistent rot
+    of ``victim`` aborted (phase 10 (d)): ``CheckpointAbortedError`` of rank
+    0 in ``restore.read`` from the ``ReadVerificationError`` naming it."""
+    from torchsnapshot_tpu_torch import CheckpointAbortedError, ReadVerificationError
+
+    cause = e.__cause__
+    if not isinstance(e, CheckpointAbortedError) or (e.rank, e.phase) != (0, "restore.read"):
+        raise AssertionError(f"phase10 (d): expected an abort of rank 0 in restore.read: {e!r}")
+    if not isinstance(cause, ReadVerificationError) or victim not in str(cause):
+        raise AssertionError(f"phase10 (d): the abort's cause does not name {victim}: {cause!r}")
+    return str(cause)[:200]
+
+
 def _restore_exact(path, params, progress, what, env=None, telemetry_session=None):
     """Restore ``path`` into zeroed CUDA tensors and hold it bit-exactly
     against ``params`` and ``progress["step"]``; returns the seconds."""
@@ -1963,7 +1997,6 @@ def phase10(gb, tp_gb, seed, device, root, card):
     (f) the crash explorer over continuous checkpointing."""
     import torchsnapshot_tpu_torch as tts
     from torchsnapshot_tpu_torch import catalog, crash_explorer, effect_journal, kernels, telemetry
-    from torchsnapshot_tpu_torch.scheduler import ReadVerificationError
     from torchsnapshot_tpu_torch.snapshot import CheckpointAbortedError
     from torchsnapshot_tpu_torch.test_utils import run_with_processes
 
@@ -2114,11 +2147,27 @@ def phase10(gb, tp_gb, seed, device, root, card):
             _restore_exact(s0, params, progress, "phase10 (d) persistent rot",
                            env=_faulted(f"op=read,after=0,kind=corrupt,path={victim}", TSS_TORCH_VERIFY_READS="all"))
             raise AssertionError("phase10 (d): a persistently rotten object restored")
-        except ReadVerificationError as e:
-            if victim not in str(e):
-                raise AssertionError(f"phase10 (d): the error does not name {victim}: {e}")
-            err = str(e)[:200]
-        return {"heal_restore_s": heal_s, "counters": got, "persistent": err}
+        except CheckpointAbortedError as e:
+            err = _rot_abort(e, victim)
+        # A world-1 sync take under a permanent write fault aborts wrapped.
+        path_w = os.path.join(bucket, "w")
+
+        def take_failing():
+            try:
+                tts.Snapshot.take(path_w, app)
+            except CheckpointAbortedError as e:
+                return {"rank": e.rank, "phase": e.phase, "cause": type(e.__cause__).__name__, "text": str(e)[:200]}
+            raise AssertionError("phase10 (d): the sync take under op=write,at=2,kind=fail committed")
+
+        t0 = time.monotonic()
+        take_abort = _with_env(_faulted("op=write,at=2,kind=fail"), take_failing)
+        take_abort["wall_s"] = time.monotonic() - t0
+        if (take_abort["rank"], take_abort["phase"], take_abort["cause"]) != (0, "write", "InjectedFault"):
+            raise AssertionError(f"phase10 (d): unexpected sync-take abort {take_abort}")
+        if os.path.exists(os.path.join(path_w, ".snapshot_metadata")):
+            raise AssertionError("phase10 (d): the aborted sync take wrote .snapshot_metadata")
+        shutil.rmtree(path_w, ignore_errors=True)
+        return {"heal_restore_s": heal_s, "counters": got, "persistent": err, "sync_take_abort": take_abort}
 
     out["d"] = step("d", d)
     del app, params, progress
@@ -2631,6 +2680,177 @@ def phase11(seed, device, root, card, n_layers=8, tp_gb=2.0, pairs=2):
     return launches, summary
 
 
+# Phase 12: K1 under a real out-of-memory
+# ---------------------------------------------------------------------------
+
+# Device memory the cap leaves above the live state: room for the largest
+# slab member of phase 2's widths (a layer's attn, 96 MiB) and K1's
+# descriptor table (a 2 MiB segment), none for its slab (attn and the
+# layer's small tensors, 96 MiB + 120 KiB, which the caching allocator
+# rounds up to 98 MiB) and the table.
+PHASE12_HEADROOM_BYTES = 99 << 20
+
+
+def _slabs_of(snap):
+    return {
+        e.location for e in snap.get_manifest().values()
+        if getattr(e, "byte_range", None) is not None and e.location.startswith("batched/")
+    }
+
+
+def phase12_child(seed, root, out_path, n_layers=4):
+    """Phase 12 in a process of its own (the allocator's cap and the
+    segments it leaves cached would bind every later phase): phase 2's
+    widths at ``n_layers`` layers; with the caching allocator capped
+    between the largest slab member and its slab, a sync take and a
+    ``donate`` ``async_take`` must commit with every slab packed by K1 in
+    groups, one warning per slab; with the cap lifted both restore
+    bit-exactly and verify, and an uncapped take (one K1 launch per slab)
+    holds the same bytes for every slab member, read back by
+    ``read_object``. The result goes to ``out_path`` as JSON."""
+    import logging
+    import traceback
+
+    try:
+        import torchsnapshot_tpu_torch as tts
+        from torchsnapshot_tpu_torch import kernels
+
+        seed, n_layers = int(seed), int(n_layers)
+        device = torch.device("cuda", 0)
+        kernels.load_library()
+        warned = []
+
+        class _Warnings(logging.Handler):
+            def emit(self, record):
+                warned.append(record.getMessage())
+
+        logging.getLogger("torchsnapshot_tpu_torch.batcher").addHandler(_Warnings(logging.WARNING))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params, progress, _ = build_state(0.0, device, gen, n_layers=n_layers)
+        app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+        state_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+        largest = params["layer_0"]["attn"].numel() * params["layer_0"]["attn"].element_size()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_reserved(device)
+        total = torch.cuda.get_device_properties(device).total_memory
+        cap = live + PHASE12_HEADROOM_BYTES
+        torch.cuda.set_per_process_memory_fraction(cap / total, device)
+        # The cap's window: the largest member and a table fit, a slab of
+        # it (one more small tensor) and a table do not. Probed on a stream
+        # of their own, as K1 allocates on a lane's stream, where the
+        # state's small segments have no room to lend.
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            probe = [torch.empty(largest, dtype=torch.uint8, device=device)]
+            probe.append(torch.empty(64, dtype=torch.uint8, device=device))
+            del probe
+            torch.cuda.empty_cache()
+            try:
+                probe = [torch.empty(largest + (64 << 10), dtype=torch.uint8, device=device)]
+                probe.append(torch.empty(64, dtype=torch.uint8, device=device))
+                raise AssertionError("phase12: a slab fits under the cap")
+            except torch.cuda.OutOfMemoryError:
+                probe = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        paths = {name: os.path.join(root, name) for name in ("sync", "donate", "uncapped")}
+        walls, capped, warnings, slabs = {}, {}, {}, {}
+        for name in ("sync", "donate"):
+            kernels.reset_launch_counts()
+            del warned[:]
+            t0 = time.monotonic()
+            if name == "sync":
+                tts.Snapshot.take(paths[name], app)
+            else:
+                os.environ["TSS_TORCH_ASYNC_CAPTURE"] = "donate"
+                try:
+                    pending = tts.Snapshot.async_take(paths[name], app)
+                    walls["donate_stall_s"] = time.monotonic() - t0
+                    pending.wait()
+                finally:
+                    del os.environ["TSS_TORCH_ASYNC_CAPTURE"]
+            walls[f"{name}_take_s"] = time.monotonic() - t0
+            capped[name], warnings[name] = dict(kernels.LAUNCHES), len(warned)
+            slabs[name] = len(_slabs_of(tts.Snapshot(paths[name])))
+        peak_reserved = torch.cuda.max_memory_reserved(device)
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+        for name in ("sync", "donate"):
+            if not slabs[name] or warnings[name] != slabs[name] or capped[name]["pack_slab"] <= slabs[name]:
+                raise AssertionError(
+                    f"phase12: the capped {name} take did not pack every slab in groups: {slabs[name]} slabs, "
+                    f"{warnings[name]} warnings, launches {capped[name]}"
+                )
+        if peak_reserved > cap:
+            raise AssertionError(f"phase12: {peak_reserved} bytes reserved under a cap of {cap}")
+        for name in ("sync", "donate"):
+            t0 = time.monotonic()
+            _restore_exact(paths[name], params, progress, f"phase12 {name} restore")
+            walls[f"{name}_restore_s"] = time.monotonic() - t0
+            if tts.Snapshot(paths[name]).verify() != {}:
+                raise AssertionError(f"phase12: the {name} snapshot does not verify")
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        tts.Snapshot.take(paths["uncapped"], app)
+        walls["uncapped_take_s"] = time.monotonic() - t0
+        uncapped = dict(kernels.LAUNCHES)
+        slabs["uncapped"] = len(_slabs_of(tts.Snapshot(paths["uncapped"])))
+        if uncapped["pack_slab"] != slabs["uncapped"]:
+            raise AssertionError(f"phase12: the uncapped take's K1 launches {uncapped} are not one per slab")
+        members = sorted(
+            p for p, e in tts.Snapshot(paths["uncapped"]).get_manifest().items()
+            if getattr(e, "byte_range", None) is not None and e.location.startswith("batched/")
+        )
+        compared = 0
+        for member in members:
+            want = _bytes(tts.Snapshot(paths["uncapped"]).read_object(member, device="cpu"))
+            for name in ("sync", "donate"):
+                got = _bytes(tts.Snapshot(paths[name]).read_object(member, device="cpu"))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"phase12: {member} of the {name} take differs from the uncapped take's")
+            compared += want.numel()
+        if not members:
+            raise AssertionError("phase12: the uncapped take has no slab members")
+        launches_capped = {k: capped["sync"][k] + capped["donate"][k] for k in capped["sync"]}
+        out = {
+            "layers": n_layers, "state_bytes": state_bytes, "live_reserved_bytes": live, "cap_bytes": cap,
+            "peak_reserved_under_cap_bytes": peak_reserved, "slabs": slabs, "warnings": warnings,
+            "launches_capped": launches_capped, "launches_uncapped": uncapped,
+            "slab_members": len(members), "member_bytes_compared": compared, **walls,
+        }
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+_PHASE12_CHILD = "import sys, chip_smoke; chip_smoke.phase12_child(*sys.argv[1:])"
+
+
+def phase12(seed, root, card):
+    """Phase 12 in a child process (:func:`phase12_child`); returns its K1,
+    K2 and K3 launches and its summary."""
+    out_path = os.path.join(root, "phase12.json")
+    work = os.path.join(root, "phase12")
+    os.makedirs(work)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PHASE12_CHILD, str(seed), work, out_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300,
+    )
+    child_s = time.monotonic() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"phase12: the child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as f:
+        out = json.load(f)
+    if "error" in out:
+        raise AssertionError(f"phase12 child failed: {out['error'][-3000:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    out["child_s"] = child_s
+    log(f"phase12 K1 out of memory on {card}: {json.dumps(out)}")
+    launches = {k: out["launches_capped"].get(k, 0) + out["launches_uncapped"].get(k, 0) for k in out["launches_uncapped"]}
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -2744,6 +2964,7 @@ def main() -> int:
             "phase11", lambda: phase11(args.seed, device, root, card, args.phase11_layers, args.phase3_gb, args.phase11_pairs)
         )
         launches.update(phase11_launches)
+        launches["phase12"], oom = timed("phase12", lambda: phase12(args.seed, root, card))
         log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2767,6 +2988,7 @@ def main() -> int:
     log(f"phase9 (b) FSDP x TP on {card}: {fsdp_tp['layers']} layer(s), {fsdp_tp['state_bytes']} bytes, wall {fsdp_tp['wall_s']:.1f} s")
     log(f"phase10 robustness summary on {card}: {json.dumps(robustness)}")
     log(f"phase11 capture and transfer controls summary on {card}: {json.dumps(controls)}")
+    log(f"phase12 K1 out-of-memory summary on {card}: {json.dumps(oom)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

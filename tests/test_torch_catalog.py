@@ -492,8 +492,9 @@ def test_retention_over_memory_buckets(request):
         out = tts.StateDict(frozen=torch.zeros(4000), lora=torch.zeros(64), step=-1)
         tts.Snapshot(f"{bucket}/step_{i}").restore({"m": out}, device="cpu")
         assert out["step"] == i
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(tts.CheckpointAbortedError) as info:
         tts.Snapshot(f"{bucket}/step_0").restore({"m": tts.StateDict()}, device="cpu")
+    assert info.value.phase == "restore.plan" and isinstance(info.value.__cause__, FileNotFoundError)
 
 
 def test_continuous_drive_on_cpu(tmp_path):

@@ -3,15 +3,12 @@
 Counterparts of ``tests/test_chaos.py``'s fast subset. Each case runs the
 same fault spec (``TSS_TORCH_FAULTS`` / ``TORCHSNAPSHOT_TPU_FAULTS``) over
 the same numpy state, made from a seed, through both packages, and holds
-them to the same outcome: a commit, or an abort with the same injected root
-cause (and, where both wrap it, the same rank and phase), the same
-surviving files after uuid normalisation, and the same ``gc`` removals.
-
-The port raises a world-1 sync take's or restore's root error unwrapped,
-where the JAX package wraps it in ``CheckpointAbortedError`` (ROADMAP A12,
-A15): the outcome compares the root cause. Every case runs under both
-packages' budget-ledger and collective-lockstep sanitizers, inherited by
-child ranks.
+them to the same outcome: a commit, or a ``CheckpointAbortedError`` with
+the same rank, phase and injected root cause, the same surviving files
+after uuid normalisation, and the same ``gc`` removals. Both packages wrap
+a failed take or restore at every world size, world 1 included. Every case
+runs under both packages' budget-ledger and collective-lockstep sanitizers,
+inherited by child ranks.
 """
 
 import contextlib
@@ -156,26 +153,21 @@ def norm_report(report):
 
 def outcome(pkg, fn):
     """``("commit",)`` or ``("abort", root class, root message, rank,
-    phase)``; rank and phase are None where the port raises unwrapped."""
+    phase)`` of ``pkg``'s ``CheckpointAbortedError``; any other error
+    propagates."""
     try:
         fn()
         return ("commit",)
     except (jts.CheckpointAbortedError, TAborted) as e:
+        assert isinstance(e, TAborted if pkg == "torch" else jts.CheckpointAbortedError), (pkg, e)
         root = e.__cause__ if e.__cause__ is not None else e
         return ("abort", type(root).__name__, str(root), e.rank, e.phase)
-    except Exception as e:  # noqa: BLE001 - the port's unwrapped world-1 error
-        assert pkg == "torch", f"the JAX package raised unwrapped: {e!r}"
-        return ("abort", type(e).__name__, str(e), None, None)
 
 
 def same_abort(j, t):
     """The JAX and port outcomes of one case agree: both commit, or both
-    abort with the same root cause (and rank/phase where both wrap)."""
-    assert j[0] == t[0], (j, t)
-    if j[0] == "abort":
-        assert j[1:3] == t[1:3], (j, t)
-        if t[3:] != (None, None):
-            assert j[3:] == t[3:], (j, t)
+    abort with the same root cause, rank and phase."""
+    assert j == t, (j, t)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,13 @@ spawned process and the resource tracker, an orphaned grandchild) and
 then calls ``chip_smoke._stop_processes``, no process of its session is
 left once it exits."""
 
+import json
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,3 +84,98 @@ def test_no_process_outlives_the_script(tmp_path):
     # The orphaned sleep needs the fallback signals; the forkserver and the
     # tracker are stopped through their own handles.
     assert "'signalled': [" in out and "'signalled': []" not in out, out
+
+
+def _phase12_result(**overrides):
+    out = {
+        "layers": 4, "state_bytes": 1, "live_reserved_bytes": 1, "cap_bytes": 2,
+        "peak_reserved_under_cap_bytes": 1, "slabs": {"sync": 4, "donate": 4, "uncapped": 4},
+        "warnings": {"sync": 4, "donate": 4},
+        "launches_capped": {"pack_slab": 40, "fork_copy": 0, "copy_blocks": 0},
+        "launches_uncapped": {"pack_slab": 4, "fork_copy": 0, "copy_blocks": 0},
+        "slab_members": 32, "member_bytes_compared": 1,
+    }
+    out.update(overrides)
+    return out
+
+
+def test_phase12_runs_in_a_child_and_leaves_the_parent_as_it_was(tmp_path, monkeypatch):
+    """Phase 12 caps the allocator only in a child process: the parent
+    starts ``python -c`` on ``phase12_child`` and reads its result, and
+    never calls the cap itself; the child's K1 launches, under the cap and
+    after it, are what the parent counts."""
+    import torch
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    calls = []
+
+    def fake_run(cmd, cwd=None, **kwargs):
+        calls.append((cmd, cwd))
+        with open(cmd[-1], "w") as f:
+            json.dump(_phase12_result(), f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    def no_cap(*args, **kwargs):
+        raise AssertionError("the parent capped its own allocator")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    monkeypatch.setattr(torch.cuda, "set_per_process_memory_fraction", no_cap)
+    launches, out = chip_smoke.phase12(0, str(tmp_path), "card")
+    (cmd, cwd), = calls
+    assert cmd[:2] == [sys.executable, "-c"] and "phase12_child" in cmd[2] and cwd == REPO
+    assert launches == {"pack_slab": 44, "fork_copy": 0, "copy_blocks": 0}
+    assert "child_s" in out
+
+    def failing_run(cmd, cwd=None, **kwargs):
+        with open(cmd[-1], "w") as f:
+            json.dump({"error": "Traceback ...\nAssertionError: phase12: the capped sync take did not pack every slab in groups"}, f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", failing_run)
+    try:
+        chip_smoke.phase12(0, str(tmp_path / "again"), "card")
+        raise AssertionError("a failed child passed")
+    except AssertionError as e:
+        assert "did not pack every slab in groups" in str(e)
+
+
+def test_phase10_d_expects_the_wrapped_rot_error(tmp_path, monkeypatch):
+    """Phase 10 (d)'s check takes the world-1 restore's
+    ``CheckpointAbortedError`` (rank 0, ``restore.read``) whose cause names
+    the rotten object, and refuses the root error raised bare."""
+    import torch
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    import torchsnapshot_tpu_torch as tts
+
+    path = str(tmp_path / "s")
+    tts.Snapshot.take(path, {"m": tts.StateDict(x=torch.arange(64.0))})
+    monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "all")
+    monkeypatch.setenv("TSS_TORCH_FAULTS", "op=read,after=0,kind=corrupt,path=0/m/x")
+    try:
+        tts.Snapshot(path).restore({"m": tts.StateDict(x=torch.zeros(64))}, device="cpu")
+        raise AssertionError("a rotten object restored")
+    except tts.CheckpointAbortedError as e:
+        assert "0/m/x" in chip_smoke._rot_abort(e, "0/m/x")
+        try:
+            chip_smoke._rot_abort(e.__cause__, "0/m/x")
+            raise RuntimeError("a bare ReadVerificationError passed")
+        except AssertionError:
+            pass
+
+
+def test_script_needs_cuda_and_prints_no_result(tmp_path):
+    """On a host without CUDA the script exits non-zero and prints no
+    result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("the host has CUDA")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=str(tmp_path),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout

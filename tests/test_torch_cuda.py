@@ -492,8 +492,9 @@ def test_verified_reads_into_cuda_tensors(device, tmp_path, monkeypatch):
         f.seek(12345)
         f.write(bytes([b[0] ^ 1]))
     target = torch.zeros_like(x)
-    with pytest.raises(scheduler.ReadVerificationError):
+    with pytest.raises(tts.CheckpointAbortedError) as info:
         tts.Snapshot(path).restore({"m": tts.StateDict(x=target)})
+    assert isinstance(info.value.__cause__, scheduler.ReadVerificationError)
     torch.cuda.synchronize()
     # Checked on the host before the H2D: the live tensor was never written.
     assert not target.any()
@@ -634,7 +635,8 @@ def test_transient_storm_commits_and_restores_bit_exact(device, tmp_path, monkey
 def test_bit_rot_heals_once_and_persistent_rot_fails(device, tmp_path, monkeypatch):
     """Phase 10 (d) at a small size, under ``TSS_TORCH_VERIFY_READS=all``:
     one corrupt read heals by one re-fetch; an object that rots on every
-    read fails the restore with ``ReadVerificationError``."""
+    read fails the restore with ``CheckpointAbortedError(rank=0,
+    phase="restore.read")`` from the ``ReadVerificationError`` naming it."""
     from torchsnapshot_tpu_torch import telemetry
     from torchsnapshot_tpu_torch.scheduler import ReadVerificationError
 
@@ -651,8 +653,11 @@ def test_bit_rot_heals_once_and_persistent_rot_fails(device, tmp_path, monkeypat
     counters = tm.metrics.as_dict()
     assert counters["faults.corrupt"] == counters["scheduler.read_verify_failures"] == 1
     monkeypatch.setenv("TSS_TORCH_FAULTS", "op=read,after=0,kind=corrupt,path=0/m/big3")
-    with pytest.raises(ReadVerificationError, match="0/m/big3"):
+    with pytest.raises(tts.CheckpointAbortedError) as info:
         _restore_exact(path, state)
+    assert (info.value.rank, info.value.phase) == (0, "restore.read")
+    assert isinstance(info.value.__cause__, ReadVerificationError)
+    assert "0/m/big3" in str(info.value.__cause__)
 
 
 # ---------------------------------------------------------------------------
@@ -795,3 +800,84 @@ def test_overlapped_reshard_into_dtensors(device, tmp_path):
     from torchsnapshot_tpu_torch.test_utils import run_with_processes
 
     run_with_processes(_overlap_reshard, 2, args=(str(tmp_path),), process_group=True)
+
+
+# ---------------------------------------------------------------------------
+# K1 out of device memory (phase 12 at a small size)
+# ---------------------------------------------------------------------------
+
+
+def _capped_pack_worker(rank, world_size, root):
+    """The body of the test below, in a fresh process: no segment cached by
+    an earlier test can hold the slab, and the cap dies with the process."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import batcher, kernels
+    from torchsnapshot_tpu_torch.utils import knobs
+
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(12)
+    # Members of 12 MiB each get segments of their own, so the slab (48 MiB)
+    # and its halves (24 MiB) need new ones.
+    state = {f"w{i}": torch.randn(3 << 20, generator=g, device=device) for i in range(4)}
+    member = 12 << 20
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_reserved(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    warned = []
+    batcher.logger.warning = lambda *a, **k: warned.append(a)
+
+    def cap(headroom):
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction((live + headroom) / total, device)
+
+    # Not even one member fits: the take aborts, naming the allocation.
+    cap(4 << 20)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        torch.empty(member, dtype=torch.uint8, device=device)
+    with knobs.override_batching_enabled(True):
+        with pytest.raises(tts.CheckpointAbortedError) as info:
+            tts.Snapshot.take(os.path.join(root, "short"), {"m": tts.StateDict(state)})
+    assert (info.value.rank, info.value.phase) == (0, "write")
+    assert isinstance(info.value.__cause__, torch.cuda.OutOfMemoryError)
+    assert not os.path.exists(os.path.join(root, "short", ".snapshot_metadata"))
+    assert kernels.LAUNCHES["pack_slab"] == 0 and warned == []
+
+    # A member fits, a half of the slab does not: each take packs the slab
+    # in 4 K1 launches.
+    cap(16 << 20)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        torch.empty(2 * member, dtype=torch.uint8, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with knobs.override_batching_enabled(True):
+        tts.Snapshot.take(os.path.join(root, "sync"), {"m": tts.StateDict(state)})
+        assert kernels.LAUNCHES["pack_slab"] == 4 and len(warned) == 1
+        os.environ["TSS_TORCH_ASYNC_CAPTURE"] = "donate"
+        tts.Snapshot.async_take(os.path.join(root, "donate"), {"m": tts.StateDict(state)}).wait()
+        del os.environ["TSS_TORCH_ASYNC_CAPTURE"]
+    assert kernels.LAUNCHES["pack_slab"] == 8 and len(warned) == 2
+    assert torch.cuda.max_memory_reserved(device) <= live + (16 << 20)
+    torch.cuda.set_per_process_memory_fraction(1.0, device)
+    for name in ("sync", "donate"):
+        _restore_exact(os.path.join(root, name), state)
+        assert tts.Snapshot(os.path.join(root, name)).verify() == {}
+    with knobs.override_batching_enabled(True):
+        tts.Snapshot.take(os.path.join(root, "uncapped"), {"m": tts.StateDict(state)})
+    assert kernels.LAUNCHES["pack_slab"] == 9 and len(warned) == 2
+    for k in state:
+        want = _bytes(tts.Snapshot(os.path.join(root, "uncapped")).read_object(f"0/m/{k}", device="cpu"))
+        for name in ("sync", "donate"):
+            got = _bytes(tts.Snapshot(os.path.join(root, name)).read_object(f"0/m/{k}", device="cpu"))
+            assert torch.equal(got, want), (name, k)
+
+
+def test_pack_out_of_memory_packs_in_groups(device, tmp_path):
+    """Under a cap on the caching allocator, K1's slab allocation raises
+    ``torch.cuda.OutOfMemoryError``: with room for no member the take
+    aborts; with room for one member and not two, a sync take and a
+    ``donate`` ``async_take`` each commit with the slab packed in 4 K1
+    launches and one warning, restore bit-exactly and verify, and an
+    uncapped take's slab (one launch) holds the same member bytes."""
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    run_with_processes(_capped_pack_worker, 1, args=(str(tmp_path),), timeout_s=180)

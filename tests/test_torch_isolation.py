@@ -447,10 +447,11 @@ _SURFACE_EXEMPT = {"faults.py", "effect_journal.py", "crash_explorer.py"}
 
 
 def _commit_points(root=PORT):
-    """``{"<path under root>:<qualname>": line}`` of every top-level
+    """``{"<file's basename>:<qualname>": line}`` of every top-level
     function or method under ``root`` (the port) that calls an ``os``
     mutation (or hands one to an executor), or a mutating method through a
-    receiver whose name says storage or plugin."""
+    receiver whose name says storage or plugin. The key is the static
+    analyzer's TSA1004 form; two sites under one key fail."""
     import re
 
     receiver = re.compile(r"storage|plugin")
@@ -459,7 +460,6 @@ def _commit_points(root=PORT):
     for path in paths:
         if os.path.basename(path) in _SURFACE_EXEMPT:
             continue
-        rel = os.path.relpath(path, root).replace(os.sep, "/")
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
         funcs = []
@@ -478,7 +478,9 @@ def _commit_points(root=PORT):
                 if not hit and isinstance(call.func, ast.Attribute) and call.func.attr in _PLUGIN_MUTATIONS:
                     hit = bool(receiver.search(ast.unparse(call.func.value).lower()))
                 if hit:
-                    found[f"{rel}:{qual}"] = call.lineno
+                    site = f"{os.path.basename(path)}:{qual}"
+                    assert site not in found, f"two commit points share the key {site}"
+                    found[site] = call.lineno
                     break
     return found
 
@@ -509,5 +511,5 @@ def test_the_commit_point_scan_finds_a_planted_mutation(tmp_path):
     )
     (tmp_path / "faults.py").write_text("import os\n\n\ndef f(a):\n    os.remove(a)\n")
     assert _commit_points(str(tmp_path)) == {
-        "sub/planted.py:W.land": 6, "sub/planted.py:W.put": 9, "sub/planted.py:drop": 13,
+        "planted.py:W.land": 6, "planted.py:W.put": 9, "planted.py:drop": 13,
     }

@@ -140,14 +140,15 @@ def test_corrupt_object_raises_under_all_in_both_packages(tmp_path, monkeypatch,
     _flip(os.path.join(path, "0/m/emb"), 100)
     monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "all")
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_VERIFY_READS", "all")
-    with pytest.raises(scheduler.ReadVerificationError):
+    with pytest.raises(tts.CheckpointAbortedError) as tinfo:
         _port_restore(path, tree)
+    assert isinstance(tinfo.value.__cause__, scheduler.ReadVerificationError)
     jtarget = jts.StateDict(**{k: (np.zeros_like(v) if not isinstance(v, dict) else {kk: {kkk: np.zeros_like(vvv) for kkk, vvv in vv.items()} for kk, vv in v.items()}) for k, v in tree.items()})
-    # The JAX package wraps it even at world 1; the port (like its other
-    # world-1 errors) raises it as it is.
+    # Both packages wrap it, at world 1 too.
     with pytest.raises(jax_snapshot.CheckpointAbortedError) as info:
         jts.Snapshot(path).restore({"m": jtarget})
     assert isinstance(info.value.__cause__, jax_scheduler.ReadVerificationError)
+    assert (tinfo.value.rank, tinfo.value.phase) == (info.value.rank, info.value.phase) == (0, "restore.read")
     # Under auto the direct pipeline trusts origin reads, in both packages.
     monkeypatch.setenv("TSS_TORCH_VERIFY_READS", "auto")
     target = _port_restore(path, tree)
@@ -246,8 +247,6 @@ def _cache_ops(mod, inner_root, cache_dir, digests):
 
     def read(path, rng=None):
         if mod is jax_cache:
-            import io
-
             from torchsnapshot_tpu.io_types import ReadIO as JReadIO
 
             rio = JReadIO(path=path, byte_range=rng)
@@ -660,8 +659,9 @@ def test_scrub_reports_equal_the_jax_packages(tmp_path, monkeypatch, repair):
         assert "chunk(s) [1] patched from 0/s/b" in port_report["entries"]["0/s/a"]["detail"]
         assert tts.Snapshot(p).scrub()["entries"]["0/s/a"]["status"] == "ok"
         assert os.path.exists(os.path.join(p, "0/s/u.quarantined"))
-        with pytest.raises(FileNotFoundError):
+        with pytest.raises(tts.CheckpointAbortedError) as info:
             tts.Snapshot(p).restore({"s": tts.StateDict(**_zeros_like(tree))}, device="cpu")
+        assert info.value.phase == "restore.read" and isinstance(info.value.__cause__, FileNotFoundError)
     else:
         assert statuses == {"0/s/a": "corrupt", "0/s/b": "ok", "0/s/u": "corrupt", "0/s/v": "corrupt"}
         assert port_report["corrupt"] == 3 and not port_report["clean"]

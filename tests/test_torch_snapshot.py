@@ -161,10 +161,14 @@ def test_error_contracts(tmp_path):
         tts.Snapshot(path).read_object("0/m/nope", device="cpu")
     with pytest.raises(TypeError):
         tts.Snapshot.take(str(tmp_path / "bad"), {"m": object()})
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(tts.CheckpointAbortedError) as info:
         tts.Snapshot(str(tmp_path / "never")).restore({"m": tts.StateDict()}, device="cpu")
-    with pytest.raises(KeyError):
+    assert (info.value.rank, info.value.phase) == (0, "restore.plan")
+    assert isinstance(info.value.__cause__, FileNotFoundError)
+    with pytest.raises(tts.CheckpointAbortedError) as info:
         tts.Snapshot(path).restore({"other": tts.StateDict()}, device="cpu")
+    assert (info.value.rank, info.value.phase) == (0, "restore.read")
+    assert isinstance(info.value.__cause__, KeyError)
 
 
 def test_compressed_entry_refused(tmp_path):

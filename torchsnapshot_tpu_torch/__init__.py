@@ -9,8 +9,10 @@ staged through explicit CUDA streams and two hand-written kernels
 for ``async_take``.
 """
 
+from .io_types import StoragePlugin
 from .rng_state import RNGState
-from .snapshot import PendingSnapshot, Snapshot
+from .scheduler import ReadVerificationError
+from .snapshot import CheckpointAbortedError, PendingSnapshot, Snapshot
 from .state_dict import StateDict
 from .stateful import AppState, Stateful
 from .version import __version__
@@ -22,5 +24,8 @@ __all__ = [
     "StateDict",
     "RNGState",
     "AppState",
+    "StoragePlugin",
+    "CheckpointAbortedError",
+    "ReadVerificationError",
     "__version__",
 ]

@@ -12,8 +12,13 @@ with captured members or two devices.
 A slab whose members are all tensors of one device and of a packable
 dtype is staged by :class:`DeviceBatchedBufferStager` over kernel K1
 (:func:`..kernels.pack_slab`): one launch packs the slab on the card, and
-one D2H copy fetches it. There is no fallback to host packing for CUDA
-members: a failed pack raises. Other slabs, and every slab with
+one D2H copy fetches it. A slab whose packed bytes do not fit in device
+memory (``torch.cuda.OutOfMemoryError``, raised by the pack's allocations
+before its launch) is packed in halves, recursively, each group a K1
+launch copied into its offset of the pinned host slab, with one warning
+(:func:`_pack_groups`); a member that alone does not fit, and any other
+pack or launch failure, raises. The JAX package host-packs such a slab
+instead. Other slabs, and every slab with
 ``TSS_TORCH_DEVICE_BATCHING=0``, concatenate their members' staged bytes on
 the host (:class:`BatchedBufferStager`).
 
@@ -38,11 +43,14 @@ except the framed groups of a big compressed object (``merge_exempt``).
 from __future__ import annotations
 
 import asyncio
+import logging
 import threading
 import time
 import uuid
 from concurrent.futures import Executor
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from . import d2h, kernels, telemetry
 from .io_preparers.array import FRAME_TABLE_SUFFIX, ArrayBufferStager, PollingTableStager
@@ -50,6 +58,8 @@ from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteRe
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .serialization import COMPRESSED, Serializer, array_nbytes, compress_member_framed
 from .utils import knobs
+
+logger = logging.getLogger(__name__)
 
 
 def _collect_array_entries(entries: List[Entry]) -> Dict[str, ArrayEntry]:
@@ -99,34 +109,70 @@ class BatchedBufferStager(BufferStager):
             req.buffer_stager.start_d2h_hint(lanes)
 
 
+# K1's packs are enqueued one at a time: a slab packed in groups must not
+# meet another slab's pack in the device memory it was short of. The lock
+# covers the allocations, the launch and the D2H's enqueue; the lanes wait
+# for their copies outside it.
+_PACK_ENQUEUE_LOCK = threading.Lock()
+
+
+def _pack_groups(host: torch.Tensor, tensors: List[torch.Tensor], stream: Optional[torch.cuda.Stream]) -> int:
+    """K1 over ``tensors`` into ``host`` (uint8, their packed bytes), its
+    result copied there on ``stream``: one launch where the packed group
+    fits in device memory, else each half into its offset of ``host``,
+    recursively. A member that alone does not fit raises
+    ``torch.cuda.OutOfMemoryError``. Returns the launches."""
+    try:
+        host.copy_(kernels.pack_slab(tensors, stream=stream), non_blocking=True)
+        return 1
+    except torch.cuda.OutOfMemoryError:
+        if len(tensors) == 1:
+            raise
+    if tensors[0].is_cuda:
+        # The failed group's output segment stays cached: a half would be
+        # cut from it, and the descriptor table would then need a segment
+        # of its own that no longer fits. Give the cached segments back.
+        torch.cuda.empty_cache()
+    mid = len(tensors) // 2
+    split = sum(t.numel() * t.element_size() for t in tensors[:mid])
+    return _pack_groups(host[:split], tensors[:mid], stream) + _pack_groups(host[split:], tensors[mid:], stream)
+
+
 class DeviceBatchedBufferStager(BatchedBufferStager):
     """Packs the members into one uint8 slab with K1 on their device, then
-    fetches it with one D2H copy (CUDA), or packs on the host (CPU)."""
+    fetches it with one D2H copy (CUDA), or packs on the host (CPU). A slab
+    too large for device memory is packed in groups (module docstring)."""
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         stagers = [req.buffer_stager for req, _, _ in self.members]
         tensors = [s.tensor for s in stagers]
         device = tensors[0].device
+        packed = sum(t.numel() * t.element_size() for t in tensors)
+        if packed != self.total:
+            raise RuntimeError(f"Slab members pack to {packed} bytes, planned {self.total}")
+
+        def fill(stream: Optional[torch.cuda.Stream], host: torch.Tensor) -> None:
+            with _PACK_ENQUEUE_LOCK:
+                launches = _pack_groups(host, tensors, stream)
+            if launches > 1:
+                logger.warning(
+                    "A slab of %d members (%d bytes) did not fit in device memory; "
+                    "packed it in %d groups",
+                    len(tensors), self.total, launches,
+                )
+
         if device.type == "cuda":
             host = await d2h.get_active().lanes.run_to_host(
-                device,
-                self.total,
-                stagers[0].ready,
-                lambda stream: kernels.pack_slab(tensors, stream=stream),
-                tensors,
-                path=self.path,
+                device, self.total, stagers[0].ready, fill, tensors, path=self.path,
             )
         else:
             # On the host the pack is the slab's whole serialization.
             t0 = time.monotonic()
-            host = kernels.pack_slab(tensors)
+            host = torch.empty(self.total, dtype=torch.uint8)
+            fill(None, host)
             times = d2h.current_times()
             if times is not None:
                 times.record("serialize", t0, time.monotonic(), path=self.path, nbytes=host.numel())
-        if host.numel() != self.total:
-            raise RuntimeError(
-                f"Device-packed slab is {host.numel()} bytes, planned {self.total}"
-            )
         for s in stagers:
             s.check_version()
         return memoryview(host.numpy())

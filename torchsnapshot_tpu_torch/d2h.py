@@ -225,7 +225,7 @@ class TransferLanes:
         wait: Optional[torch.cuda.Event] = None,
         path: str = "",
         check: Optional[Callable[[], None]] = None,
-    ) -> "Future[torch.Tensor]":
+    ) -> Future[torch.Tensor]:
         """:meth:`to_host` from outside the event loop: returns at once
         with the future of the pinned host copy. The pinned allocation and
         the enqueue run on a lane thread, never on the caller's."""
@@ -239,18 +239,17 @@ class TransferLanes:
         device: torch.device,
         nbytes: int,
         wait: Optional[torch.cuda.Event],
-        produce: Callable[[torch.cuda.Stream], torch.Tensor],
+        fill: Callable[[torch.cuda.Stream, torch.Tensor], None],
         sources: Sequence[torch.Tensor],
         path: str = "",
     ) -> torch.Tensor:
-        """Run ``produce(stream)`` (which enqueues device work on the lane's
-        copy stream and returns a device tensor of ``nbytes``) and copy its
-        result into a pinned host tensor on the same stream."""
+        """A pinned uint8 host tensor of ``nbytes``, filled by
+        ``fill(stream, host)``, which enqueues on the lane's copy stream the
+        device work and the copies into ``host``."""
 
         def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
-            out = produce(stream)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            fill(stream, host)
             return host
 
         return await asyncio.get_running_loop().run_in_executor(

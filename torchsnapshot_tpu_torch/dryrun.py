@@ -989,15 +989,14 @@ def _continuous(cfg, root, device, batch, seed, frozen_blocks) -> Dict[str, Any]
         shutil.rmtree(cache_dir, ignore_errors=True)
     del copies
 
-    # The debris sweep.
-    torn = os.path.join(bucket, "t6", "0", "model", "torn.tmp.0a1b2c3d")
-    os.makedirs(os.path.dirname(torn), exist_ok=True)
-    with open(torn, "wb") as f:
-        f.write(b"\0" * 4096)
-    os.makedirs(os.path.join(bucket, "t7", "0"))
-    with open(os.path.join(bucket, "t7", "0", "partial"), "wb") as f:
-        f.write(b"\1" * 4096)
+    # The debris sweep: a torn temp file in a committed snapshot and an
+    # uncommitted snapshot's object, as a crash leaves them.
     planted = ["t6/0/model/torn.tmp.0a1b2c3d", "t7/0/partial"]
+    for i, rel in enumerate(planted):
+        debris = os.path.join(bucket, rel)
+        os.makedirs(os.path.dirname(debris), exist_ok=True)
+        with open(debris, "wb") as f:
+            f.write(bytes([i]) * 4096)
     before = {os.path.relpath(os.path.join(d, f), bucket) for d, _, fs in os.walk(bucket) for f in fs}
     dry = Snapshot.gc(bucket)
     applied = Snapshot.gc(bucket, dry_run=False)

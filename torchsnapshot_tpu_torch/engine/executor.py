@@ -189,13 +189,18 @@ class GraphExecutor:
         cap = self._caps.get(pool)
         return cap is None or self._busy.get(pool, 0) < cap
 
-    def _start(self, node: Node, payload: Any, reservation: int) -> None:
+    def _start(self, node: Node, payload: Any, reservation: int, debit: bool = False) -> None:
+        """Run ``node`` as a task holding ``reservation``; ``debit``: a
+        chain's first node, whose reservation is debited here, once the
+        task exists (if creating it raises, nothing was reserved)."""
         ctx = NodeContext(self, reservation)
-        self._busy[node.pool] = self._busy.get(node.pool, 0) + 1
-        self.admitted += 1
         with self._task_context():
             task = asyncio.ensure_future(self._execute(node, ctx, payload))
+        if debit:
+            self.budget.debit(ctx.reservation)
         self._inflight[task] = (node, ctx)
+        self._busy[node.pool] = self._busy.get(node.pool, 0) + 1
+        self.admitted += 1
 
     async def _execute(self, node: Node, ctx: NodeContext, payload: Any) -> Any:
         t0 = time.monotonic()
@@ -344,8 +349,7 @@ class GraphExecutor:
             if node.cost_bytes > self.budget.available and self._inflight:
                 break
             self._pending.popleft()
-            self.budget.debit(node.cost_bytes)
-            self._start(node, None, node.cost_bytes)
+            self._start(node, None, node.cost_bytes, debit=True)
 
     async def run(self, until: Optional[Callable[[], bool]] = None) -> None:
         """Run until the graph is drained, or until ``until()`` holds."""

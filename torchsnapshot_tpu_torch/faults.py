@@ -119,8 +119,8 @@ _PASSTHROUGH_OPS = ("prune_empty", "close")
 # The port's commit points: every function under torchsnapshot_tpu_torch/
 # that performs a durable mutation itself (os.replace/rename/link/remove/
 # unlink, or a mutating call on a storage plugin), as
-# "<path in the package>:<qualname>", pinned to the op class whose rules
-# reach it. "fail-open" marks a site whose loss is harmless by contract
+# "<file's basename>:<qualname>" (the static analyzer's TSA1004 key),
+# pinned to the op class whose rules reach it. "fail-open" marks a site whose loss is harmless by contract
 # (telemetry sidecars, read-cache entries the next read refills, build
 # artifacts). tests/test_torch_isolation.py scans the package and holds
 # this table to what it finds, in both directions.
@@ -130,35 +130,35 @@ _CRASH_SURFACE = (
     ("catalog.py:Catalog.pin", "write"),
     ("catalog.py:Catalog.unpin", "delete"),
     ("kernels.py:_build", "fail-open"),  # the CUDA kernels' .so
-    ("native/__init__.py:_build", "fail-open"),  # the I/O engine's .so
+    ("__init__.py:_build", "fail-open"),  # native/: the I/O engine's .so
     ("scheduler.py:_WritePipeline._link_from_base", "link"),
     ("scheduler.py:_WritePipeline._storage_write", "write"),
     ("scheduler.py:_WritePipeline._stream_one", "append"),
     ("scheduler.py:_WritePipeline.run_to_completion", "write"),
     ("snapshot.py:Snapshot.gc", "delete"),
     ("snapshot.py:_scrub_repair", "write"),
-    ("snapshot.py:_write_metadata", "write"),
+    ("snapshot.py:_write_snapshot_metadata", "write"),
     ("storage_plugin.py:write_telemetry_artifact", "write"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._drop_entry", "fail-open"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._maybe_evict", "fail-open"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._read_entry", "fail-open"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._replace_bitmap", "cache_bitmap"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._write_entry", "fail-open"),
-    ("storage_plugins/cache.py:CachedStoragePlugin._write_entry_range", "fail-open"),
-    ("storage_plugins/cache.py:CachedStoragePlugin.quarantine_path", "fail-open"),
-    ("storage_plugins/fs.py:FSStoragePlugin._link_in_inner", "link"),
-    ("storage_plugins/fs.py:FSStoragePlugin._write_file", "write"),
-    ("storage_plugins/fs.py:FSStoragePlugin.delete", "delete"),
-    ("storage_plugins/fs.py:_FSWriteStream._abort_work", "abort"),
-    ("storage_plugins/fs.py:_FSWriteStream._commit_work", "commit"),
-    ("storage_plugins/gcs.py:_GCSWriteStream.commit", "commit"),
-    ("storage_plugins/s3.py:_S3WriteStream.commit", "commit"),
+    ("cache.py:CachedStoragePlugin._drop_entry", "fail-open"),
+    ("cache.py:CachedStoragePlugin._maybe_evict", "fail-open"),
+    ("cache.py:CachedStoragePlugin._read_entry", "fail-open"),
+    ("cache.py:CachedStoragePlugin._replace_bitmap", "cache_bitmap"),
+    ("cache.py:CachedStoragePlugin._write_entry", "fail-open"),
+    ("cache.py:CachedStoragePlugin._write_entry_range", "fail-open"),
+    ("cache.py:CachedStoragePlugin.quarantine_path", "fail-open"),
+    ("fs.py:FSStoragePlugin._link_in_inner", "link"),
+    ("fs.py:FSStoragePlugin._write_file", "write"),
+    ("fs.py:FSStoragePlugin.delete", "delete"),
+    ("fs.py:_FSWriteStream._abort_work", "abort"),
+    ("fs.py:_FSWriteStream._commit_work", "commit"),
+    ("gcs.py:_GCSWriteStream.commit", "commit"),
+    ("s3.py:_S3WriteStream.commit", "commit"),
     # The A/B probe writes throwaway `.probe` objects outside any snapshot.
     ("stream_select.py:_probe_streamed", "fail-open"),
     ("stream_select.py:_probe_whole", "fail-open"),
-    ("telemetry/aggregate.py:write_merged_chrome_trace", "fail-open"),
-    ("telemetry/export.py:write_trace_obj", "fail-open"),
-    ("telemetry/recorder.py:FlightRecorder.dump", "fail-open"),
+    ("aggregate.py:write_merged_chrome_trace", "fail-open"),
+    ("export.py:write_trace_obj", "fail-open"),
+    ("recorder.py:FlightRecorder.dump", "fail-open"),
 )
 
 # The exit code of a `kill` fault: an injected death is told apart from a

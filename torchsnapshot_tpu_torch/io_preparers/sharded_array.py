@@ -471,8 +471,7 @@ class ShardedArrayBufferConsumer(BufferConsumer):
         self._host = self._alloc_host()
         return memoryview(self._host.numpy())
 
-    def _scatter(self) -> None:
-        host, self._host = self._host, None
+    def _scatter(self, host: torch.Tensor) -> None:
         dtype = string_to_dtype(self.entry.dtype)
         shape = tuple(int(s) for s in self.entry.shape)
         if self.device.type == "cuda":
@@ -493,8 +492,7 @@ class ShardedArrayBufferConsumer(BufferConsumer):
             raise ValueError(f"{self.entry.location}: decoded {mv.nbytes} bytes; expected {self.nbytes}")
         host = self._alloc_host()
         host.numpy()[:] = np.frombuffer(mv, dtype=np.uint8)
-        self._host = host
-        self._scatter()
+        self._scatter(host)
 
     async def consume_buffer(self, buf: BufferType, executor: Optional[Executor] = None) -> None:
         mv = memoryview(buf).cast("B")
@@ -503,13 +501,17 @@ class ShardedArrayBufferConsumer(BufferConsumer):
                 f"{self.entry.location}: read {mv.nbytes} bytes; expected {self.nbytes}"
             )
 
+        # The buffer ``read_into`` lent (if any) is taken on the loop; the
+        # worker thread never touches ``self._host``.
+        landed, self._host = self._host, None
+
         def work() -> None:
-            if self._host is None or not _same_buffer(mv, self._host):
+            host = landed
+            if host is None or not _same_buffer(mv, host):
                 # A merged read handed over a slice of its own buffer.
                 host = self._alloc_host()
                 host.numpy()[:] = np.frombuffer(mv, dtype=np.uint8)
-                self._host = host
-            self._scatter()
+            self._scatter(host)
 
         if executor is None:
             work()

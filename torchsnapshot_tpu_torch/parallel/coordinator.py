@@ -68,10 +68,13 @@ class Coordinator:
         self._posted.append((self._generation, ns_key))
 
     def _gc_posted(self) -> None:
+        # Collective keys in the store, not snapshot state: the keep-set is
+        # the generation watermark of the loop's condition (only keys that
+        # a full-world barrier proved consumed go).
         while self._posted and self._posted[0][0] < self._last_barrier_gen:
             _, key = self._posted.pop(0)
             try:
-                self._store.delete(key)
+                self._store.delete(key)  # noqa: TSA1003 - gated by the barrier watermark above
             except Exception:  # noqa: BLE001 - clean-up is best-effort
                 break
 

@@ -16,10 +16,11 @@ crosses processes. In a take each rank writes its per-rank state under
 replicated state (balanced by the partitioner); the manifests are
 all-gathered, and rank 0 writes ``.snapshot_metadata`` only after every
 rank has passed the commit barrier. A failure on any rank surfaces on every
-rank as :class:`CheckpointAbortedError` naming the rank and the phase, and
-leaves no ``.snapshot_metadata``. A restore fills each rank's DTensors from
-the saved bytes that overlap its local shards, whatever the saved world
-size and placements were.
+rank, at world size 1 too, as :class:`CheckpointAbortedError` naming the
+rank and the phase, and leaves no ``.snapshot_metadata``; an application's
+own ``load_state_dict`` error reaches its rank as itself. A restore fills
+each rank's DTensors from the saved bytes that overlap its local shards,
+whatever the saved world size and placements were.
 
 Steady state: a take's plan is fingerprinted (``take_plan.py``); a
 multi-rank take whose every rank holds a plan for its own structure, from
@@ -375,11 +376,11 @@ def _abort_exception(
     phase: str,
     e: BaseException,
 ) -> BaseException:
-    """The exception a failed multi-rank operation raises: the failure is
-    reported through ``barrier`` (which unblocks and fails every peer), a
-    peer's earlier report names that peer, and the result is a
-    :class:`CheckpointAbortedError`. A KeyboardInterrupt or SystemExit is
-    reported but comes back as itself."""
+    """The exception a failed take or restore raises: the failure is
+    reported through ``barrier`` (which unblocks and fails every peer; None
+    at world size 1), a peer's earlier report names that peer, and the
+    result is a :class:`CheckpointAbortedError`. A KeyboardInterrupt or
+    SystemExit is reported but comes back as itself."""
     telemetry.counter_add("snapshot.abort")
     if isinstance(e, CheckpointAbortedError):
         return e
@@ -404,6 +405,26 @@ def _abort_exception(
                     detail = f"{detail} (last beaconed phase: {last_phase})"
         return CheckpointAbortedError(path, culprit, phase, detail)
     return CheckpointAbortedError(path, rank, phase, repr(e))
+
+
+def _first_take_phase(coord: Coordinator) -> str:
+    """The phase a take's failure names until its plan is made: "write" at
+    world size 1, as the JAX package names every failure of a take before
+    its commit; "plan" with several ranks, where the plan's gather tells
+    every rank of a planning failure."""
+    return "write" if coord.get_world_size() == 1 else "plan"
+
+
+def _load_state_dict(stateful: Any, state: Any) -> None:
+    """``stateful.load_state_dict(state)``; an error it raises is the
+    application's own, not a checkpoint fault: it is marked so that
+    ``restore`` re-raises it as itself."""
+    try:
+        stateful.load_state_dict(state)
+    except Exception as e:
+        with contextlib.suppress(Exception):
+            e._tss_app_hook_error = True  # type: ignore[attr-defined]
+        raise
 
 
 class Snapshot:
@@ -495,7 +516,7 @@ class Snapshot:
                 barrier = cls._barrier(coord, "commit", path)
                 event_loop = asyncio.new_event_loop()
                 storage = url_to_storage_plugin(path)
-                phase = ["plan"]
+                phase = [_first_take_phase(coord)]
                 try:
                     pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
                     pending.sync_complete(event_loop)
@@ -515,9 +536,6 @@ class Snapshot:
                     if catalog_info is not None:
                         _note_chain_commit(path, catalog_info)
                 except BaseException as e:
-                    if barrier is None:
-                        telemetry.counter_add("snapshot.abort")
-                        raise
                     aborted = _abort_exception(path, barrier, rank, phase[0], e)
                     if aborted is e:
                         raise
@@ -580,7 +598,7 @@ class Snapshot:
                 barrier = cls._barrier(coord, "async_commit", path)
                 event_loop = asyncio.new_event_loop()
                 storage = url_to_storage_plugin(path)
-                phase = ["plan"]
+                phase = [_first_take_phase(coord)]
                 try:
                     pending, metadata = cls._take_impl(plan, coord, storage, event_loop, True, phase)
                 except BaseException as e:
@@ -700,7 +718,7 @@ class Snapshot:
         phase_out: List[str],
     ) -> Tuple[PendingIOWork, Optional[SnapshotMetadata]]:
         """Prepare the take and run its pipeline to the capture point;
-        ``phase_out[0]`` says how far it got ("plan", then "write"). The
+        ``phase_out[0]`` becomes "write" once the plan is made. The
         metadata is None on a non-zero rank of a plan-cache hit (only rank
         0 gathers the manifest then)."""
         rank, world_size = coord.get_rank(), coord.get_world_size()
@@ -991,8 +1009,11 @@ class Snapshot:
         (``TSS_TORCH_BCAST_RESTORE``, ``TSS_TORCH_SWARM_RESTORE``); reads
         are verified under ``TSS_TORCH_VERIFY_READS``. A failure on any
         rank reaches every rank as :class:`CheckpointAbortedError`; live
-        state may then be partly loaded. ``LAST_RESTORE_STATS`` holds this
-        process's accounting of the restore.
+        state may then be partly loaded. An error raised by a stateful's
+        own ``load_state_dict`` reaches its rank as itself, and its peers
+        as :class:`CheckpointAbortedError` naming that rank.
+        ``LAST_RESTORE_STATS`` holds this process's accounting of the
+        restore.
 
         ``_telemetry``: as in :meth:`take`; the restore's artifact is
         ``.telemetry/restore_rank_<k>.json``. ``job``/``step``: each rank
@@ -1062,7 +1083,7 @@ class Snapshot:
                         key, manifest, live, storage, event_loop, device, memory_budget,
                         include=include, modes=modes, digests=digests,
                     )
-                    stateful.load_state_dict(state)
+                    _load_state_dict(stateful, state)
                 totals["bytes_read"] += stats["bytes_read"]
                 totals["read_wall_s"] += stats["wall_s"]
                 totals["requests"] += stats["requests"]
@@ -1089,11 +1110,11 @@ class Snapshot:
             if job is not None:
                 self._append_rollout_record(job, step, rank, world, event_loop)
         except BaseException as e:
-            if barrier is None:
-                telemetry.counter_add("snapshot.abort")
-                raise
             aborted = _abort_exception(self.path, barrier, rank, phase, e)
-            if aborted is e:
+            if aborted is e or getattr(e, "_tss_app_hook_error", False):
+                # An application's own load hook raised: its peers were
+                # released naming this rank, but the caller gets the error
+                # itself (a missing leaf is a KeyError, not an abort).
                 raise
             raise aborted from e
         finally:
@@ -1872,7 +1893,7 @@ def _validate_app_state(app_state: AppState) -> None:
             )
 
 
-def _write_metadata(
+def _write_snapshot_metadata(
     metadata: SnapshotMetadata, storage: StoragePlugin, event_loop: asyncio.AbstractEventLoop
 ) -> None:
     storage.sync_write(
@@ -1899,7 +1920,7 @@ def _commit(
     if barrier is not None:
         barrier.arrive()
     if rank == 0:
-        _write_metadata(metadata, storage, event_loop)
+        _write_snapshot_metadata(metadata, storage, event_loop)
         if catalog_info is not None:
             _append_catalog_record(path, storage, event_loop, metadata.world_size, *catalog_info)
     if barrier is not None:

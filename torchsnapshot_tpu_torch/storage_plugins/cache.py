@@ -347,11 +347,11 @@ class CachedStoragePlugin(StoragePlugin):
                     os.makedirs(os.path.dirname(entry), exist_ok=True)
                     # Not atomic on purpose: chunks count as present only
                     # once the bitmap says so.
-                    with open(entry, "wb") as f:
+                    with open(entry, "wb") as f:  # noqa: TSA1001 - published by the bitmap's rename
                         f.truncate(size)
                     created = True
                 span_b, span_e = c0 * grain, min(c1 * grain, size)
-                with open(entry, "r+b") as f:
+                with open(entry, "r+b") as f:  # noqa: TSA1001 - published by the bitmap's rename
                     f.seek(span_b)
                     f.write(data[span_b - begin : span_e - begin])
                 with open(bitmap_path, "rb") as f:

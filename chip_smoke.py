@@ -48,7 +48,8 @@ uninterrupted run, and restores a sync take of the step-6 state into
 zeroed tensors in place; all bit-exact (``dryrun.train_checkpoint_resume``).
 Phase 5 drives the write-path features (compressed, incremental and
 plan-cached takes) on a partial fine-tune of phase 4's transformer at the
-same width (``--phase5-layers``, 4 since phase 11 came; 8 before), its
+same width (``--phase5-layers``, 2 since phase 13 came; 4 before, and 8
+before phase 11), its
 token and position embeddings and first half of its blocks frozen
 (``requires_grad=False``, out of the optimizer): steps 1-2, ``async_take``
 to c0 (a prepared-take miss), step 3 racing its drain; ``async_take`` to c1
@@ -73,7 +74,8 @@ only when ``zstandard`` imports). Phase 4 prints its takes' streaming decisions 
 Phase 0 also builds the native O_DIRECT I/O engine (``g++``, beside the
 kernels' ``nvcc``) and fails if it does not load.
 Phase 6 drives a serving fleet: two ranks on the one card (gloo) each hold
-phase 4's transformer weights (3.75 GB, no optimizer), taken once with
+phase 4's transformer weights at 4 layers (2.14 GB, no optimizer; 8
+layers, 3.75 GB, before phase 13 came: a depth cut), taken once with
 ``replicated=["**"]`` and batching on (K1), then restored bit-exactly into
 a fresh model directly, by broadcast, by swarm (the broadcast cap lowered
 to 1 byte, since no object of this model exceeds 256 MiB), twice through a
@@ -122,10 +124,10 @@ process, phase 4's trainer state (8 layers, AdamW, every parameter and
 moment from the seed, 11.25 GB) is taken with ``async_take(qos=
 "background")``; as soon as its drain has staged its first bytes,
 ``restore(qos="foreground")`` of a snapshot of the same model's weights
-(phase 6's 3.75 GB) goes into a fresh model's live CUDA tensors
-(``dryrun.qos_race``): two interleaved pairs (three before phase 11 came)
-with QoS on and with ``TSS_TORCH_QOS=0``, the first pair under
-``TSS_TORCH_DEBUG_LEDGER=1``.
+(phase 4's 8 layers, 3.75 GB) goes into a fresh model's live CUDA tensors
+(``dryrun.qos_race``): one interleaved pair (three before phase 11
+came, two before phase 13 came: a depth cut for the script's time) with QoS on and with ``TSS_TORCH_QOS=0``, the first pair
+under ``TSS_TORCH_DEBUG_LEDGER=1``.
 It prints per race the restore's seconds and GB/s, the drain's seconds
 and the drain engine's ``engine.preemptions`` and
 ``engine.preempted_wait_s`` (its artifact's ``engine`` section), which
@@ -174,7 +176,8 @@ Phase 11 drives the capture and transfer controls on phase 4's trainer
 at phase 4's width and depth (``--phase11-layers``, 8: 11.25 GB of AdamW
 state in 408 tensors): (a) ``async_take`` with the fork, eager D2H on
 against off (``TSS_TORCH_ASYNC_EAGER_D2H``), two alternating pairs
-(``--phase11-pairs``, cut from 3 for the script's time), each raced by two
+(``--phase11-pairs``, cut from 3, and to 1 since phase 13 came, for the
+script's time), each raced by two
 in-place AdamW steps: the stall, the drain, the racing steps' times
 against two unraced ones, the fork's device memory and the ``stage.d2h``
 busy time and bytes of each take's telemetry; the last pair's snapshots
@@ -189,7 +192,7 @@ restores bit-exactly. (c) ``TSS_TORCH_ASYNC_FORK_HBM_LIMIT_BYTES`` at half
 the state: the forked and host-captured leaves and bytes, the stall, a
 bit-exact restore. (d) the state set from the seed and taken, then
 restored into live CUDA tensors with ``TSS_TORCH_RESTORE_OVERLAP`` on
-against off, two pairs, each in a fresh child process (forked from a
+against off, ``--phase11-pairs`` pairs, each in a fresh child process (forked from a
 server that has imported torch and the port): the rate, the resident-set
 peak above the child's start (``VmRSS`` sampled every 5 ms: the card's
 kernel reports no ``VmHWM``) and the pinned host allocator's peak, every
@@ -210,6 +213,25 @@ every slab packed by K1 in groups (the whole slab's allocation raises
 lifted both restore bit-exactly and verify, and an uncapped take (one K1
 launch per slab) holds the same bytes for every slab member, read back by
 ``read_object``.
+Phase 13 drives the storage-plugin extension contract and the examples.
+(a) In a child process whose ``PYTHONPATH`` holds a site directory, a
+third-party plugin that implements only ``write``, ``read`` and ``delete``
+is registered as protocol ``smokefs`` under the entry-point group
+``torchsnapshot_tpu_torch.storage_plugins`` by a ``.dist-info`` folder, as
+an installed package registers one; phase 12's state (phase 2's widths at
+4 layers, 1.48 GB) goes through it with batching on: a sync take (K1), an
+``async_take`` raced by an in-place ``add_(1)`` of every tensor (K2),
+restores of both into zeroed CUDA tensors, bit-exact, and ``verify() ==
+{}``; a take under ``TSS_TORCH_FAULTS=op=write,at=1,kind=torn,bytes=4096``
+must raise ``CheckpointAbortedError`` and leave no ``.snapshot_metadata``.
+It prints each take's and restore's GB/s and the launches. (b) The three
+examples of ``examples/torch/`` run as ``python examples/torch/<name>.py``
+on the card, side by side: ``simple_example.py`` for two epochs, then
+relaunched for four (it must resume from epoch 2);
+``distributed_example.py`` (two gloo ranks on the card, a bit-exact
+restore into the transposed mesh); ``embedding_example.py`` at its default
+1,000,000 x 128 fp32 (512 MB), whose ``Replicate()`` restore must launch
+K3 on both ranks. Each must exit 0 and print its success line.
 Every phase's wall seconds are printed.
 The launch counts are set to 0 just before each drive and read just after.
 
@@ -1005,11 +1027,12 @@ def phase4(seed, device, root, card):
 # ---------------------------------------------------------------------------
 
 
-def phase5(seed, device, root, card, codecs=("zlib", "zstd"), n_layers=4):
+def phase5(seed, device, root, card, codecs=("zlib", "zstd"), n_layers=2):
     """``codecs``: c3's codec, one run of the drive each (``zstd`` only
     where ``zstandard`` is installed; ``none`` takes c3 uncompressed).
-    ``n_layers``: the fine-tune's depth (4 since phase 11 came, cut from
-    8 for the script's time), its first half frozen."""
+    ``n_layers``: the fine-tune's depth (2 since phase 13 came; 4 since
+    phase 11, 8 before; cut for the script's time), its first half
+    frozen."""
     from torchsnapshot_tpu_torch import dryrun, kernels
     from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
 
@@ -1060,7 +1083,9 @@ def phase5(seed, device, root, card, codecs=("zlib", "zstd"), n_layers=4):
 # Phase 6: a serving fleet restoring from one snapshot
 # ---------------------------------------------------------------------------
 
-SERVE_CFG = dict(vocab_size=32000, d_model=4096, n_heads=32, n_layers=8, d_ff=16384, max_seq_len=512)
+# Phase 4's widths at 4 layers (2.14 GB; 8 layers, 3.75 GB, until phase 13
+# needed the script's time).
+SERVE_CFG = dict(vocab_size=32000, d_model=4096, n_heads=32, n_layers=4, d_ff=16384, max_seq_len=512)
 SERVE_BLOCK = "model/block_3.*"  # the lazy restore's subtree
 
 
@@ -1744,12 +1769,12 @@ def _trainer_cfg(n_layers=8):
     )
 
 
-def phase9a(seed, device, root, card, pairs=2):
-    """A foreground restore of phase 6's serving weights (3.75 GB) racing
+def phase9a(seed, device, root, card, pairs=1):
+    """A foreground restore of phase 4's weights (8 layers, 3.75 GB) racing
     the background drain of phase 4's trainer state (8 layers, AdamW,
-    11.25 GB) in one process: ``pairs`` interleaved pairs (2, cut from 3
-    for the script's time), QoS on and ``TSS_TORCH_QOS=0``; the first pair
-    under ``TSS_TORCH_DEBUG_LEDGER=1``."""
+    11.25 GB) in one process: ``pairs`` interleaved pairs (1, cut from 3
+    and then 2 for the script's time), QoS on and ``TSS_TORCH_QOS=0``; the
+    first pair under ``TSS_TORCH_DEBUG_LEDGER=1``."""
     import statistics
 
     from torchsnapshot_tpu_torch import dryrun, kernels
@@ -2424,7 +2449,7 @@ def phase11e_worker(rank, world_size, gb, seed, root, out_dir):
         json.dump(result, f)
 
 
-def phase11(seed, device, root, card, n_layers=8, tp_gb=2.0, pairs=2):
+def phase11(seed, device, root, card, n_layers=8, tp_gb=2.0, pairs=1):
     """The capture and transfer controls on phase 4's trainer (``n_layers``
     layers, AdamW): (a) eager D2H on and off, (b) ``donate``, (c) the HBM
     cap at half the state, (d) overlapped restore on and off in fresh
@@ -2851,6 +2876,251 @@ def phase12(seed, root, card):
     return launches, out
 
 
+# Phase 13: a third-party storage plugin by entry point, and the examples
+# ---------------------------------------------------------------------------
+
+# The plugin a third party would ship: write, read and delete, nothing else
+# (the port's StoragePlugin supplies write_stream, close and the sync forms).
+_PHASE13_PLUGIN = """
+import os
+
+from torchsnapshot_tpu_torch import StoragePlugin
+
+
+class SmokePlugin(StoragePlugin):
+    def __init__(self, root):
+        self.root = root
+
+    def _abs(self, path):
+        return os.path.join(self.root, path)
+
+    async def write(self, write_io):
+        path = self._abs(write_io.path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".part", "wb") as f:
+            f.write(write_io.buf)
+        os.replace(path + ".part", path)
+
+    async def read(self, read_io):
+        with open(self._abs(read_io.path), "rb") as f:
+            if read_io.byte_range is None:
+                read_io.buf = f.read()
+            else:
+                begin, end = read_io.byte_range
+                f.seek(begin)
+                read_io.buf = f.read(end - begin)
+
+    async def delete(self, path):
+        os.remove(self._abs(path))
+"""
+
+PHASE13_PROTOCOL = "smokefs"
+PHASE13_TORN = "op=write,at=1,kind=torn,bytes=4096"
+
+
+def phase13_site(root):
+    """A directory that registers :data:`_PHASE13_PLUGIN` as protocol
+    ``smokefs`` the way an installed package does: its module, and a
+    ``.dist-info`` folder whose ``entry_points.txt`` names it under
+    ``torchsnapshot_tpu_torch.storage_plugins``."""
+    site = os.path.join(root, "site")
+    info = os.path.join(site, "tss_smoke_plugin-1.0.dist-info")
+    os.makedirs(info)
+    with open(os.path.join(site, "tss_smoke_plugin.py"), "w") as f:
+        f.write(_PHASE13_PLUGIN)
+    with open(os.path.join(info, "METADATA"), "w") as f:
+        f.write("Metadata-Version: 2.1\nName: tss-smoke-plugin\nVersion: 1.0\n")
+    with open(os.path.join(info, "entry_points.txt"), "w") as f:
+        f.write(f"[torchsnapshot_tpu_torch.storage_plugins]\n{PHASE13_PROTOCOL} = tss_smoke_plugin:SmokePlugin\n")
+    return site
+
+
+def phase13a_child(seed, root, out_path, n_layers=4):
+    """Phase 13 (a) in a process whose ``sys.path`` holds the plugin's site
+    (:func:`phase13_site`): phase 2's widths at ``n_layers`` layers through
+    ``smokefs://`` with batching on: a sync take (K1), an ``async_take``
+    raced by an in-place ``add_(1)`` of every tensor (K2), restores of both
+    into zeroed CUDA tensors, bit-exact, ``verify() == {}``; then a take
+    under ``TSS_TORCH_FAULTS`` (a torn write) must raise
+    ``CheckpointAbortedError`` and leave no ``.snapshot_metadata``. The
+    result goes to ``out_path`` as JSON."""
+    import traceback
+
+    try:
+        import torchsnapshot_tpu_torch as tts
+        from torchsnapshot_tpu_torch import kernels
+        from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+        seed, n_layers = int(seed), int(n_layers)
+        device = torch.device("cuda", 0)
+        kernels.load_library()
+        url = f"{PHASE13_PROTOCOL}://{root}"
+        plugin = url_to_storage_plugin(url)
+        if type(plugin).__module__ != "tss_smoke_plugin":
+            raise AssertionError(f"phase13 (a): {url} resolved to {type(plugin)}")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params, progress, _ = build_state(0.0, device, gen, n_layers=n_layers)
+        app = {"model": tts.StateDict(params), "progress": tts.StateDict(progress)}
+        nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+        nbytes += progress["step"].numel() * progress["step"].element_size()
+        out = {"layers": n_layers, "state_bytes": nbytes, "launches": {}}
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        tts.Snapshot.take(f"{url}/sync", app)
+        out["sync_take_s"] = time.monotonic() - t0
+        out["launches"]["sync_take"] = dict(kernels.LAUNCHES)
+        if out["launches"]["sync_take"]["pack_slab"] < n_layers:
+            raise AssertionError(f"phase13 (a): K1 launched {out['launches']['sync_take']} for {n_layers} layers")
+        out["restore_s"] = _restore_exact(f"{url}/sync", params, progress, "phase13 (a) restore")
+
+        before = {k: {n: t.clone() for n, t in v.items()} for k, v in params.items()}
+        step_before = {"step": progress["step"].clone()}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        pending = tts.Snapshot.async_take(f"{url}/async", app)
+        out["async_stall_s"] = time.monotonic() - t0
+        for t in _tensors(params):
+            t.add_(1)
+        progress["step"].add_(1)
+        pending.wait()
+        out["async_take_s"] = time.monotonic() - t0
+        out["launches"]["async_take"] = dict(kernels.LAUNCHES)
+        if out["launches"]["async_take"]["fork_copy"] < 1:
+            raise AssertionError(f"phase13 (a): K2 not launched: {out['launches']['async_take']}")
+        out["async_restore_s"] = _restore_exact(f"{url}/async", before, step_before, "phase13 (a) async restore")
+        for name in ("sync", "async"):
+            problems = tts.Snapshot(f"{url}/{name}").verify()
+            if problems:
+                raise AssertionError(f"phase13 (a): verify of {name}: {problems}")
+        for key in ("sync_take", "async_take", "restore", "async_restore"):
+            out[f"{key}_gbps"] = nbytes / out[f"{key}_s"] / 1e9
+
+        os.environ["TSS_TORCH_FAULTS"] = PHASE13_TORN
+        try:
+            tts.Snapshot.take(f"{url}/torn", app)
+            raise AssertionError(f"phase13 (a): the take under {PHASE13_TORN} committed")
+        except tts.CheckpointAbortedError as e:
+            out["torn_abort"] = [e.rank, e.phase, repr(e.__cause__)]
+            if "injected torn write after 4096 bytes" not in str(e.__cause__):
+                raise AssertionError(f"phase13 (a): unexpected abort {e!r} from {e.__cause__!r}")
+        finally:
+            del os.environ["TSS_TORCH_FAULTS"]
+        if os.path.exists(os.path.join(root, "torn", ".snapshot_metadata")):
+            raise AssertionError("phase13 (a): the torn take wrote .snapshot_metadata")
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+_PHASE13A_CHILD = "import sys, chip_smoke; chip_smoke.phase13a_child(*sys.argv[1:])"
+
+
+def _example(name, *args):
+    """Start ``python examples/torch/<name>`` on the card, its output to
+    pipes."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join("examples", "torch", name), *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def _finish(proc, name, timeout_s=300):
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"phase13 (b): {name} did not end within {timeout_s} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase13 (b): {name} exited {proc.returncode}: {stderr[-3000:]}")
+    return stdout
+
+
+def phase13b(root):
+    """Phase 13 (b): the three examples as a user runs them, on the card,
+    side by side; ``simple_example.py`` is then relaunched over its
+    snapshots and must resume. Returns each run's output lines, the walls
+    and the K3 launches of the embedding restore per rank."""
+    simple_root = os.path.join(root, "simple")
+    t0 = time.monotonic()
+    procs = {
+        "simple_example.py": _example("simple_example.py", "--snapshot-path", simple_root, "--epochs", "2"),
+        "distributed_example.py": _example("distributed_example.py", "--root", os.path.join(root, "distributed")),
+        "embedding_example.py": _example("embedding_example.py"),
+    }
+    out, walls = {}, {}
+    try:
+        out["simple_example.py"] = _finish(procs.pop("simple_example.py"), "simple_example.py")
+        procs["simple_example.py relaunch"] = _example("simple_example.py", "--snapshot-path", simple_root, "--epochs", "4")
+        for name in ("distributed_example.py", "embedding_example.py"):
+            out[name] = _finish(procs.pop(name), name)
+            walls[name] = time.monotonic() - t0
+        out["simple_example.py relaunch"] = _finish(procs.pop("simple_example.py relaunch"), "the relaunch")
+        walls["simple_example.py and its relaunch"] = time.monotonic() - t0
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
+    if "simple_example: done at epoch 2 on cuda" not in out["simple_example.py"]:
+        raise AssertionError(f"phase13 (b): simple_example.py: {out['simple_example.py']}")
+    second = out["simple_example.py relaunch"]
+    if "resumed from epoch 2" not in second or "simple_example: done at epoch 4 on cuda" not in second:
+        raise AssertionError(f"phase13 (b): the relaunch did not resume: {second}")
+    distributed = out["distributed_example.py"]
+    if "distributed_example: done" not in distributed or any(
+        f"rank {r}: restored step=1 bit-exactly" not in distributed for r in range(2)
+    ):
+        raise AssertionError(f"phase13 (b): distributed_example.py: {distributed}")
+    k3 = {}
+    for line in out["embedding_example.py"].splitlines():
+        if " as Replicate() bit-exactly " in line:
+            k3[int(line.split(":")[0].split()[1])] = int(line.rsplit(", ", 1)[1].split()[0])
+    if "embedding_example: done" not in out["embedding_example.py"] or sorted(k3) != [0, 1] or min(k3.values()) < 1:
+        raise AssertionError(f"phase13 (b): embedding_example.py (K3 per rank {k3}): {out['embedding_example.py']}")
+    return {name: text.strip().splitlines() for name, text in out.items()}, walls, k3
+
+
+def phase13(seed, root, card):
+    """Phase 13: (a) in a child process (:func:`phase13a_child`) whose
+    ``PYTHONPATH`` holds the plugin's site, then (b) (:func:`phase13b`).
+    Returns the launches and the summary."""
+    work = os.path.join(root, "phase13")
+    os.makedirs(work)
+    site = phase13_site(work)
+    out_path = os.path.join(work, "phase13a.json")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (site, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PHASE13A_CHILD, str(seed), os.path.join(work, "bucket"), out_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True, text=True, timeout=300,
+    )
+    a_s = time.monotonic() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"phase13 (a): the child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as f:
+        plugin = json.load(f)
+    if "error" in plugin:
+        raise AssertionError(f"phase13 (a) child failed: {plugin['error'][-3000:]}")
+    plugin["child_s"] = a_s
+    log(f"phase13 (a) entry-point plugin on {card}: {json.dumps(plugin)}")
+    t0 = time.monotonic()
+    lines, walls, k3 = phase13b(work)
+    walls["b_s"] = time.monotonic() - t0
+    for name, text in lines.items():
+        log(f"phase13 (b) {name} on {card}: {json.dumps(text)}")
+    log(f"phase13 (b) walls on {card}: {json.dumps(walls)}; embedding restore K3 launches per rank {json.dumps(k3)}")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {f"phase13a_{k}": v for k, v in plugin["launches"].items()}
+    for rank, n in k3.items():
+        launches[f"phase13b_embedding_rank{rank}"] = {"copy_blocks": n}
+    summary = {"a": {k: v for k, v in plugin.items() if k != "launches"}, "b_walls": walls, "b_k3": k3}
+    return launches, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -2867,16 +3137,16 @@ def main() -> int:
         help="c3's codecs in phase 5, comma-separated (none, zlib, zstd; zstd only where zstandard is installed)",
     )
     parser.add_argument(
-        "--phase5-layers", type=int, default=4,
-        help="depth of phase 5's fine-tune, its first half frozen (cut from 8 for the script's time)",
+        "--phase5-layers", type=int, default=2,
+        help="depth of phase 5's fine-tune, its first half frozen (cut from 8, then 4, for the script's time)",
     )
     parser.add_argument(
         "--phase11-layers", type=int, default=8,
         help="depth of phase 11's trainer at phase 4's width (8: phase 4's 11.25 GB in 408 tensors)",
     )
     parser.add_argument(
-        "--phase11-pairs", type=int, default=2,
-        help="alternating on/off pairs in phase 11 (a) and (d) (2, cut from 3 for the script's time)",
+        "--phase11-pairs", type=int, default=1,
+        help="alternating on/off pairs in phase 11 (a) and (d) (1, cut from 3, then 2, for the script's time)",
     )
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -2955,7 +3225,9 @@ def main() -> int:
         phase8b_launches, _ = timed("phase8 (b)", lambda: phase8b(args.gb, args.seed, root, card))
         launches.update(phase8b_launches)
         launches["phase8c"], overhead = timed("phase8 (c)", lambda: phase8c(args.gb, device, gen, root, card))
-        launches["phase9a"], qos_summary = timed("phase9 (a)", lambda: phase9a(args.seed, device, root, card))
+        launches["phase9a"], qos_summary = timed(
+            "phase9 (a)", lambda: phase9a(args.seed, device, root, card)
+        )
         phase9b_launches, fsdp_tp = timed("phase9 (b)", lambda: phase9b(args.phase9_gb, args.seed, root, card))
         launches.update(phase9b_launches)
         phase10_launches, robustness = timed("phase10", lambda: phase10(args.gb, args.phase3_gb, args.seed, device, root, card))
@@ -2965,6 +3237,8 @@ def main() -> int:
         )
         launches.update(phase11_launches)
         launches["phase12"], oom = timed("phase12", lambda: phase12(args.seed, root, card))
+        phase13_launches, extension = timed("phase13", lambda: phase13(args.seed, root, card))
+        launches.update(phase13_launches)
         log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2989,6 +3263,7 @@ def main() -> int:
     log(f"phase10 robustness summary on {card}: {json.dumps(robustness)}")
     log(f"phase11 capture and transfer controls summary on {card}: {json.dumps(controls)}")
     log(f"phase12 K1 out-of-memory summary on {card}: {json.dumps(oom)}")
+    log(f"phase13 plugin and examples summary on {card}: {json.dumps(extension)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

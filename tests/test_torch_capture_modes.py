@@ -595,3 +595,87 @@ def test_reparsed_switch_warns_once(monkeypatch, caplog, name, value, now):
         monkeypatch.setattr(tknobs, "_warned_reparsed", set())
         _READERS[name](tknobs)
     assert not caplog.records
+
+
+# ---------------------------------------------------------------------------
+# The override context managers
+# ---------------------------------------------------------------------------
+
+# The 34 overrides of ported knobs that the port lacked before (the JAX
+# package's other 4 belong to NOT_PORTED knobs), each with an argument.
+OVERRIDES = {
+    "override_async_capture": "donate",
+    "override_async_device_copy": False,
+    "override_bcast_reader_deadline_s": 0.25,
+    "override_broadcast_max_bytes": 4096,
+    "override_broadcast_restore": True,
+    "override_checksums": False,
+    "override_compression_level": 7,
+    "override_consuming_threads": 3,
+    "override_d2h_lanes": 2,
+    "override_d2h_window_bytes": 1 << 20,
+    "override_dedup_digests": True,
+    "override_device_batching": False,
+    "override_direct_io_threshold_bytes": 8192,
+    "override_hash_workers": 5,
+    "override_memory_budget_bytes": 1 << 30,
+    "override_native_io_enabled": False,
+    "override_plan_cache": False,
+    "override_plan_cache_size": 2,
+    "override_prepared_cache": False,
+    "override_prepared_cache_size": 3,
+    "override_read_cache_bytes": 1 << 24,
+    "override_read_cache_dir": "/t/cache",
+    "override_read_cache_verify": True,
+    "override_read_merge_gap_bytes": 512,
+    "override_recorder_capacity": 64,
+    "override_recorder_dump_path": "/t/rec.json",
+    "override_recorder_interval_s": 0.5,
+    "override_slab_size_threshold_bytes": 1 << 16,
+    "override_staging_threads": 6,
+    "override_stream_inflight": 4,
+    "override_stream_writes": True,
+    "override_swarm_chunk_deadline_s": 1.5,
+    "override_swarm_restore": True,
+    "override_verify_reads": "all",
+}
+
+
+def test_every_jax_override_is_ported_or_not_ported():
+    jax_names = {n for n in dir(jknobs) if n.startswith("override_")}
+    port_names = {n for n in dir(tknobs) if n.startswith("override_")}
+    assert len(jax_names) == 67 and len(OVERRIDES) == 34
+    assert set(OVERRIDES) <= port_names <= jax_names
+    assert jax_names - port_names == {
+        "override_bcast_reelect_max", "override_catalog", "override_max_chain_len", "override_swarm_fanout"
+    }
+
+
+def _set_by(override, prefix, arg):
+    """The knobs under ``prefix`` that ``override(arg)`` sets, and the
+    environment after it exits."""
+    before = dict(os.environ)
+    with override(arg):
+        inside = {k[len(prefix):]: v for k, v in os.environ.items() if k.startswith(prefix) and before.get(k) != v}
+    return inside, dict(os.environ) == before
+
+
+@pytest.mark.parametrize("name", sorted(OVERRIDES))
+@pytest.mark.parametrize("prior", [None, "prior"], ids=["unset", "set"])
+def test_override_sets_the_knob_as_the_jax_package(monkeypatch, name, prior):
+    arg = OVERRIDES[name]
+    for key in list(os.environ):
+        if key.startswith(("TORCHSNAPSHOT_TPU_", "TSS_TORCH_")):
+            monkeypatch.delenv(key)
+    jset, _ = _set_by(getattr(jknobs, name), "TORCHSNAPSHOT_TPU_", arg)
+    (knob,) = jset
+    for prefix in ("TORCHSNAPSHOT_TPU_", "TSS_TORCH_"):
+        if prior is None:
+            monkeypatch.delenv(prefix + knob, raising=False)
+        else:
+            monkeypatch.setenv(prefix + knob, prior)
+    jset, jrestored = _set_by(getattr(jknobs, name), "TORCHSNAPSHOT_TPU_", arg)
+    tset, trestored = _set_by(getattr(tknobs, name), "TSS_TORCH_", arg)
+    assert tset == jset and len(tset) == 1, (tset, jset)
+    assert trestored and jrestored
+    assert os.environ.get("TSS_TORCH_" + knob) == prior

@@ -1,6 +1,8 @@
 """Seeded chaos schedules through the port, held against the JAX package.
 
-Counterparts of ``tests/test_chaos.py``'s fast subset. Each case runs the
+Counterparts of ``tests/test_chaos.py``: its fast subset, and its seeded
+matrices, marked ``slow`` as there (schedules x backends, each case a few
+seconds through two packages; run them with ``-m slow``). Each case runs the
 same fault spec (``TSS_TORCH_FAULTS`` / ``TORCHSNAPSHOT_TPU_FAULTS``) over
 the same numpy state, made from a seed, through both packages, and holds
 them to the same outcome: a commit, or a ``CheckpointAbortedError`` with
@@ -767,7 +769,8 @@ def retention_round(pkg, bucket, spec, expect_raise):
             raised = None
         except Exception as e:  # noqa: BLE001 - compared across packages
             raised = (type(e).__name__, str(e))
-    assert (raised is not None) == expect_raise, (pkg, raised)
+    if expect_raise is not None:
+        assert (raised is not None) == expect_raise, (pkg, raised)
     _assert_chain(pkg, bucket, [3, 4])
     cat.retain(bucket, policy, dry_run=False)
     _assert_chain(pkg, bucket, [3, 4])
@@ -1003,3 +1006,286 @@ def test_beacon_fault_class_fails_open(pkg):
         assert bus.publish(force=True) is False
         assert bus.publish(force=True) is True
     assert (bus.publishes, bus.publish_failures) == (1, 2)
+
+
+# ---------------------------------------------------------------------------
+# The slow seeded matrices (tests/test_chaos.py, slow-marked there too)
+# ---------------------------------------------------------------------------
+
+_ABORT_SCHEDULES = [
+    # Torn writes at different byte counts and operation indices.
+    "op=write,kind=torn,bytes=1,path=0/s",
+    "op=write,kind=torn,bytes=64,path=0/s",
+    "op=write,kind=torn,bytes=4000,path=0/s",
+    "op=write,at=0,kind=torn,bytes=128",
+    "op=write,at=2,kind=torn,bytes=128",
+    # Permanent failures at data, sidecar, and commit-marker writes.
+    "op=write,kind=fail,path=0/s",
+    "op=write,kind=fail,path=.checksums",
+    "op=write,kind=fail,path=.snapshot_metadata",
+    "op=write,at=1,kind=fail",
+    # Stream-path failures (stream writes force the chunked path).
+    "op=stream_open,kind=fail",
+    "op=append,at=1,kind=fail",
+    "op=append,at=3,kind=torn,bytes=100",
+    "op=commit,kind=fail",
+    # Seeded probabilistic storms that eventually fail permanently.
+    "seed=3;op=write,p=0.6,kind=fail",
+    "seed=9;op=write,p=0.6,kind=fail",
+    # A transient storm that outlives the (shrunk) progress window.
+    "backoff=0.01;window=0.05;op=write,kind=transient,path=0/s",
+]
+
+_RESILIENT_SCHEDULES = [
+    # Transient storms under the default window: retried to success.
+    "backoff=0.005;op=write,kind=transient,times=5",
+    "backoff=0.005;seed=5;op=write,p=0.4,kind=transient,times=8",
+    "backoff=0.005;op=read,kind=transient,times=2;op=write,kind=transient,times=2",
+    # Stalls delay but never fail.
+    "op=write,kind=stall,secs=0.05,times=3",
+]
+
+
+def same_kind_of_outcome(j, t):
+    """Both commit, or both abort with the same root class, rank and phase
+    (which of two concurrent writes failed first, and so the root message,
+    may differ)."""
+    assert (j[0], j[1:2], j[3:]) == (t[0], t[1:2], t[3:]), (j, t)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("spec", _ABORT_SCHEDULES)
+@pytest.mark.parametrize("any_backend", ["fs", "memory", "gcs"], indirect=True)
+def test_chaos_matrix_aborting_schedules(any_backend, spec):
+    streams = "append" in spec or "commit" in spec or "stream" in spec
+    with knobs(**({"STREAM_WRITES": 1, "STREAM_CHUNK_BYTES": 512} if streams else {})):
+        j, t = both_rounds(any_backend, spec, expect_abort=True, exact=False)
+    same_kind_of_outcome(j[0], t[0])
+    assert j[0][4] in ("write", "commit"), j[0]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("spec", _RESILIENT_SCHEDULES)
+@pytest.mark.parametrize("any_backend", ["fs", "memory"], indirect=True)
+def test_chaos_matrix_resilient_schedules(any_backend, spec):
+    both_rounds(any_backend, spec, expect_abort=False, exact=False)
+
+
+def _jworker_kill_matrix(rank, world_size, shared, kill_spec):
+    import numpy as _np
+
+    from torchsnapshot_tpu import CheckpointAbortedError as Aborted, Snapshot as Snap, StateDict as SD
+
+    os.environ["TORCHSNAPSHOT_TPU_BARRIER_TIMEOUT_S"] = "8"
+    os.environ["TORCHSNAPSHOT_TPU_LAUNCHER_DRAIN_S"] = "1"
+    prev = os.path.join(shared, "prev")
+    Snap.take(prev, {"s": SD(v=_np.full(64, rank, _np.float32))})
+    if rank == 1:
+        os.environ["TORCHSNAPSHOT_TPU_FAULTS"] = kill_spec
+    try:
+        Snap.take(os.path.join(shared, "cur"), {"s": SD(v=_np.full(64, rank + 10, _np.float32))})
+        raise AssertionError("take must not commit after a rank died")
+    except Aborted as e:
+        with open(os.path.join(shared, f"survivor_{rank}.json"), "w") as f:
+            json.dump([e.rank, e.phase], f)
+    assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+    assert Snap(prev).verify() == {}
+
+
+def _tworker_kill_matrix(rank, world_size, shared, kill_spec):
+    import torch as _torch
+
+    from torchsnapshot_tpu_torch import CheckpointAbortedError as Aborted, Snapshot as Snap, StateDict as SD
+
+    os.environ["TSS_TORCH_BARRIER_TIMEOUT_S"] = "8"
+    prev = os.path.join(shared, "prev")
+    Snap.take(prev, {"s": SD(v=_torch.full((64,), float(rank)))})
+    if rank == 1:
+        os.environ["TSS_TORCH_FAULTS"] = kill_spec
+    try:
+        Snap.take(os.path.join(shared, "cur"), {"s": SD(v=_torch.full((64,), float(rank + 10)))})
+        raise AssertionError("take must not commit after a rank died")
+    except Aborted as e:
+        with open(os.path.join(shared, f"survivor_{rank}.json"), "w") as f:
+            json.dump([e.rank, e.phase], f)
+    assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+    assert Snap(prev).verify() == {}
+
+
+# Kill points across the take: mid-drain (a data write), at the telemetry
+# artifact written before the commit barrier's arrive, and at the first
+# write of the faulted take.
+_KILL_SPECS = [
+    "op=write,kind=kill,path=1/s",
+    "op=write,kind=kill,path=.telemetry",
+    "op=write,at=0,kind=kill",
+]
+
+
+def _killed_pair(pkg, worker, shared, dead_rank, *args):
+    os.makedirs(shared)
+    with pytest.raises(RuntimeError) as exc_info:
+        if pkg == "jax":
+            jrun_with_processes(worker, nproc=2, args=(shared, *args))
+        else:
+            trun_with_processes(worker, 2, args=(shared, *args), timeout_s=120)
+    msg = str(exc_info.value)
+    assert f"rank {dead_rank}" in msg and f"died without reporting (exitcode {tfaults.KILL_EXIT_CODE})" in msg, msg
+    survivor = 1 - dead_rank
+    with open(os.path.join(shared, f"survivor_{survivor}.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.slow
+@pytest.mark.multiprocess
+@pytest.mark.parametrize("kill_spec", _KILL_SPECS)
+def test_chaos_matrix_rank_kill_points(tmp_path, kill_spec):
+    """Rank 1 dies at a kill point: rank 0 aborts (in both packages alike),
+    nothing commits, the prior snapshot verifies, gc reclaims the debris
+    and a fresh take commits."""
+    survivors = {}
+    for pkg, worker in (("jax", _jworker_kill_matrix), ("torch", _tworker_kill_matrix)):
+        shared = str(tmp_path / pkg)
+        survivors[pkg] = _killed_pair(pkg, worker, shared, 1, kill_spec)
+        assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+        assert snap(pkg)(os.path.join(shared, "prev")).verify() == {}
+        snap(pkg).gc(shared, dry_run=False)
+        assert snap(pkg)(os.path.join(shared, "prev")).verify() == {}
+        assert snap(pkg).take(os.path.join(shared, "cur2"), state(pkg, 3)).verify() == {}
+        assert_restores(pkg, os.path.join(shared, "cur2"), 3)
+    assert survivors["jax"] == survivors["torch"], survivors
+
+
+def _jworker_leader_killed(rank, world_size, shared):
+    import numpy as _np
+
+    from torchsnapshot_tpu import CheckpointAbortedError as Aborted, Snapshot as Snap, StateDict as SD
+
+    os.environ["TORCHSNAPSHOT_TPU_BARRIER_TIMEOUT_S"] = "8"
+    os.environ["TORCHSNAPSHOT_TPU_LAUNCHER_DRAIN_S"] = "1"
+    if rank == 0:
+        os.environ["TORCHSNAPSHOT_TPU_FAULTS"] = "op=write,kind=kill,path=.snapshot_metadata"
+    try:
+        Snap.take(os.path.join(shared, "cur"), {"s": SD(v=_np.full(64, rank, _np.float32))})
+        raise AssertionError("commit leader died; take must not succeed")
+    except Aborted as e:
+        with open(os.path.join(shared, f"survivor_{rank}.json"), "w") as f:
+            json.dump([e.rank, e.phase], f)
+    assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+
+
+def _tworker_leader_killed(rank, world_size, shared):
+    import torch as _torch
+
+    from torchsnapshot_tpu_torch import CheckpointAbortedError as Aborted, Snapshot as Snap, StateDict as SD
+
+    os.environ["TSS_TORCH_BARRIER_TIMEOUT_S"] = "8"
+    if rank == 0:
+        os.environ["TSS_TORCH_FAULTS"] = "op=write,kind=kill,path=.snapshot_metadata"
+    try:
+        Snap.take(os.path.join(shared, "cur"), {"s": SD(v=_torch.full((64,), float(rank)))})
+        raise AssertionError("commit leader died; take must not succeed")
+    except Aborted as e:
+        with open(os.path.join(shared, f"survivor_{rank}.json"), "w") as f:
+            json.dump([e.rank, e.phase], f)
+    assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+
+
+@pytest.mark.slow
+@pytest.mark.multiprocess
+def test_chaos_leader_death_between_arrive_and_depart(tmp_path):
+    """The commit leader dies at the metadata write, after every rank has
+    arrived: the metadata never lands and the survivor raises the
+    structured abort in the commit phase instead of hanging, in both
+    packages. The rank it names differs (ROADMAP section C, C6): the JAX
+    package's launcher hosts its store in rank 0, so the survivor loses the
+    store with the leader and names itself; the port's store outlives the
+    leader, and the survivor names the rank that died."""
+    survivors = {}
+    for pkg, worker in (("jax", _jworker_leader_killed), ("torch", _tworker_leader_killed)):
+        shared = str(tmp_path / pkg)
+        survivors[pkg] = _killed_pair(pkg, worker, shared, 0)
+        assert not os.path.exists(os.path.join(shared, "cur", ".snapshot_metadata"))
+    assert survivors == {"jax": [1, "commit"], "torch": [0, "commit"]}, survivors
+
+
+_RESTORE_ABORT_SCHEDULES = [
+    # Permanent failures at data objects and at planning metadata.
+    "op=read,kind=fail,path=0/s",
+    "op=read,at=2,kind=fail",
+    "op=read,kind=fail,path=.snapshot_metadata",
+    # A transient storm that outlives the (shrunk) progress window.
+    "backoff=0.01;window=0.05;op=read,kind=transient,path=0/s",
+    # Persistent corruption: every fetch (and the verified re-fetch) rots.
+    "op=read,kind=corrupt,path=0/s",
+    "seed=5;op=read,kind=corrupt,bytes=8,path=0/s",
+]
+
+_RESTORE_RESILIENT_SCHEDULES = [
+    # Transient storms under the default window: retried to success.
+    "backoff=0.005;op=read,kind=transient,times=4",
+    "backoff=0.005;seed=7;op=read,p=0.4,kind=transient,times=6",
+    # One-shot corruption: caught by verification, healed by the re-fetch.
+    "op=read,kind=corrupt,at=0,path=0/s",
+    "seed=11;op=read,kind=corrupt,at=1,bytes=4,path=0/s",
+    # Stalls delay but never fail.
+    "op=read,kind=stall,secs=0.05,times=3",
+]
+
+
+def _cached_restores(url_of, spec, expect_abort, with_cache, tmp_path):
+    outs = {}
+    for pkg in PKGS:
+        cache_dir = str(tmp_path / pkg / "rcache") if with_cache else None
+        outs[pkg] = restore_round(pkg, url_of(pkg), spec, expect_abort, cache_dir=cache_dir)
+    return outs["jax"], outs["torch"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("with_cache", [False, True], ids=["nocache", "cache"])
+@pytest.mark.parametrize("spec", _RESTORE_ABORT_SCHEDULES)
+@pytest.mark.parametrize("any_backend", ["fs", "memory", "gcs"], indirect=True)
+def test_chaos_matrix_restore_aborting_schedules(any_backend, spec, with_cache, tmp_path):
+    j, t = _cached_restores(any_backend, spec, True, with_cache, tmp_path)
+    same_kind_of_outcome(j, t)
+    assert t[4].startswith("restore."), t
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("with_cache", [False, True], ids=["nocache", "cache"])
+@pytest.mark.parametrize("spec", _RESTORE_RESILIENT_SCHEDULES)
+@pytest.mark.parametrize("any_backend", ["fs", "memory", "gcs"], indirect=True)
+def test_chaos_matrix_restore_resilient_schedules(any_backend, spec, with_cache, tmp_path):
+    j, t = _cached_restores(any_backend, spec, False, with_cache, tmp_path)
+    assert j == t == ("commit",)
+
+
+_GC_FAULT_SCHEDULES = [
+    "op=delete,at=0,kind=fail",  # the very first (metadata) delete
+    "op=delete,at=4,kind=fail",  # mid-tree
+    "seed=11;op=delete,p=0.5,kind=fail",  # seeded scattershot
+    "op=read,kind=fail,path=.catalog",  # the catalog scan itself
+]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("spec", _GC_FAULT_SCHEDULES)
+@pytest.mark.parametrize("any_backend", ["fs", "memory", "gcs"], indirect=True)
+def test_chaos_matrix_retention_gc_schedules(any_backend, spec):
+    """Retention under delete and catalog-read faults: whether the run
+    raises or absorbs the fault (an unreadable catalog may read as empty)
+    is the same in both packages, every retained snapshot restores
+    bit-exactly, a re-run converges, and the converged buckets agree."""
+    j = retention_round("jax", any_backend("jax"), spec, None)
+    t = retention_round("torch", any_backend("torch"), spec, None)
+    assert (j[0] and j[0][0]) == (t[0] and t[0][0]), (j[0], t[0])
+    assert j[1] == t[1]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("any_backend", ["fs", "memory", "gcs"], indirect=True)
+def test_chaos_matrix_retention_transient_storms(any_backend):
+    spec = "backoff=0.005;seed=7;op=delete,p=0.5,kind=transient,times=6"
+    j = retention_round("jax", any_backend("jax"), spec, False)
+    t = retention_round("torch", any_backend("torch"), spec, False)
+    assert j[1] == t[1]

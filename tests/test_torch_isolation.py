@@ -17,10 +17,12 @@ PORT = os.path.join(REPO, "torchsnapshot_tpu_torch")
 
 
 def _port_files():
-    # The GPU tests run on a host without JAX (``--noconftest``).
+    # The GPU tests run on a host without JAX (``--noconftest``), and so do
+    # the port's examples.
     out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_cuda.py")]
-    for root, _, files in os.walk(PORT):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "examples", "torch")):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
@@ -513,3 +515,8 @@ def test_the_commit_point_scan_finds_a_planted_mutation(tmp_path):
     assert _commit_points(str(tmp_path)) == {
         "planted.py:W.land": 6, "planted.py:W.put": 9, "planted.py:drop": 13,
     }
+
+
+def test_the_examples_are_held_to_the_import_rules():
+    checked = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"examples/torch/{n}_example.py" for n in ("simple", "distributed", "embedding")} <= checked

@@ -82,6 +82,29 @@ def test_add_and_delete(store):
     assert store.try_get_many(["ctr", "nope"])[1] is None
 
 
+def test_op_counts_name_each_op_alike_on_every_store(store):
+    """Each store counts one round trip per operation, a batched one under
+    its method's name (the TCP store's wire names stay on the wire), and
+    ops under ``telemetry_op_scope`` as ``telemetry.<op>``."""
+    from torchsnapshot_tpu_torch.parallel import store as store_mod
+
+    store_mod.reset_op_counts()
+    store.set("k", b"v")
+    store.get("k", timeout_s=1)
+    store.try_get("k")
+    store.add("n", 1)
+    store.try_get_many(["k", "n"])
+    store.delete("k")
+    store.delete_many(["n"])
+    with store_mod.telemetry_op_scope():
+        store.try_get("k")
+    ops = ("set", "get", "try_get", "add", "try_get_many", "delete", "delete_many")
+    assert store_mod.get_op_counts(current_thread_only=True) == {**dict.fromkeys(ops, 1), "telemetry.try_get": 1}
+    assert store_mod.get_op_counts(include_telemetry=False) == dict.fromkeys(ops, 1)
+    store_mod.reset_op_counts()
+    assert store_mod.get_op_counts() == {}
+
+
 def test_prefix(store):
     p1, p2 = store.prefix("a"), store.prefix("b")
     p1.set("k", b"1")

@@ -84,14 +84,21 @@ def _tensor_to_array(t: Any) -> Any:
     return raw.view(np.dtype(getattr(ml_dtypes, ext[0])))
 
 
-def from_numpy_tree(tree: Any, device: Any = "cuda") -> Any:
-    """numpy (and ml_dtypes) arrays -> torch tensors on ``device``: the
-    current CUDA device by default, like every entry point of the port;
-    pass ``device="cpu"`` for the CPU. A CUDA request on a host without
-    CUDA raises (``d2h.require_cuda``) rather than return CPU tensors."""
+def target_device(device: Any = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``, a bare ``"cuda"`` as the current
+    CUDA device. A CUDA request on a host without CUDA raises
+    (``d2h.require_cuda``) rather than give the CPU."""
     device = require_cuda(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def from_numpy_tree(tree: Any, device: Any = "cuda") -> Any:
+    """numpy (and ml_dtypes) arrays -> torch tensors on ``device``: the
+    current CUDA device by default, like every entry point of the port;
+    pass ``device="cpu"`` for the CPU (:func:`target_device`)."""
+    device = target_device(device)
     return _map(tree, lambda a: _array_to_tensor(a, device))
 
 

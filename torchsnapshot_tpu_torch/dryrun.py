@@ -57,10 +57,9 @@ import contextlib
 import os
 import shutil
 import tempfile
-import threading
 import time
 import zlib
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -77,7 +76,7 @@ from .models.transformer import (
     shard_module,
     shard_params,
 )
-from .parallel.store import Store, in_telemetry_op
+from .parallel import store as store_mod
 from .rng_state import RNGState
 from .snapshot import Snapshot
 from .state_dict import StateDict
@@ -173,58 +172,23 @@ def cert_store_ops(rank: int, world_size: int) -> Dict[str, int]:
     return {"set": 2, "get": 2}
 
 
-class _CountingStore(Store):
-    """Delegates to ``inner`` and counts the operations that one thread
-    issues through it: a blocking ``get`` is one operation however long it
-    polls. Telemetry-plane operations (fleet beacons, under
-    ``store.telemetry_op_scope``) are not coordination and are not
-    counted."""
-
-    def __init__(self, inner: Store, thread_id: int) -> None:
-        self.inner = inner
-        self.counts: Dict[str, int] = {}
-        self._thread_id = thread_id
-
-    def _count(self, op: str) -> None:
-        if threading.get_ident() == self._thread_id and not in_telemetry_op():
-            self.counts[op] = self.counts.get(op, 0) + 1
-
-    def set(self, key: str, value: bytes) -> None:
-        self._count("set")
-        self.inner.set(key, value)
-
-    def get(self, key: str, *timeout_s: float) -> bytes:
-        self._count("get")
-        return self.inner.get(key, *timeout_s)
-
-    def try_get(self, key: str) -> Optional[bytes]:
-        self._count("try_get")
-        return self.inner.try_get(key)
-
-    def add(self, key: str, delta: int) -> int:
-        self._count("add")
-        return self.inner.add(key, delta)
-
-    def delete(self, key: str) -> None:
-        self._count("delete")
-        self.inner.delete(key)
-
-    def try_get_many(self, keys: List[str]) -> List[Optional[bytes]]:
-        self._count("try_get_many")
-        return self.inner.try_get_many(keys)
-
-
 @contextlib.contextmanager
-def counting_store_ops(coord: Any) -> Iterator[Dict[str, int]]:
-    """``{op: count}`` of the store operations that ``coord`` issues on
-    the calling thread inside the block (its store is wrapped meanwhile;
-    other threads' operations are not counted)."""
-    counting = _CountingStore(coord.store, threading.get_ident())
-    coord._store = counting
+def counting_store_ops() -> Iterator[Dict[str, int]]:
+    """``{op: count}`` of the coordination-plane store operations the
+    calling thread issues inside the block (``store.get_op_counts``: a
+    blocking ``get`` is one operation however long it polls; the telemetry
+    plane's operations are left out)."""
+
+    def now() -> Dict[str, int]:
+        return store_mod.get_op_counts(current_thread_only=True, include_telemetry=False)
+
+    before, counts = now(), {}
     try:
-        yield counting.counts
+        yield counts
     finally:
-        coord._store = counting.inner
+        for op, n in now().items():
+            if n > before.get(op, 0):
+                counts[op] = n - before.get(op, 0)
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", timeout_s: float = 300.0) -> None:
@@ -338,14 +302,15 @@ def _plan_cache_cert(cfg, mesh, model, optimizer, shared, rank, world_size, devi
 
     coord.all_gather_object = counting
     try:
-        with counting_store_ops(coord) as counted:
+        with counting_store_ops() as counted:
             pending = Snapshot.async_take(os.path.join(shared, "cert_c1"), app)
         ops = dict(counted)
         cache = dict(snapshot_mod.LAST_TAKE_CACHE)
         pending.wait()
     finally:
         del coord.all_gather_object
-    ops.pop("delete", None)  # key GC of earlier collectives
+    for gc_op in ("delete", "delete_many"):
+        ops.pop(gc_op, None)  # key GC of earlier collectives
     if all_gathers[0] or not cache.get("plan_cache_hit") or not cache.get("prepared_cache_hit"):
         raise AssertionError(f"plan-cache certification: not a hit ({cache}, {all_gathers[0]} all_gathers)")
     if ops != cert_store_ops(rank, world_size):

@@ -151,6 +151,7 @@ _CRASH_SURFACE = (
     ("fs.py:FSStoragePlugin.delete", "delete"),
     ("fs.py:_FSWriteStream._abort_work", "abort"),
     ("fs.py:_FSWriteStream._commit_work", "commit"),
+    ("io_types.py:BufferedWriteStream.commit", "commit"),
     ("gcs.py:_GCSWriteStream.commit", "commit"),
     ("s3.py:_S3WriteStream.commit", "commit"),
     # The A/B probe writes throwaway `.probe` objects outside any snapshot.

@@ -129,8 +129,37 @@ class StorageWriteStream(abc.ABC):
         ...
 
 
+class BufferedWriteStream(StorageWriteStream):
+    """The default :meth:`StoragePlugin.write_stream`: appends are kept as
+    they are (zero-copy; an appended buffer stays untouched until the
+    stream ends) and :meth:`commit` joins them into one ``write``, so the
+    object is as atomic as the plugin's ``write``. It holds the whole
+    object in memory, which is why the scheduler streams only through
+    plugins that set ``supports_streaming``."""
+
+    def __init__(self, storage: "StoragePlugin", path: str) -> None:
+        self._storage = storage
+        self._path = path
+        self._chunks: List[BufferType] = []
+
+    async def append(self, buf: BufferType) -> None:
+        self._chunks.append(buf)
+
+    async def commit(self) -> None:
+        await self._storage.write(WriteIO(path=self._path, buf=b"".join(self._chunks)))
+        self._chunks = []
+
+    async def abort(self) -> None:
+        self._chunks = []
+
+
 class StoragePlugin(abc.ABC):
-    """Storage backend. A missing object raises ``FileNotFoundError``."""
+    """Storage backend. A missing object raises ``FileNotFoundError``.
+
+    A third-party plugin implements ``write``, ``read`` and ``delete``;
+    ``write_stream`` defaults to :class:`BufferedWriteStream`, ``close`` to
+    nothing, ``link_in`` to unsupported, and ``list_prefix`` (needed by
+    ``Snapshot.gc`` and the catalog) to ``NotImplementedError``."""
 
     # Whether appends (write_stream) are worth streaming a large object
     # through; the streaming decision (stream_select) only considers such
@@ -145,9 +174,10 @@ class StoragePlugin(abc.ABC):
     async def write(self, write_io: WriteIO) -> None:
         ...
 
-    @abc.abstractmethod
     async def write_stream(self, path: str) -> StorageWriteStream:
-        ...
+        """Open a streamed write of the object at ``path``. Default: a
+        :class:`BufferedWriteStream`, one ``write`` at commit."""
+        return BufferedWriteStream(self, path)
 
     @abc.abstractmethod
     async def read(self, read_io: ReadIO) -> None:
@@ -155,10 +185,6 @@ class StoragePlugin(abc.ABC):
 
     @abc.abstractmethod
     async def delete(self, path: str) -> None:
-        ...
-
-    @abc.abstractmethod
-    async def close(self) -> None:
         ...
 
     async def link_in(self, src_abs_path: str, path: str) -> bool:
@@ -182,15 +208,27 @@ class StoragePlugin(abc.ABC):
         """Remove the directories deletions left empty, where the backend
         has directories (fs). Default: nothing to do."""
 
-    def sync_write(
-        self, write_io: WriteIO, event_loop: asyncio.AbstractEventLoop
-    ) -> None:
-        event_loop.run_until_complete(self.write(write_io))
+    async def close(self) -> None:
+        """Release the plugin's resources. Default: none."""
 
-    def sync_read(
-        self, read_io: ReadIO, event_loop: asyncio.AbstractEventLoop
-    ) -> None:
-        event_loop.run_until_complete(self.read(read_io))
+    # Synchronous forms on the caller's event loop, or, without one, on a
+    # loop of their own.
+    def sync_write(self, write_io: WriteIO, event_loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        _run(self.write(write_io), event_loop)
 
-    def sync_close(self, event_loop: asyncio.AbstractEventLoop) -> None:
-        event_loop.run_until_complete(self.close())
+    def sync_read(self, read_io: ReadIO, event_loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        _run(self.read(read_io), event_loop)
+
+    def sync_close(self, event_loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        _run(self.close(), event_loop)
+
+
+def _run(coro: Any, event_loop: Optional[asyncio.AbstractEventLoop]) -> None:
+    if event_loop is not None:
+        event_loop.run_until_complete(coro)
+        return
+    loop = asyncio.new_event_loop()
+    try:
+        loop.run_until_complete(coro)
+    finally:
+        loop.close()

@@ -28,7 +28,7 @@ import socketserver
 import struct
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..collective_tracer import active_tracer
 from ..telemetry import fleet
@@ -39,13 +39,22 @@ _DEFAULT_TIMEOUT_S = 300.0
 _TELEMETRY_OP = threading.local()
 
 
+# Store round trips, counted per (thread, op): every operation of a
+# concrete store is one round trip to its server (a blocking get however
+# long it waits; a batched op once). Keyed by thread so a window on the
+# main thread (an ``async_take``'s stall) leaves out the commit thread's
+# barrier polls. Diagnostics: callers reset around what they measure.
+_OP_LOCK = threading.Lock()
+_OP_COUNTS: Dict[Tuple[int, str], int] = {}
+
+
 @contextlib.contextmanager
 def telemetry_op_scope():
     """Mark the store operations the calling thread issues inside as
     telemetry-plane traffic (fleet beacons and their reads): real store
     round trips, but rate-limited diagnostics rather than per-take
-    coordination, so counts of the coordination plane
-    (``dryrun.counting_store_ops``) leave them out."""
+    coordination. They count as ``telemetry.<op>``, which
+    ``get_op_counts(include_telemetry=False)`` leaves out."""
     prev = getattr(_TELEMETRY_OP, "on", False)
     _TELEMETRY_OP.on = True
     try:
@@ -54,9 +63,34 @@ def telemetry_op_scope():
         _TELEMETRY_OP.on = prev
 
 
-def in_telemetry_op() -> bool:
-    """True inside :func:`telemetry_op_scope` on the calling thread."""
-    return getattr(_TELEMETRY_OP, "on", False)
+def _count_op(op: str) -> None:
+    if getattr(_TELEMETRY_OP, "on", False):
+        op = f"telemetry.{op}"
+    key = (threading.get_ident(), op)
+    with _OP_LOCK:
+        _OP_COUNTS[key] = _OP_COUNTS.get(key, 0) + 1
+
+
+def get_op_counts(current_thread_only: bool = False, include_telemetry: bool = True) -> Dict[str, int]:
+    """``{op: count}`` of store operations since the last
+    :func:`reset_op_counts`: ``set``, ``get``, ``try_get``, ``add``,
+    ``delete`` and the batched ops, of every thread or only the calling
+    one, with or without the telemetry plane's ``telemetry.<op>``."""
+    me = threading.get_ident()
+    out: Dict[str, int] = {}
+    with _OP_LOCK:
+        for (tid, op), n in _OP_COUNTS.items():
+            if current_thread_only and tid != me:
+                continue
+            if not include_telemetry and op.startswith("telemetry."):
+                continue
+            out[op] = out.get(op, 0) + n
+    return out
+
+
+def reset_op_counts() -> None:
+    with _OP_LOCK:
+        _OP_COUNTS.clear()
 
 
 class Store(abc.ABC):
@@ -117,6 +151,9 @@ class PrefixStore(Store):
     def try_get_many(self, keys: List[str]) -> List[Optional[bytes]]:
         return self._store.try_get_many([f"{self._prefix}/{k}" for k in keys])
 
+    def delete_many(self, keys: List[str]) -> None:
+        self._store.delete_many([f"{self._prefix}/{k}" for k in keys])
+
 
 # ---------------------------------------------------------------------------
 # In-process store (single-process runs and unit tests)
@@ -130,11 +167,13 @@ class LocalStore(Store):
         self._cond = threading.Condition()
 
     def set(self, key: str, value: bytes) -> None:
+        _count_op("set")
         with self._cond:
             self._data[key] = value
             self._cond.notify_all()
 
     def get(self, key: str, timeout_s: float = _DEFAULT_TIMEOUT_S) -> bytes:
+        _count_op("get")
         deadline = time.monotonic() + timeout_s
         with self._cond:
             while key not in self._data:
@@ -144,19 +183,34 @@ class LocalStore(Store):
             return self._data[key]
 
     def try_get(self, key: str) -> Optional[bytes]:
+        _count_op("try_get")
         with self._cond:
             return self._data.get(key)
 
     def add(self, key: str, delta: int) -> int:
+        _count_op("add")
         with self._cond:
             self._counters[key] = self._counters.get(key, 0) + delta
             self._cond.notify_all()
             return self._counters[key]
 
     def delete(self, key: str) -> None:
+        _count_op("delete")
         with self._cond:
             self._data.pop(key, None)
             self._counters.pop(key, None)
+
+    def try_get_many(self, keys: List[str]) -> List[Optional[bytes]]:
+        _count_op("try_get_many")
+        with self._cond:
+            return [self._data.get(k) for k in keys]
+
+    def delete_many(self, keys: List[str]) -> None:
+        _count_op("delete_many")
+        with self._cond:
+            for k in keys:
+                self._data.pop(k, None)
+                self._counters.pop(k, None)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +261,7 @@ class C10dStore(Store):
         return C10dStore(raw, self._ns) if raw is not None else self
 
     def set(self, key: str, value: bytes) -> None:
+        _count_op("set")
         k = self._k(key)
         value = memoryview(value).cast("B")
         if value.nbytes <= self.PART_BYTES:
@@ -229,6 +284,7 @@ class C10dStore(Store):
         return bytes(out)
 
     def get(self, key: str, timeout_s: float = _DEFAULT_TIMEOUT_S) -> bytes:
+        _count_op("get")
         deadline = time.monotonic() + timeout_s
         poll = self._POLL_S[0]
         k = self._k(key)
@@ -240,15 +296,33 @@ class C10dStore(Store):
         return self._value(k, bytes(self._store.get(k)))
 
     def try_get(self, key: str) -> Optional[bytes]:
+        _count_op("try_get")
+        return self._try_get(key)
+
+    def _try_get(self, key: str) -> Optional[bytes]:
         k = self._k(key)
         if not self._store.check([k]):
             return None
         return self._value(k, bytes(self._store.get(k)))
 
+    def try_get_many(self, keys: List[str]) -> List[Optional[bytes]]:
+        _count_op("try_get_many")
+        return [self._try_get(k) for k in keys]
+
     def add(self, key: str, delta: int) -> int:
+        _count_op("add")
         return int(self._store.add(self._k(key), delta))
 
     def delete(self, key: str) -> None:
+        _count_op("delete")
+        self._delete(key)
+
+    def delete_many(self, keys: List[str]) -> None:
+        _count_op("delete_many")
+        for key in keys:
+            self._delete(key)
+
+    def _delete(self, key: str) -> None:
         """Never blocks: parts left without a header (a writer that died
         part-way, or a second deleter) are removed while they are found."""
         k = self._k(key)
@@ -342,6 +416,12 @@ class _StoreHandler(socketserver.BaseRequestHandler):
                         server.data.pop(key, None)
                         server.counters.pop(key, None)
                     _send_msg(self.request, ("ok", None))
+                elif op == "mdelete":
+                    with server.cond:
+                        for k in arg:
+                            server.data.pop(k, None)
+                            server.counters.pop(k, None)
+                    _send_msg(self.request, ("ok", None))
                 elif op == "add":
                     with server.cond:
                         server.counters[key] = server.counters.get(key, 0) + arg
@@ -387,9 +467,14 @@ class TCPStore(Store):
             self._local.sock = sock
         return sock
 
+    # The batched ops' names on the wire; they count under the names of
+    # their methods, as in the other stores.
+    _WIRE_OPS = {"try_get_many": "mtry_get", "delete_many": "mdelete"}
+
     def _call(self, op: str, key: str, arg: Any) -> Any:
+        _count_op(op)
         sock = self._sock()
-        _send_msg(sock, (op, key, arg))
+        _send_msg(sock, (self._WIRE_OPS.get(op, op), key, arg))
         status, val = _recv_msg(sock)
         if status == "timeout":
             raise TimeoutError(f"Store.get timed out waiting for {key!r}")
@@ -413,7 +498,10 @@ class TCPStore(Store):
         self._call("delete", key, None)
 
     def try_get_many(self, keys: List[str]) -> List[Optional[bytes]]:
-        return self._call("mtry_get", "", list(keys))
+        return self._call("try_get_many", "", list(keys))
+
+    def delete_many(self, keys: List[str]) -> None:
+        self._call("delete_many", "", list(keys))
 
     def shutdown(self) -> None:
         if self._server is not None:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+from typing import Optional
 
 from . import telemetry
 from .io_types import StoragePlugin, WriteIO
@@ -37,21 +38,31 @@ ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
 _artifact_write_warned = False
 
 
-def url_to_storage_plugin(url: str) -> StoragePlugin:
-    plugin = _resolve_storage_plugin(url)
+def url_to_storage_plugin(url_path: str) -> StoragePlugin:
+    """The plugin of ``url_path``, under the wrappers its knobs turn on."""
+    plugin = _resolve_storage_plugin(url_path)
     if knobs.is_debug_effects_enabled():
         from .effect_journal import maybe_wrap_with_effects
 
-        plugin = maybe_wrap_with_effects(plugin, origin=url)
+        plugin = maybe_wrap_with_effects(plugin, origin=url_path)
     if knobs.get_read_cache_dir():
         from .storage_plugins.cache import maybe_wrap_with_read_cache
 
-        plugin = maybe_wrap_with_read_cache(plugin, origin_id=url)
+        plugin = maybe_wrap_with_read_cache(plugin, origin_id=url_path)
     if knobs.get_faults_spec():
         from .faults import maybe_wrap_with_faults
 
         plugin = maybe_wrap_with_faults(plugin)
     return plugin
+
+
+def url_to_storage_plugin_in_event_loop(
+    url_path: str, event_loop: Optional[asyncio.AbstractEventLoop] = None
+) -> StoragePlugin:
+    """:func:`url_to_storage_plugin`, for callers that hold an event loop
+    (the JAX package's signature; no plugin here needs the loop to be
+    built)."""
+    return url_to_storage_plugin(url_path)
 
 
 def _resolve_storage_plugin(url: str) -> StoragePlugin:

@@ -34,8 +34,9 @@ Design constraints, in order:
   fresh while it waits). The runtime lockstep tracer never fingerprints
   raw store traffic, so the DEBUG_COLLECTIVES sanitizer stays clean by
   construction, and the store operations run under
-  ``parallel.store.telemetry_op_scope`` so counts of the coordination
-  plane (``dryrun.counting_store_ops``) leave them out.
+  ``parallel.store.telemetry_op_scope`` so they count as
+  ``telemetry.<op>``, which counts of the coordination plane
+  (``store.get_op_counts(include_telemetry=False)``) leave out.
 
 The port's copy of ``torchsnapshot_tpu/telemetry/fleet.py``: the store is
 the port's coordinator store (``parallel/store.py``: c10d's or the port's

@@ -9,9 +9,10 @@ max_chain_len=)`` instead), the swarm's fan-out and the broadcast's
 re-election bound (constants), and two defaults: the D2H window's (512 MiB,
 where the JAX package's is 128 MB) and eager D2H's (off, where the JAX
 package's is on). The prefix differs from the JAX package's on
-purpose, so the two packages' settings never alias. Context-manager
-overrides let tests force chunking, batching or small hash grains on tiny
-tensors.
+purpose, so the two packages' settings never alias. Every knob the JAX
+package gives an ``override_*`` context manager has one here, with the
+same name and value encoding: it sets the variable for its block and
+restores the previous value (or its absence) on exit.
 """
 
 from __future__ import annotations
@@ -839,6 +840,142 @@ def override_qos_max_pause_s(value: float):
 
 def override_debug_ledger(enabled: bool):
     return _override_env(_ENV_DEBUG_LEDGER, "1" if enabled else "0")
+
+
+def override_async_capture(mode: str):
+    return _override_env(_ENV_ASYNC_CAPTURE, mode)
+
+
+def override_async_device_copy(enabled: bool):
+    return _override_env(_ENV_ASYNC_DEVICE_COPY, "1" if enabled else "0")
+
+
+def override_device_batching(enabled: bool):
+    return _override_env(_ENV_DEVICE_BATCHING, "1" if enabled else "0")
+
+
+def override_slab_size_threshold_bytes(value: int):
+    return _override_env(_ENV_SLAB_SIZE_THRESHOLD, str(value))
+
+
+def override_checksums(enabled: bool):
+    return _override_env(_ENV_CHECKSUMS, "1" if enabled else "0")
+
+
+def override_compression_level(level: int):
+    return _override_env(_ENV_COMPRESSION_LEVEL, str(level))
+
+
+def override_dedup_digests(enabled: bool):
+    return _override_env(_ENV_DEDUP_DIGESTS, "1" if enabled else "0")
+
+
+def override_hash_workers(value: int):
+    return _override_env(_ENV_HASH_WORKERS, str(value))
+
+
+def override_staging_threads(value: int):
+    return _override_env(_ENV_STAGING_THREADS, str(value))
+
+
+def override_consuming_threads(value: int):
+    return _override_env(_ENV_CONSUMING_THREADS, str(value))
+
+
+def override_d2h_lanes(value: int):
+    return _override_env(_ENV_D2H_LANES, str(value))
+
+
+def override_d2h_window_bytes(value: int):
+    return _override_env(_ENV_D2H_WINDOW, str(value))
+
+
+def override_memory_budget_bytes(value: int):
+    return _override_env(_ENV_MEMORY_BUDGET, str(value))
+
+
+def override_native_io_enabled(enabled: bool):
+    return _override_env(_ENV_DISABLE_NATIVE_IO, "0" if enabled else "1")
+
+
+def override_direct_io_threshold_bytes(value: int):
+    return _override_env(_ENV_DIRECT_IO_THRESHOLD, str(value))
+
+
+def override_plan_cache(enabled: bool):
+    return _override_env(_ENV_PLAN_CACHE, "1" if enabled else "0")
+
+
+def override_plan_cache_size(value: int):
+    return _override_env(_ENV_PLAN_CACHE_SIZE, str(value))
+
+
+def override_prepared_cache(enabled: bool):
+    return _override_env(_ENV_PREPARED_CACHE, "1" if enabled else "0")
+
+
+def override_prepared_cache_size(value: int):
+    return _override_env(_ENV_PREPARED_CACHE_SIZE, str(value))
+
+
+def override_stream_writes(enabled: bool):
+    return _override_env(_ENV_STREAM_WRITES, "1" if enabled else "0")
+
+
+def override_stream_inflight(value: int):
+    return _override_env(_ENV_STREAM_INFLIGHT, str(value))
+
+
+def override_read_cache_dir(path: str):
+    return _override_env(_ENV_READ_CACHE_DIR, path)
+
+
+def override_read_cache_bytes(value: int):
+    return _override_env(_ENV_READ_CACHE_BYTES, str(value))
+
+
+def override_read_cache_verify(enabled: bool):
+    return _override_env(_ENV_READ_CACHE_VERIFY, "1" if enabled else "0")
+
+
+def override_verify_reads(mode: str):
+    return _override_env(_ENV_VERIFY_READS, mode)
+
+
+def override_read_merge_gap_bytes(value: int):
+    return _override_env(_ENV_READ_MERGE_GAP, str(value))
+
+
+def override_broadcast_restore(enabled: bool):
+    return _override_env(_ENV_BCAST_RESTORE, "1" if enabled else "0")
+
+
+def override_broadcast_max_bytes(value: int):
+    return _override_env(_ENV_BCAST_MAX_BYTES, str(value))
+
+
+def override_bcast_reader_deadline_s(value: float):
+    return _override_env(_ENV_BCAST_READER_DEADLINE, str(value))
+
+
+def override_swarm_restore(enabled: bool):
+    return _override_env(_ENV_SWARM_RESTORE, "1" if enabled else "0")
+
+
+def override_swarm_chunk_deadline_s(value: float):
+    return _override_env(_ENV_SWARM_CHUNK_DEADLINE, str(value))
+
+
+def override_recorder_capacity(value: int):
+    return _override_env(_ENV_RECORDER_CAPACITY, str(value))
+
+
+def override_recorder_interval_s(value: float):
+    return _override_env(_ENV_RECORDER_INTERVAL_S, str(value))
+
+
+def override_recorder_dump_path(path: str):
+    return _override_env(_ENV_RECORDER_DUMP, path)
 
 
 # -- robustness and cloud storage (the JAX package's defaults) -------------

@@ -232,7 +232,20 @@ relaunched for four (it must resume from epoch 2);
 restore into the transposed mesh); ``embedding_example.py`` at its default
 1,000,000 x 128 fp32 (512 MB), whose ``Replicate()`` restore must launch
 K3 on both ranks. Each must exit 0 and print its success line.
-Every phase's wall seconds are printed.
+Phase 14 drives a sequence-parallel KV cache through a change of
+context-parallel degree: two ranks on the card (gloo) hold phase 4's
+attention at its width, 8 layers of K and V caches ``[batch 8, heads 32,
+seq 512, head_dim 128]`` bf16 (536,870,912 bytes) saved ``Shard(2)``
+(context-parallel degree 2) and ring-attention residuals ``[8, 512,
+4096]`` fp32 (536,870,912 bytes) saved ``Shard(1)``; each restores
+bit-exactly into ``Shard(0)`` (the axis reused for data parallelism), into
+``Replicate()`` and into the saved placements, and ``read_object`` of one
+cache tensor gives it whole. It prints per rank the K3 launches,
+rectangles and descriptors per launch, the bytes fetched per target byte
+and each restore's GB/s, then holds K3 against its plain version on one
+rank-4 rectangle none of whose dims collapse (several descriptors).
+Every phase's wall seconds are printed, and one line gives each phase's
+K1, K2 and K3 launches.
 The launch counts are set to 0 just before each drive and read just after.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -3121,6 +3134,260 @@ def phase13(seed, root, card):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: a sequence-parallel KV cache, restored at another degree
+# ---------------------------------------------------------------------------
+
+KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM, KV_D_MODEL = 8, 32, 512, 128, 4096
+
+
+def kv_layout(n_layers):
+    """(name, global shape, dtype, saved placement) of phase 14's state:
+    per layer the K and V caches, sharded on the sequence axis, and the
+    ring-attention residuals, sharded on theirs."""
+    from torch.distributed.tensor import Shard
+
+    cache = (KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM)
+    out = []
+    for i in range(n_layers):
+        out += [
+            (f"layer_{i}/k", cache, torch.bfloat16, Shard(2)),
+            (f"layer_{i}/v", cache, torch.bfloat16, Shard(2)),
+            (f"layer_{i}/resid", (KV_BATCH, KV_SEQ, KV_D_MODEL), torch.float32, Shard(1)),
+        ]
+    return out
+
+
+def kv_state(n_layers, seed, device, mesh, placement_of, zeros=False):
+    """This rank's phase-14 DTensors; ``placement_of(saved placement)``
+    gives each tensor's placement."""
+    from torch.distributed.tensor import DTensor
+
+    from torchsnapshot_tpu_torch.io_preparers.sharded_array import contiguous_stride
+
+    state = {}
+    for name, shape, dtype, saved in kv_layout(n_layers):
+        placement = placement_of(saved)
+        full = _global(name, shape, dtype, seed, device)
+        local = torch.zeros_like(_local(full, placement)) if zeros else _local(full, placement).clone()
+        del full
+        layer, leaf = name.split("/")
+        state.setdefault(layer, {})[leaf] = DTensor.from_local(
+            local, mesh, [placement], run_check=False, shape=torch.Size(shape), stride=contiguous_stride(shape)
+        )
+    return state
+
+
+def check_kv_state(state, seed, device, what):
+    """Every local shard equals its slice of the seeded global value."""
+    for layer, leaves in state.items():
+        for leaf, dt in leaves.items():
+            name = f"{layer}/{leaf}"
+            local = dt.to_local()
+            want = _local(_global(name, tuple(dt.shape), local.dtype, seed, device), dt.placements[0])
+            if local.device.type != "cuda" or not torch.equal(_bytes(local), _bytes(want)):
+                raise AssertionError(f"phase14 {what}: {name} differs")
+
+
+def collapsed_rank(src, dst):
+    """The dims K3 sees in one rectangle once adjacent dims that are
+    contiguous in both views merge (at most 3 make one descriptor)."""
+    from torchsnapshot_tpu_torch import kernels
+
+    return len(kernels._collapse(src.shape, src.stride(), dst.stride(), src.element_size()))
+
+
+# Layers of phase 14's KV cache and residuals at phase 4's width: 8 hold
+# 1,073,741,824 bytes. A depth cut for the script's time changes this.
+PHASE14_LAYERS = 8
+
+
+def phase14_worker(rank, world_size, n_layers, seed, root, out_dir):
+    """One rank of phase 14; writes its numbers to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import kernels
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = DeviceMesh("cuda", list(range(world_size)))
+    # Each K3 launch's rectangles, descriptors and widest collapsed rank,
+    # read where the wrapper builds its table (the launch count stays the
+    # wrapper's own).
+    tables = []
+    build_table = kernels.rect_table
+
+    def recording_table(pairs):
+        table, total = build_table(pairs)
+        tables.append((len(pairs), len(table), max((collapsed_rank(s, d) for s, d in pairs), default=0)))
+        return table, total
+
+    kernels.rect_table = recording_table
+    result = {"rank": rank, "launches": {}, "restores": {}}
+
+    def drive(label, fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        del tables[:]
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        result["launches"][label] = dict(kernels.LAUNCHES)
+        launched = result["launches"][label]["copy_blocks"]
+        result.setdefault("k3", {})[label] = {
+            "launches": launched,
+            "rectangles": sum(t[0] for t in tables),
+            "descriptors": sum(t[1] for t in tables),
+            "descriptors_per_launch": sum(t[1] for t in tables) / launched if launched else 0.0,
+            "widest_collapsed_rank": max((t[2] for t in tables), default=0),
+        }
+        return out, wall
+
+    state = kv_state(n_layers, seed, device, mesh, lambda saved: saved)
+    nbytes = sum(dt.to_local().numel() * dt.to_local().element_size() for v in state.values() for dt in v.values())
+    result["local_bytes"] = nbytes
+    path = os.path.join(root, "phase14_kv")
+    _, take_s = drive("take", lambda: tts.Snapshot.take(path, {"cache": tts.StateDict(state)}))
+    result["take_gbps"] = nbytes / take_s / 1e9
+    del state
+    torch.cuda.empty_cache()
+    layouts = {
+        "shard0": lambda saved: Shard(0),
+        "replicate": lambda saved: Replicate(),
+        "saved": lambda saved: saved,
+    }
+    for label, placement_of in layouts.items():
+        target = kv_state(n_layers, seed, device, mesh, placement_of, zeros=True)
+        tbytes = sum(dt.to_local().numel() * dt.to_local().element_size() for v in target.values() for dt in v.values())
+        _, wall = drive(label, lambda: tts.Snapshot(path).restore({"cache": tts.StateDict(target)}))
+        check_kv_state(target, seed, device, f"restore into {label}")
+        if result["launches"][label]["copy_blocks"] < 1:
+            raise AssertionError(f"phase14: K3 was not launched restoring into {label}")
+        result["restores"][label] = {
+            "target_bytes": tbytes,
+            "wall_s": wall,
+            "gbps": tbytes / wall / 1e9,
+            "fetched_per_target_byte": snapshot_mod.LAST_RESTORE_STATS["bytes_read"] / tbytes,
+        }
+        del target
+        torch.cuda.empty_cache()
+    got, _ = drive("read_object", lambda: tts.Snapshot(path).read_object("0/cache/layer_0/k"))
+    want = _global("layer_0/k", (KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM), torch.bfloat16, seed, device)
+    if not torch.equal(_bytes(got), _bytes(want)):
+        raise AssertionError("phase14: read_object of a sequence-sharded cache tensor")
+    del got, want
+    kernels.rect_table = build_table
+    dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def k3_rank4_hold(device, gen):
+    """K3 against its plain version on one rank-4 rectangle of the cache:
+    half the heads and half of head_dim of one saved sequence shard into
+    another corner of a whole cache tensor. No two adjacent dims are
+    contiguous in both views, so the table holds one descriptor per index
+    of the outer dim. Returns the error, descriptors and times."""
+    from torchsnapshot_tpu_torch import kernels
+
+    shard = torch.randn(KV_BATCH, KV_HEADS, KV_SEQ // 2, KV_HEAD_DIM, generator=gen, device=device).to(torch.bfloat16)
+    whole = torch.zeros(KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM, device=device, dtype=torch.bfloat16)
+    half_h, half_d, half_s = KV_HEADS // 2, KV_HEAD_DIM // 2, KV_SEQ // 2
+    pairs = [(shard[:, :half_h, :, :half_d], whole[:, half_h:, half_s:, half_d:])]
+    rank = collapsed_rank(*pairs[0])
+    table, _ = kernels.rect_table(pairs)
+    if rank != 4 or len(table) < 2:
+        raise AssertionError(f"phase14: the hold's rectangle collapsed to {rank} dims, {len(table)} descriptors")
+    kernels.copy_blocks(pairs)
+    got = whole.clone()
+    whole.zero_()
+    kernels.copy_blocks_plain(pairs)
+    err = _max_abs_err(_bytes(got), _bytes(whole))
+    nbytes = pairs[0][0].numel() * pairs[0][0].element_size()
+    table, total = kernels.rect_table(pairs)
+    dev_table = kernels.upload_rect_table(table, device)
+    stream = torch.cuda.current_stream(device)
+    out = {
+        "collapsed_rank": rank,
+        "descriptors": len(table),
+        "bytes": nbytes,
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: kernels.launch_raw("copy_blocks", dev_table, len(table), total, stream), 50),
+        "wrapper_ms": _time_ms(lambda: kernels.copy_blocks(pairs), 50),
+        "plain_ms": _time_ms(lambda: kernels.copy_blocks_plain(pairs), 50),
+        "library_ms": _time_ms(lambda: pairs[0][1].copy_(pairs[0][0]), 50),
+        "bound_ms": _bound_ms(nbytes),
+    }
+    del shard, whole, got, pairs, dev_table
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14(n_layers, seed, device, gen, root, card):
+    """Phase 14: two ranks (:func:`phase14_worker`), then K3's hold at a
+    rank-4 rectangle in this process. Returns the launches and the
+    summary; K3 must have copied in every restore."""
+    from torchsnapshot_tpu_torch.test_utils import run_with_processes
+
+    out_dir = os.path.join(root, "phase14_out")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    run_with_processes(phase14_worker, 2, args=(n_layers, seed, root, out_dir), timeout_s=600, process_group=True)
+    ranks_s = time.monotonic() - t0
+    shutil.rmtree(os.path.join(root, "phase14_kv"), ignore_errors=True)
+    launches, summary = {}, {"layers": n_layers, "ranks_s": ranks_s, "ranks": {}}
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            r = json.load(f)
+        for label, k3 in r["k3"].items():
+            log(f"phase14 rank {rank} {label} K3 on {card}: {json.dumps(k3)}")
+        for label, rest in r["restores"].items():
+            log(f"phase14 rank {rank} restore into {label} on {card} (bit-exact): {json.dumps(rest)}")
+        log(f"phase14 rank {rank} take on {card}: {r['local_bytes']} bytes at {r['take_gbps']:.3f} GB/s")
+        for label, counts in r["launches"].items():
+            launches[f"phase14_rank{rank}_{label}"] = counts
+        summary["ranks"][rank] = {"take_gbps": r["take_gbps"], "restores": r["restores"], "k3": r["k3"]}
+    hold = k3_rank4_hold(device, gen)
+    if hold["max_abs_err"] != 0:
+        raise AssertionError(f"phase14: K3 disagrees with its plain version on a rank-4 rectangle: {hold}")
+    log(f"phase14 K3 at one rank-4 rectangle on {card}: {json.dumps(hold)}")
+    summary["k3_rank4"] = hold
+    return launches, summary
+
+
+_KERNEL_NAMES = ("pack_slab", "fork_copy", "copy_blocks")
+
+
+def phase_totals(launches):
+    """K1, K2 and K3 launches summed over one phase's counts, however the
+    phase nests them (a counts dict, or dicts or lists of them)."""
+    if isinstance(launches, dict) and launches and set(launches) <= set(_KERNEL_NAMES) and all(
+        isinstance(v, int) for v in launches.values()
+    ):
+        return [launches.get(name, 0) for name in _KERNEL_NAMES]
+    values = launches.values() if isinstance(launches, dict) else launches
+    total = [0, 0, 0]
+    for v in values:
+        total = [a + b for a, b in zip(total, phase_totals(v))]
+    return total
+
+
+def phase_launch_line(per_phase, card):
+    """The line that gives each phase's K1, K2 and K3 launches."""
+    return f"launches per phase [K1 pack_slab, K2 fork_copy, K3 copy_blocks] on {card}: " + json.dumps(
+        {name: phase_totals(counts) for name, counts in per_phase.items()}
+    )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gb", type=float, default=4.0, help="size of the main-path state")
@@ -3203,6 +3470,7 @@ def main() -> int:
 
     try:
         launches, rates, slab_layer, state_tensors = timed("phase2", lambda: phase2(args.gb, device, gen, root, card))
+        per_phase = {"phase2": dict(launches)}
         # The main path's K1 slab is one layer's attn plus its small tensors.
         slab_members = [slab_layer[k] for k in sorted(slab_layer)]
         times = timed("kernel timing", lambda: time_kernels(device, slab_members, state_tensors))
@@ -3211,6 +3479,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         k3_times = timed("K3 timing", lambda: time_k3(device, args.gb, gen))
         ranks = timed("phase3", lambda: phase3(args.phase3_gb, args.seed, root, card))
+        per_phase["phase3"] = [r["launches"] for r in ranks]
         launches["phase4"], trainer = timed("phase4", lambda: phase4(args.seed, device, root, card))
         phase5_launches, finetune = timed(
             "phase5",
@@ -3239,6 +3508,18 @@ def main() -> int:
         launches["phase12"], oom = timed("phase12", lambda: phase12(args.seed, root, card))
         phase13_launches, extension = timed("phase13", lambda: phase13(args.seed, root, card))
         launches.update(phase13_launches)
+        phase14_launches, kv_cache = timed(
+            "phase14", lambda: phase14(PHASE14_LAYERS, args.seed, device, gen, root, card)
+        )
+        launches.update(phase14_launches)
+        per_phase.update({
+            "phase4": launches["phase4"], "phase5": phase5_launches, "phase6": phase6_launches,
+            "phase7": launches["phase7"], "phase8a": launches["phase8a"], "phase8b": phase8b_launches,
+            "phase8c": launches["phase8c"], "phase9a": launches["phase9a"], "phase9b": phase9b_launches,
+            "phase10": phase10_launches, "phase11": phase11_launches, "phase12": launches["phase12"],
+            "phase13": phase13_launches, "phase14": phase14_launches,
+        })
+        log(phase_launch_line(per_phase, card))
         log(f"phase walls on {card}: {json.dumps({k: round(v, 1) for k, v in walls.items()})}, total {sum(walls.values()):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3264,6 +3545,7 @@ def main() -> int:
     log(f"phase11 capture and transfer controls summary on {card}: {json.dumps(controls)}")
     log(f"phase12 K1 out-of-memory summary on {card}: {json.dumps(oom)}")
     log(f"phase13 plugin and examples summary on {card}: {json.dumps(extension)}")
+    log(f"phase14 sequence-parallel KV cache summary on {card}: {json.dumps(kv_cache)}")
     for r in ranks:
         log(
             f"phase3 rank {r['rank']} (two ranks sharing one card): take {r['rates']['take_gbps']:.3f} GB/s, "

@@ -492,6 +492,10 @@ KNOBS = {
     "READ_MERGE_GAP_BYTES": (_INT, _same(lambda k: k.get_read_merge_gap_bytes())),
     "FAULTS": (["op=write,kind=fail", ""], _same(lambda k: k.get_faults_spec())),
     "CLI_TRACEBACK": (_BOOL, _same(lambda k: k.is_cli_traceback_enabled())),
+    "CATALOG": (_BOOL + ["OFF", "FALSE", "no"], _same(lambda k: k.is_catalog_enabled())),
+    "MAX_CHAIN_LEN": (_INT + ["-3"], _same(lambda k: k.get_max_chain_len())),
+    "SWARM_FANOUT": (_INT + ["-3"], _same(lambda k: k.get_swarm_fanout())),
+    "BCAST_REELECT_MAX": (_INT + ["-3"], _same(lambda k: k.get_bcast_reelect_max())),
 }
 
 # Knobs the port leaves out on purpose (ROADMAP.md repeats this list).
@@ -500,10 +504,6 @@ NOT_PORTED = {
     "RANK": "the port's coordinator rides torch.distributed's c10d store",
     "WORLD_SIZE": "the port's coordinator rides torch.distributed's c10d store",
     "LAUNCHER_DRAIN_S": "belongs to the JAX package's test launcher",
-    "CATALOG": "a take without job= is the catalog off",
-    "MAX_CHAIN_LEN": "take(max_chain_len=) per call",
-    "SWARM_FANOUT": "swarm.FANOUT is a constant",
-    "BCAST_REELECT_MAX": "bcast.REELECT_MAX is a constant",
 }
 
 # Ported knobs whose default differs (ROADMAP.md records each): the value
@@ -601,9 +601,14 @@ def test_reparsed_switch_warns_once(monkeypatch, caplog, name, value, now):
 # The override context managers
 # ---------------------------------------------------------------------------
 
-# The 34 overrides of ported knobs that the port lacked before (the JAX
-# package's other 4 belong to NOT_PORTED knobs), each with an argument.
+# The 38 overrides the port lacked before: 34 of knobs it had, and those
+# of the catalog switch, the chain length, the swarm's fan-out and the
+# broadcast's re-elections, each with an argument.
 OVERRIDES = {
+    "override_bcast_reelect_max": 0,
+    "override_catalog": False,
+    "override_max_chain_len": 2,
+    "override_swarm_fanout": 3,
     "override_async_capture": "donate",
     "override_async_device_copy": False,
     "override_bcast_reader_deadline_s": 0.25,
@@ -644,11 +649,9 @@ OVERRIDES = {
 def test_every_jax_override_is_ported_or_not_ported():
     jax_names = {n for n in dir(jknobs) if n.startswith("override_")}
     port_names = {n for n in dir(tknobs) if n.startswith("override_")}
-    assert len(jax_names) == 67 and len(OVERRIDES) == 34
+    assert len(jax_names) == 67 and len(OVERRIDES) == 38
     assert set(OVERRIDES) <= port_names <= jax_names
-    assert jax_names - port_names == {
-        "override_bcast_reelect_max", "override_catalog", "override_max_chain_len", "override_swarm_fanout"
-    }
+    assert jax_names == port_names
 
 
 def _set_by(override, prefix, arg):

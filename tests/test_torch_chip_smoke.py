@@ -179,3 +179,56 @@ def test_script_needs_cuda_and_prints_no_result(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_the_per_phase_launch_line_sums_each_phases_counts(monkeypatch):
+    """One line gives each phase's K1, K2 and K3 launches, summed however
+    the phase nests its counts: a counts dict, labels of counts, ranks'
+    lists, partial counts."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    per_phase = {
+        "phase2": {"sync_take": {"pack_slab": 11, "fork_copy": 0, "copy_blocks": 0},
+                   "async_take": {"pack_slab": 11, "fork_copy": 1, "copy_blocks": 0}},
+        "phase3": [{"restore": {"pack_slab": 0, "fork_copy": 0, "copy_blocks": 50}},
+                   {"restore": {"pack_slab": 0, "fork_copy": 0, "copy_blocks": 50}}],
+        "phase4": {"pack_slab": 31, "fork_copy": 1, "copy_blocks": 0},
+        "phase6": {},
+        "phase13": {"phase13a_sync_take": {"pack_slab": 4, "fork_copy": 0, "copy_blocks": 0},
+                    "phase13b_embedding_rank0": {"copy_blocks": 2}},
+    }
+    line = chip_smoke.phase_launch_line(per_phase, "NVIDIA H100 80GB HBM3, 700.00 W")
+    head = "launches per phase [K1 pack_slab, K2 fork_copy, K3 copy_blocks] on NVIDIA H100 80GB HBM3, 700.00 W: "
+    assert line.startswith(head) and "\n" not in line
+    assert json.loads(line[len(head):]) == {
+        "phase2": [22, 1, 0], "phase3": [0, 0, 100], "phase4": [31, 1, 0], "phase6": [0, 0, 0], "phase13": [4, 0, 2],
+    }
+
+
+def test_phase14_state_and_its_rank4_rectangle(monkeypatch):
+    """Phase 14 at its width: per layer K and V ``[8, 32, 512, 128]`` bf16
+    and the residuals ``[8, 512, 4096]`` fp32, 536,870,912 bytes each in
+    all over 8 layers; its sequence-half reshard rectangles collapse to
+    two dims (one K3 descriptor), the hold's half-heads, half-head_dim
+    block to four (one descriptor per batch index)."""
+    import torch
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from torchsnapshot_tpu_torch import kernels
+
+    layout = chip_smoke.kv_layout(8)
+    nbytes = {}
+    for name, shape, dtype, placement in layout:
+        kind = name.split("/")[1]
+        nbytes[kind] = nbytes.get(kind, 0) + int(torch.Size(shape).numel()) * dtype.itemsize
+        assert placement.dim == (1 if kind == "resid" else 2)
+    assert nbytes == {"k": 268435456, "v": 268435456, "resid": 536870912}
+    shard = torch.zeros(8, 32, 256, 128, dtype=torch.bfloat16)
+    whole = torch.zeros(8, 32, 512, 128, dtype=torch.bfloat16)
+    target = whole[:4]  # a Shard(0) target's block of batch rows
+    reshard = (shard[:4], target[:, :, 256:, :])
+    assert chip_smoke.collapsed_rank(*reshard) == 2 and len(kernels.rect_table([reshard])[0]) == 1
+    hold = (shard[:, :16, :, :64], whole[:, 16:, 256:, 64:])
+    assert chip_smoke.collapsed_rank(*hold) == 4 and len(kernels.rect_table([hold])[0]) == 8

@@ -32,7 +32,7 @@ def _catalog_rows():
 
 def test_every_registry_knob_is_in_the_catalog():
     registry = _registry()
-    assert len(registry) == 65
+    assert len(registry) == 69
     assert sorted(registry - _catalog_rows()) == []
 
 

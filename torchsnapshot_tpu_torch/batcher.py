@@ -104,6 +104,41 @@ class BatchedBufferStager(BufferStager):
     def get_staging_cost_bytes(self) -> int:
         return self.total
 
+    def can_stream(self) -> bool:
+        """A slab of several members streams member by member, unless one
+        is an async take's non-deferred member: a tensor neither forked nor
+        captured, which the take must copy before it returns. Streamed, a
+        host one would be read after that, and a device one would hold the
+        slab's whole write inside the take's stall."""
+        if len(self.members) <= 1:
+            return False
+        return not any(
+            not req.defer_staging and getattr(req.buffer_stager, "is_async_snapshot", False)
+            for req, _, _ in self.members
+        )
+
+    async def stage_chunks(self, executor: Optional[Executor] = None):
+        """One chunk per member, in slab order, staging one member ahead:
+        host memory holds about two members instead of the slab."""
+        next_task = None
+        try:
+            for idx, (req, begin, end) in enumerate(self.members):
+                task = next_task or asyncio.ensure_future(req.buffer_stager.stage_buffer(executor))
+                next_task = None
+                if idx + 1 < len(self.members):
+                    next_task = asyncio.ensure_future(self.members[idx + 1][0].buffer_stager.stage_buffer(executor))
+                mv = memoryview(await task).cast("B")
+                if mv.nbytes != end - begin:
+                    raise RuntimeError(
+                        f"Staged size {mv.nbytes} != planned slab slot {end - begin} for {req.path}"
+                    )
+                yield mv
+        except BaseException:
+            if next_task is not None:
+                next_task.cancel()
+                await asyncio.gather(next_task, return_exceptions=True)
+            raise
+
     def start_d2h_hint(self, lanes: d2h.TransferLanes, stream: bool = False) -> None:
         for req, _, _ in self.members:
             req.buffer_stager.start_d2h_hint(lanes)
@@ -143,6 +178,10 @@ class DeviceBatchedBufferStager(BatchedBufferStager):
     fetches it with one D2H copy (CUDA), or packs on the host (CPU). A slab
     too large for device memory is packed in groups (module docstring)."""
 
+    # stage_chunks yields views of the one packed host buffer: the stream
+    # holds the whole slab for its life, and is admitted at its full cost.
+    stream_holds_full_buffer = True
+
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         stagers = [req.buffer_stager for req, _, _ in self.members]
         tensors = [s.tensor for s in stagers]
@@ -176,6 +215,17 @@ class DeviceBatchedBufferStager(BatchedBufferStager):
         for s in stagers:
             s.check_version()
         return memoryview(host.numpy())
+
+    async def stage_chunks(self, executor: Optional[Executor] = None):
+        """The slab packed and fetched once (K1's single D2H), then yielded
+        in stream-chunk slices, so its appends still overlap."""
+        mv = memoryview(await self.stage_buffer(executor)).cast("B")
+        if mv.nbytes == 0:
+            yield mv
+            return
+        step = knobs.get_stream_chunk_bytes()
+        for off in range(0, mv.nbytes, step):
+            yield mv[off : off + step]
 
     def start_d2h_hint(self, lanes: d2h.TransferLanes, stream: bool = False) -> None:
         pass  # packed and fetched in the drain

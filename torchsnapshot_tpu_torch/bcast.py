@@ -18,7 +18,7 @@ never moved to the card from pageable memory.
 - **Never less available than a direct read.** Payload keys are fenced by
   a per-call token and a per-object attempt. A peer polls with
   ``try_get`` until ``TSS_TORCH_BCAST_READER_DEADLINE_S`` and then elects
-  the next rank in the sha1 order; after ``REELECT_MAX``
+  the next rank in the sha1 order; after ``TSS_TORCH_BCAST_REELECT_MAX``
   re-elections it reads the origin itself. A reader whose fetch fails
   posts an error marker, and peers read directly at once. With the
   sidecars at hand (and ``TSS_TORCH_VERIFY_READS`` not ``off``) every
@@ -42,20 +42,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from . import telemetry
 from .engine import qos as engine_qos
 from .io_preparer import is_dtensor
+from .io_preparers.array import entry_cost_bytes
 from .io_types import ReadReq, StoragePlugin
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
 from .scheduler import _read_digest_record, _verify_checker, verified_fetch
-from .serialization import COMPRESSED, array_nbytes
 from .storage_plugins.cloud_retry import CollectiveProgress
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
 
 LAST_RESTORE_BCAST: Dict[str, Any] = {}
-
-# Re-elections per object (or swarm chunk) before a peer reads it from the
-# origin itself: the JAX package's default.
-REELECT_MAX = 1
 
 # One byte before a payload, so an error report rides the same fenced key.
 _OK = b"O"
@@ -81,16 +77,6 @@ def reset_diagnostics() -> None:
             "per_object": {},
         }
     )
-
-
-def entry_cost_bytes(entry: ArrayEntry) -> int:
-    """Host bytes of one array entry (a compressed one counts twice: the
-    payload and its decoded bytes)."""
-    try:
-        n = array_nbytes(entry.shape, entry.dtype)
-    except Exception:  # noqa: BLE001 - an unknown dtype: a conservative guess
-        return 1024 * 1024
-    return 2 * n if entry.serializer in COMPRESSED else n
 
 
 def is_fully_replicated_target(live: Any) -> bool:  # spmd-pure
@@ -299,7 +285,7 @@ def run_broadcast(
     fetched: Dict[Key, bytes] = {}
     deadline_s = knobs.get_bcast_reader_deadline_s()
     # order[] has world distinct ranks; more attempts would wrap back.
-    max_attempts = 1 + min(REELECT_MAX, world - 1)
+    max_attempts = 1 + min(knobs.get_bcast_reelect_max(), world - 1)
     poll_s = max(0.01, min(0.05, deadline_s / 10.0))
     tracker = telemetry.ProgressTracker()
     tracker.set_totals(requests=len(keys), bytes_=0)

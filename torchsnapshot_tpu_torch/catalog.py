@@ -61,6 +61,7 @@ from . import telemetry
 from .io_types import ReadIO, StoragePlugin, WriteIO
 from .manifest import SNAPSHOT_METADATA_FNAME, SnapshotMetadata
 from .storage_plugin import url_to_storage_plugin
+from .utils import knobs
 
 logger = logging.getLogger(__name__)
 
@@ -72,10 +73,6 @@ PIN_DIR = f"{CATALOG_DIR}/pins"
 # their snapshot's record, and the per-rank rollout (restore) records.
 STEP_TELEMETRY_DIR = f"{CATALOG_DIR}/telemetry"
 ROLLOUT_TELEMETRY_DIR = f"{CATALOG_DIR}/rollouts"
-
-# Depth at which a ``job=`` take without ``max_chain_len=`` rebases to a
-# full snapshot (the JAX package's default).
-DEFAULT_MAX_CHAIN_LEN = 16
 
 # Loaders skip records of a newer schema and accept older ones.
 CATALOG_SCHEMA_VERSION = 1
@@ -545,12 +542,15 @@ def resolve_auto_base(token: str, snapshot_path: str) -> Tuple[Optional[str], in
     token, from the catalog of ``snapshot_path``'s bucket: the latest
     committed same-job snapshot (from the chain cache when warm, else a
     catalog scan that probes the newest three records for their metadata).
-    ``(None, 0)``, a full take, when the bucket has no same-job record, the candidate's chain is already ``max_chain_len``
-    deep, or anything fails."""
+    ``(None, 0)``, a full take, when ``TSS_TORCH_CATALOG`` is off, the
+    bucket has no same-job record, the candidate's chain is already
+    ``max_chain_len`` deep, or anything fails."""
     try:
         job, max_chain = parse_auto_base(token)
     except Exception:  # noqa: BLE001 - a malformed token: full snapshot
         logger.warning("malformed auto-base token %r; taking a full snapshot", token)
+        return None, 0
+    if not knobs.is_catalog_enabled():
         return None, 0
     split = split_bucket(snapshot_path)
     if split is None:
@@ -585,6 +585,23 @@ def resolve_auto_base(token: str, snapshot_path: str) -> Tuple[Optional[str], in
             job, snapshot_path, exc_info=True,
         )
     return None, 0
+
+
+def chain_len_of_base(bucket_url: str, base: str) -> int:
+    """The chain length a snapshot takes on by building on ``base`` (an
+    explicit ``base=``): the base's recorded chain + 1, or 1 when the base
+    is unrecorded or outside the bucket (an unknown base counts as full)."""
+    split = split_bucket(base)
+    if split is None or split[0] != bucket_url:
+        return 1
+    try:
+        with Catalog(bucket_url) as cat:
+            for rec in reversed(cat.load()):
+                if rec.name == split[1]:
+                    return rec.chain_len + 1
+    except Exception:  # noqa: BLE001 - an unknown base counts as full
+        pass
+    return 1
 
 
 def _metadata_exists(snapshot_url: str) -> bool:

@@ -2,7 +2,7 @@
 pipeline, and the process-wide QoS arbiter (``FOREGROUND > NORMAL >
 BACKGROUND``) whose demand pauses lower classes' admissions."""
 
-from .executor import Budget, GraphExecutor, NodeContext, run_graph
+from .executor import Budget, GraphExecutor, NodeContext, ProgressReporter, run_graph
 from .graph import Node
 from .qos import (
     Priority,
@@ -21,6 +21,7 @@ __all__ = [
     "Node",
     "NodeContext",
     "Priority",
+    "ProgressReporter",
     "QoSArbiter",
     "current_priority",
     "demand_scope",

@@ -34,23 +34,31 @@ One executor drives one operation's graph (see ``graph.py``):
   drain stats and the trace are one record. The wait loop feeds the flight
   recorder and the fleet beacons (:meth:`GraphExecutor.introspect`), and
   with a progress tracker and ``TSS_TORCH_STALL_WARN_S`` a watchdog warns
-  once per stall.
+  once per stall. At most every 10 s the loop logs one occupancy line
+  (:class:`ProgressReporter`): the nodes in each pool, the GB done, the
+  budget's headroom and the resident set's growth.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import logging
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from .. import ledger, telemetry
 from ..utils import knobs
+from ..utils.rss_profiler import rss_bytes
 from . import qos as qos_mod
 from .graph import Node
 from .intervals import Interval
 from .qos import Priority
+
+# The JAX package logs its occupancy lines on its scheduler's channel; the
+# port's go to its own scheduler's, so one filter per package finds them.
+_pipeline_logger = logging.getLogger("torchsnapshot_tpu_torch.scheduler")
 
 
 class Budget:
@@ -123,6 +131,47 @@ class NodeContext:
         await self._engine.preemption_point()
 
 
+class ProgressReporter:
+    """Periodic per-rank occupancy logging: how many nodes sit in each
+    pool, the bytes done, the budget's headroom and the resident set's
+    growth since the engine began. Logged at INFO at most once per
+    ``interval_s``, from the engine's wait loop, which wakes at least that
+    often: a stalled pool shows its last occupancy."""
+
+    def __init__(self, rank: int, kind: str, interval_s: float = 10.0) -> None:
+        self.rank = rank
+        self.kind = kind
+        self.interval_s = interval_s
+        self._last_ts = time.monotonic()
+        self._rss0 = _rss_bytes()
+
+    def maybe_report(self, stages: Dict[str, int], bytes_done: int, budget: Budget) -> None:
+        now = time.monotonic()
+        if now - self._last_ts < self.interval_s:
+            return
+        self._last_ts = now
+        rss_delta = _rss_bytes() - self._rss0 if self._rss0 else 0
+        occupancy = " ".join(f"{k}={v}" for k, v in stages.items())
+        _pipeline_logger.info(
+            "Rank %d %s pipeline: %s | %.2f GB done | budget %.2f/%.2f GB | RSS delta %+.2f GB",
+            self.rank,
+            self.kind,
+            occupancy,
+            bytes_done / 1e9,
+            budget.available / 1e9,
+            budget.total / 1e9,
+            rss_delta / 1e9,
+        )
+
+
+def _rss_bytes() -> int:
+    """This process's resident set, 0 where ``/proc`` cannot say."""
+    try:
+        return rss_bytes()
+    except (OSError, ValueError):
+        return 0
+
+
 class GraphExecutor:
     def __init__(
         self,
@@ -152,6 +201,7 @@ class GraphExecutor:
         self._tm = telemetry.get_active()
         self._progress = progress
         self._bytes_done = bytes_done or (lambda: 0)
+        self.reporter = ProgressReporter(rank, kind)
         self.admitted = 0
         self._caps = caps  # pool -> max concurrent nodes (None: unbounded)
         self._task_context = task_context or contextlib.nullcontext
@@ -366,9 +416,13 @@ class GraphExecutor:
                     telemetry.fleet.sample_engine(self)
                     await asyncio.sleep(knobs.get_qos_poll_s())
                     continue
+                # Bounded, so the reporter also speaks during a stall.
                 done, _ = await asyncio.wait(
-                    list(self._inflight), return_when=asyncio.FIRST_COMPLETED
+                    list(self._inflight),
+                    return_when=asyncio.FIRST_COMPLETED,
+                    timeout=self.reporter.interval_s,
                 )
+                self.reporter.maybe_report(self.occupancy(), self._bytes_done(), self.budget)
                 telemetry.recorder.sample_engine(self)
                 telemetry.fleet.sample_engine(self)
                 for task in done:

@@ -29,6 +29,11 @@ def encode_component(key: Union[str, int]) -> str:
     return s.replace("%", "%25").replace("/", "%2F")
 
 
+def decode_component(s: str) -> str:
+    """The key :func:`encode_component` encoded."""
+    return s.replace("%2F", "/").replace("%25", "%")
+
+
 def _dict_is_flattenable(d: Dict[Any, Any]) -> bool:
     seen = set()
     for k in d.keys():

@@ -63,7 +63,7 @@ from .io_preparers.chunked_array import ChunkedArrayIOPreparer, should_chunk, sh
 from .io_preparers.object import ObjectIOPreparer
 from .io_preparers.sharded_array import DTensorLeaf, ShardedArrayIOPreparer, dtensor_leaf
 from .manifest import PRIMITIVE_TYPES, Manifest, PrimitiveEntry
-from .serialization import numpy_dtype_to_string
+from .serialization import numpy_dtype_to_string, string_to_dtype
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -118,7 +118,13 @@ def _as_tensor(value: Any) -> Tuple[torch.Tensor, Optional[str]]:
     if isinstance(value, np.ndarray):
         # np.ascontiguousarray would turn a 0-dim array into a 1-dim one.
         arr = value if value.flags["C_CONTIGUOUS"] else value.copy(order="C")
-        return torch.from_numpy(arr), numpy_dtype_to_string(value.dtype)
+        name = numpy_dtype_to_string(value.dtype)
+        if arr.dtype.kind == "V":
+            # An ml_dtypes extension: torch takes it through an unsigned view
+            # of its width, as the dtype torch has, or as bytes (one value
+            # per byte, as the reference stores it).
+            return torch.from_numpy(arr.view(f"u{arr.dtype.itemsize}")).view(string_to_dtype(name)), name
+        return torch.from_numpy(arr), name
     return value.detach(), None
 
 

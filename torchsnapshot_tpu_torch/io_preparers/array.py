@@ -71,8 +71,10 @@ from ..serialization import (
     compress_payload,
     decode_framed_payload,
     decode_raw_payload,
+    dtype_itemsize,
     dtype_to_string,
     ensure_codec_available,
+    is_raw_family,
     numpy_dtype_to_string,
     raw_serializer_for_codec,
     tensor_as_bytes,
@@ -103,6 +105,25 @@ def chunk_row_ranges(
         ranges.append((r0, r0 + rows))
         r0 += rows
     return ranges
+
+
+def entry_cost_bytes(entry: ArrayEntry) -> int:
+    """Best-effort host bytes of staging or consuming one array entry: a
+    compressed entry costs twice its raw bytes on the consume side (the
+    payload and the decoded bytes coexist); 1 MiB when it cannot say."""
+    try:
+        n = 1
+        for d in entry.shape:
+            n *= int(d)
+        if is_raw_family(entry.serializer):
+            n *= dtype_itemsize(entry.dtype)
+            if entry.serializer != Serializer.RAW:
+                n *= 2
+        else:
+            n *= np.dtype(entry.dtype).itemsize
+        return n
+    except Exception:  # noqa: BLE001 - a cost estimate never fails a plan
+        return 1024 * 1024
 
 
 def _note_serialize(t0: float, path: str, nbytes: int) -> None:

@@ -47,6 +47,9 @@ class ObjectBufferConsumer(BufferConsumer):
     def __init__(self, callback: Callable[[Any], None]) -> None:
         self._callback = callback
 
+    def set_consume_callback(self, callback: Callable[[Any], None]) -> None:
+        self._callback = callback
+
     async def consume_buffer(
         self, buf: BufferType, executor: Optional[Executor] = None
     ) -> None:

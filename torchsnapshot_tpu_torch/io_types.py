@@ -30,7 +30,11 @@ class BufferStager(abc.ABC):
     A stager whose :meth:`can_stream` is True may also produce them as a
     sequence of chunks (:meth:`stage_chunks`) whose concatenation equals
     :meth:`stage_buffer`'s output; the scheduler then overlaps the storage
-    write of one chunk with the staging of the next."""
+    write of one chunk with the staging of the next. A streamed request is
+    admitted at its stream's depth in chunks, unless its chunks are views
+    of one whole buffer (:attr:`stream_holds_full_buffer`)."""
+
+    stream_holds_full_buffer = False
 
     @abc.abstractmethod
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:

@@ -277,14 +277,17 @@ class _WritePipeline:
         stager = req.buffer_stager
         cost = stager.get_staging_cost_bytes()
         if self._stream_eligible(req):
+            if not stager.stream_holds_full_buffer:
+                # Admitted at its steady-state footprint: the stream's
+                # depth in chunks.
+                cost = min(cost, self._stream_inflight * self._stream_chunk)
             self._engine.add(
                 Node(
                     "stream",
+                    # It records its chunks' intervals itself (staging:
+                    # stream_chunk, appends: io).
                     lambda ctx, _p, req=req: self._stream_one(ctx, req),
-                    # Admitted at its steady-state footprint: the stream's
-                    # depth in chunks. It records its chunks' intervals
-                    # itself (staging: stream_chunk, appends: io).
-                    cost_bytes=min(cost, self._stream_inflight * self._stream_chunk),
+                    cost_bytes=cost,
                     pool="streaming",
                     path=req.path,
                     deferred=req.defer_staging,
@@ -559,8 +562,9 @@ class _WritePipeline:
             self.pipeline_stats[f"stage_{kind}_s"] = sum(
                 measure(clip_merged(merged, w0, w1)) for w0, w1 in self.windows
             )
-        self.drain_stats["bytes_deduped"] = self.bytes_deduped
-        self.drain_stats["objects_linked"] = self.objects_linked
+        for stats in (self.drain_stats, self.pipeline_stats):
+            stats["bytes_deduped"] = self.bytes_deduped
+            stats["objects_linked"] = self.objects_linked
         self._publish_progress()
         telemetry.gauge_max("scheduler.budget_hwm_bytes", self._engine.budget.high_water_bytes)
         telemetry.counter_add("scheduler.bytes_staged", self.bytes_staged)
@@ -585,8 +589,23 @@ class PendingIOWork:
     def __init__(self, pipeline: _WritePipeline) -> None:
         self._pipeline = pipeline
 
+    async def complete(self) -> None:
+        await self._pipeline.run_to_completion()
+
     def sync_complete(self, event_loop: asyncio.AbstractEventLoop) -> None:
-        event_loop.run_until_complete(self._pipeline.run_to_completion())
+        event_loop.run_until_complete(self.complete())
+
+    @property
+    def budget_balanced(self) -> bool:
+        """True when every budget debit has been credited back: after a
+        drain, and after an aborted one."""
+        return self._pipeline._engine.budget.balanced
+
+    @property
+    def progress(self) -> "telemetry.ProgressTracker":
+        """The pipeline's live counters (monotonic; readable from any
+        thread while the drain runs)."""
+        return self._pipeline.progress
 
     @property
     def drain_stats(self) -> Dict[str, float]:
@@ -649,10 +668,24 @@ def sync_execute_write_reqs(
     returns an incremental take's base as ``(root, {path: record})``, or
     None to write everything. ``on_built`` runs on the pipeline before it
     starts (an async take's eager D2H)."""
+    return event_loop.run_until_complete(
+        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank, base_loader, on_built)
+    )
+
+
+async def execute_write_reqs(
+    write_reqs: List[WriteReq],
+    storage: StoragePlugin,
+    memory_budget_bytes: int,
+    rank: int,
+    base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
+    on_built: Optional[Callable[[_WritePipeline], None]] = None,
+) -> PendingIOWork:
+    """:func:`sync_execute_write_reqs` on the running event loop."""
     pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank, base_loader)
     if on_built is not None:
         on_built(pipeline)
-    event_loop.run_until_complete(pipeline.run_until_staged())
+    await pipeline.run_until_staged()
     return PendingIOWork(pipeline)
 
 

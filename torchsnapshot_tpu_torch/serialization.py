@@ -32,7 +32,7 @@ standard library.
 from __future__ import annotations
 
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,10 @@ _NUMPY_DTYPES = {
     )
 }
 _NUMPY_STRING_OF = {v: k for k, v in _NUMPY_DTYPES.items()}
+
+# The extension dtypes of ml_dtypes (numpy arrays handed over from a JAX
+# program) that the reference writes raw: their numpy names are its strings.
+_EXTENSION_NAMES = frozenset(k for k in _TORCH_DTYPES if k.startswith(("bfloat16", "float8"))) | BYTE_VIEW_DTYPES
 
 
 # Serializers whose decoded payload is the raw little-endian byte stream.
@@ -223,8 +227,14 @@ def dtype_to_string(dtype: torch.dtype) -> str:
 
 
 def numpy_dtype_to_string(dtype) -> Optional[str]:
-    """The reference string of a plain numpy dtype, None if it has none."""
-    return _NUMPY_STRING_OF.get(np.dtype(dtype))
+    """The reference string of a numpy dtype (a plain one, or an ml_dtypes
+    extension the reference writes raw), None if it has none."""
+    dt = np.dtype(dtype)
+    if dt in _NUMPY_STRING_OF:
+        return _NUMPY_STRING_OF[dt]
+    if dt.kind == "V" and dt.names is None and dt.name in _EXTENSION_NAMES:
+        return dt.name
+    return None
 
 
 def string_to_dtype(s: str) -> torch.dtype:
@@ -248,10 +258,50 @@ def array_nbytes(shape: Sequence[int], dtype_str: str) -> int:
     return n * dtype_itemsize(dtype_str)
 
 
+def is_raw_serializable(dtype: Any) -> bool:
+    """Whether values of ``dtype`` (a torch dtype, or anything numpy takes
+    as one) are written as their raw bytes rather than pickled."""
+    if isinstance(dtype, torch.dtype):
+        return dtype in _STRING_OF
+    try:
+        return numpy_dtype_to_string(dtype) is not None
+    except TypeError:
+        return False
+
+
+def array_as_bytes_view(t: Any) -> memoryview:
+    """Little-endian raw-byte view of a CPU tensor or numpy array, in C
+    order. Copies only when it is not C-contiguous (or a big-endian numpy
+    array); the view keeps its buffer alive."""
+    if isinstance(t, torch.Tensor):
+        return memoryview(tensor_as_bytes(t).numpy())
+    arr = np.ascontiguousarray(t)
+    if arr.dtype.byteorder == ">":
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+    return arr.view(np.uint8).reshape(-1).data
+
+
+def array_from_bytes(buf: Any, dtype_str: str, shape: Sequence[int]) -> torch.Tensor:
+    """A CPU tensor over ``buf`` without a copy (a read-only buffer is
+    copied once: torch tensors are writable)."""
+    expected = array_nbytes(shape, dtype_str)
+    mv = memoryview(buf).cast("B")
+    if mv.nbytes != expected:
+        raise ValueError(
+            f"Serialized buffer has {mv.nbytes} bytes; expected {expected} for shape {tuple(shape)} dtype {dtype_str}"
+        )
+    if mv.readonly:
+        mv = memoryview(bytearray(mv))
+    flat = torch.frombuffer(mv, dtype=torch.uint8) if expected else torch.empty(0, dtype=torch.uint8)
+    return flat.view(string_to_dtype(dtype_str)).reshape(tuple(int(d) for d in shape))
+
+
 def tensor_as_bytes(t: torch.Tensor) -> torch.Tensor:
     """Flat uint8 view of a CPU tensor's C-order bytes. Copies only when
     ``t`` is not C-contiguous. ``reshape(-1)`` first, because ``view(uint8)``
     refuses 0-dim tensors of wider items."""
     if t.device.type != "cpu":
         raise ValueError("tensor_as_bytes takes a CPU tensor")
+    if t.numel() == 0:
+        return torch.empty(0, dtype=torch.uint8)  # view() refuses an empty wider tensor
     return t.detach().contiguous().reshape(-1).view(torch.uint8)

@@ -175,7 +175,8 @@ LAST_TAKE_PHASES: Dict[str, float] = {}
 # prepared-take cache: a view of the ``preflight`` phase span's
 # ``plan_cache_hit`` and of the ``stage.prepare.cache_hit`` span.
 LAST_TAKE_CACHE: Dict[str, bool] = {}
-# Drain stats of this process's last sync take (see
+# Stream stats of this process's last sync take, over its whole pipeline
+# (the staging before the capture point and the drain; keys as
 # PendingSnapshot.drain_stats): derived from the engine's intervals, which
 # are the trace's scheduler.stage and scheduler.io spans.
 LAST_SYNC_DRAIN_STATS: Dict[str, float] = {}
@@ -489,10 +490,11 @@ class Snapshot:
         the chain length and the bytes written and deduped) and, without an
         explicit ``base``, take the latest committed same-job snapshot as
         the base, unless its chain is already ``max_chain_len`` deltas deep
-        (default ``catalog.DEFAULT_MAX_CHAIN_LEN``, 16): the take is then full.
+        (default ``TSS_TORCH_MAX_CHAIN_LEN``, 16): the take is then full.
         ``step`` defaults to the trailing digits of the snapshot's name.
         Rank 0 selects the base in the preflight round, so every rank uses
-        the same one.
+        the same one. With ``TSS_TORCH_CATALOG=0`` a ``job=`` take is a
+        plain full take that records nothing.
 
         ``qos``: the take's QoS class (``"foreground"``, ``"normal"``,
         ``"background"``; default the ambient class, NORMAL outside any
@@ -521,7 +523,9 @@ class Snapshot:
                     pending, metadata = cls._take_impl(plan, coord, storage, event_loop, False, phase)
                     pending.sync_complete(event_loop)
                     LAST_SYNC_DRAIN_STATS.clear()
-                    LAST_SYNC_DRAIN_STATS.update(pending.drain_stats)
+                    # The whole pipeline: a sync take stages everything
+                    # before its drain loop runs.
+                    LAST_SYNC_DRAIN_STATS.update(pending.pipeline_stats)
                     _persist_op_artifact(
                         storage, event_loop, rank, coord.get_world_size(), "take", tm,
                         plan.phase_tracker.spans, pending.telemetry_io_summary(),
@@ -631,13 +635,14 @@ class Snapshot:
     ) -> Optional[str]:
         """The catalog's auto-base sentinel for a ``job=`` take without an
         explicit ``base=``, resolved on rank 0 in the preflight round
-        (``catalog.resolve_auto_base``). An explicit base always wins."""
-        if job is None or base is not None:
+        (``catalog.resolve_auto_base``). An explicit base always wins; with
+        the catalog off the take is a plain full take."""
+        if job is None or base is not None or not knobs.is_catalog_enabled():
             return base
         from . import catalog as catalog_mod
 
         return catalog_mod.auto_base_token(
-            job, max_chain_len if max_chain_len is not None else catalog_mod.DEFAULT_MAX_CHAIN_LEN
+            job, max_chain_len if max_chain_len is not None else knobs.get_max_chain_len()
         )
 
     @classmethod
@@ -1072,6 +1077,13 @@ class Snapshot:
             digests = self._load_digest_index(storage, metadata, event_loop)
             self._attach_cache_digests(storage, digests)
             manifest = get_manifest_for_rank(metadata, rank)
+            # One pass over the manifest, bucketed by first path segment, so
+            # planning costs O(manifest) whatever the number of keys. A key
+            # holding '/' looks up its first segment; _read_tree's exact
+            # prefix filter narrows the bucket.
+            by_first_seg: Dict[str, Manifest] = {}
+            for p, e in manifest.items():
+                by_first_seg.setdefault(p.partition("/")[0], {})[p] = e
             phase = "restore.read"
             # RNG last, so loading other statefuls cannot perturb it.
             keys = sorted(app_state, key=lambda k: (isinstance(app_state[k], RNGState), k))
@@ -1080,8 +1092,8 @@ class Snapshot:
                     stateful = app_state[key]
                     _, live = flatten(stateful.state_dict(), prefix=key)
                     state, stats = self._read_tree(
-                        key, manifest, live, storage, event_loop, device, memory_budget,
-                        include=include, modes=modes, digests=digests,
+                        key, by_first_seg.get(key.partition("/")[0], {}), live, storage, event_loop,
+                        device, memory_budget, include=include, modes=modes, digests=digests,
                     )
                     _load_state_dict(stateful, state)
                 totals["bytes_read"] += stats["bytes_read"]
@@ -1126,7 +1138,7 @@ class Snapshot:
     ) -> None:
         """This rank's rollout record of the restore just done (from
         ``LAST_RESTORE_STATS``), under the bucket's catalog; fail-open."""
-        if not knobs.is_step_telemetry_enabled():
+        if not (knobs.is_catalog_enabled() and knobs.is_step_telemetry_enabled()):
             return
         from . import catalog as catalog_mod
 
@@ -1373,25 +1385,29 @@ class Snapshot:
     def verify(self) -> Dict[str, str]:
         """Audit every storage object against the crc32 recorded in the
         ``.checksums.<rank>`` sidecars. Returns ``{path: problem}``; empty
-        means clean. Raises ``RuntimeError`` when objects exist but no
-        sidecar does."""
+        means clean. A problem is ``"missing"``, ``"crc mismatch (...)"``,
+        ``"unreadable (...)"`` (a read failed otherwise than by absence),
+        ``"sidecar unreadable (...)"`` (keyed by the sidecar) or
+        ``"unverified (...)"`` (an object no readable sidecar covers).
+        Raises ``RuntimeError`` when objects exist but no sidecar does."""
         event_loop = asyncio.new_event_loop()
         storage = url_to_storage_plugin(self.path)
         try:
             metadata = self._read_metadata(storage, event_loop)
             expected, unreadable = _read_checksum_sidecars(storage, metadata.world_size, event_loop)
-            if unreadable:
-                raise RuntimeError(f"checksum sidecars unreadable: {unreadable}")
             locations = _manifest_storage_locations(metadata.manifest)
-            if not expected:
+            if not expected and not unreadable:
                 if not locations:
                     return {}
-                raise RuntimeError("snapshot has no checksum sidecars; nothing to verify")
+                raise RuntimeError(
+                    "snapshot has no checksum sidecars (taken with TSS_TORCH_CHECKSUMS=0?); nothing to verify"
+                )
             problems: Dict[str, str] = {
-                loc: "unverified (no checksum recorded)"
-                for loc in sorted(locations)
-                if loc not in expected
+                f"{CHECKSUM_FILE_PREFIX}{r}": f"sidecar unreadable ({err})" for r, err in sorted(unreadable.items())
             }
+            for loc in sorted(locations):
+                if loc not in expected:
+                    problems[loc] = _uncovered_problem(loc, unreadable)
 
             async def check(path: str, rec: Any) -> None:
                 read_io = ReadIO(path=path)
@@ -1399,6 +1415,9 @@ class Snapshot:
                     await storage.read(read_io)
                 except FileNotFoundError:
                     problems[path] = "missing"
+                    return
+                except Exception as e:  # noqa: BLE001 - not evidence of absence
+                    problems[path] = f"unreadable ({e!r})"
                     return
                 got = zlib.crc32(read_io.buf)
                 want = record_crc(rec)
@@ -1942,6 +1961,8 @@ def _chain_len_for(plan: TakePlan) -> int:
 def _note_chain_commit(path: str, catalog_info: Tuple[str, Optional[int], Optional[str], int]) -> None:
     """Make a just-committed ``job=`` snapshot its job's cached chain head
     on this rank, so the next take selects it without storage I/O."""
+    if not knobs.is_catalog_enabled():
+        return
     from . import catalog as catalog_mod
 
     try:
@@ -1966,6 +1987,8 @@ def _append_catalog_record(
     committed already, and a failed append only drops it from the chain and
     retention view until ``Catalog.rebuild``. The byte attribution comes
     from the snapshot's sidecars against the base's, with no collective."""
+    if not knobs.is_catalog_enabled():
+        return
     from . import catalog as catalog_mod
 
     try:
@@ -2077,11 +2100,20 @@ def _read_checksum_sidecars(
         read_io = ReadIO(path=f"{CHECKSUM_FILE_PREFIX}{rank}")
         try:
             storage.sync_read(read_io, event_loop)
-            merged.update(json.loads(bytes(read_io.buf).decode()))
         except FileNotFoundError:
             continue
         except Exception as e:  # noqa: BLE001 - reported to the caller
             unreadable[rank] = repr(e)
+            continue
+        try:
+            parsed = json.loads(bytes(read_io.buf).decode())
+        except Exception as e:  # noqa: BLE001 - a corrupt sidecar body
+            unreadable[rank] = f"unparseable: {e!r}"
+            continue
+        if not isinstance(parsed, dict):
+            unreadable[rank] = f"unparseable: expected a JSON object, got {type(parsed).__name__}"
+            continue
+        merged.update(parsed)
     return merged, unreadable
 
 

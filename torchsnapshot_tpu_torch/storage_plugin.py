@@ -93,7 +93,7 @@ def _resolve_storage_plugin(url: str) -> StoragePlugin:
     for ep in entry_points(group=ENTRY_POINT_GROUP):
         if ep.name == protocol:
             return ep.load()(path)
-    raise RuntimeError(f"unsupported storage protocol {protocol!r} (in url {url})")
+    raise RuntimeError(f"Unsupported protocol: {protocol} (in url {url})")
 
 
 def write_telemetry_artifact(

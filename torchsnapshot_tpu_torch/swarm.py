@@ -20,7 +20,7 @@ stay about one copy of the object at any world size.
   direct origin read.
 - **Never less available than a direct read.** A peer polls a chunk with
   ``try_get`` for ``TSS_TORCH_SWARM_CHUNK_DEADLINE_S``, then elects the
-  next server; past ``bcast.REELECT_MAX`` re-elections it reads
+  next server; past ``TSS_TORCH_BCAST_REELECT_MAX`` re-elections it reads
   the chunk itself. A server whose read fails posts an error marker.
 - **Bounded store.** Keys are fenced by a per-call token, the object, the
   chunk and the attempt. Each rank acks a chunk once it holds it; the last
@@ -60,15 +60,12 @@ from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ShardedArrayEntry
 from .scheduler import ReadVerificationError, fetch_read_io
 from .serialization import Serializer, string_to_dtype
 from .storage_plugins.cloud_retry import CollectiveProgress
-from .bcast import REELECT_MAX, stall_watchdog
+from .bcast import stall_watchdog
 from .utils import knobs
 
 logger = logging.getLogger(__name__)
 
 LAST_RESTORE_SWARM: Dict[str, Any] = {}
-
-# Concurrent chunk transfers per swarm object: the JAX package's default.
-FANOUT = 8
 
 _OK = b"O"
 _ERR = b"E"
@@ -464,7 +461,7 @@ def run_swarm(
     same point on every rank with the same ``items``. Objects restore one
     after another (host memory: one object plus the chunks in flight);
     within one, this rank's assigned chunks are read from the origin
-    (``FANOUT`` at a time) and posted as they land, while
+    (``TSS_TORCH_SWARM_FANOUT`` at a time) and posted as they land, while
     the rest are polled from peers. ``need_maps`` (``plan_reshard_need``)
     makes it need-aware: a rank touches only the chunks it needs, and acks
     count to the chunk's need set."""
@@ -494,8 +491,8 @@ def run_swarm(
             deliveries.setdefault(req.path, []).append((i, req))
 
     deadline_s = knobs.get_swarm_chunk_deadline_s()
-    fanout = FANOUT
-    reelect_max = REELECT_MAX
+    fanout = knobs.get_swarm_fanout()
+    reelect_max = knobs.get_bcast_reelect_max()
     max_attempts = 1 + min(reelect_max, world - 1)
     poll_s = max(0.01, min(0.05, deadline_s / 10.0))
     per_object = LAST_RESTORE_SWARM["per_object"]

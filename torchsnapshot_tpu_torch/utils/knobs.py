@@ -4,11 +4,9 @@ Every knob of ``torchsnapshot_tpu/utils/knobs.py`` has a counterpart here
 with the same parsing and default, except the deliberate differences
 ``ROADMAP.md`` lists: the coordinator's address, rank and world size (the
 port's coordinator rides ``torch.distributed``'s c10d store), the test
-launcher's drain, the catalog switch and chain length (``take(job=,
-max_chain_len=)`` instead), the swarm's fan-out and the broadcast's
-re-election bound (constants), and two defaults: the D2H window's (512 MiB,
-where the JAX package's is 128 MB) and eager D2H's (off, where the JAX
-package's is on). The prefix differs from the JAX package's on
+launcher's drain, and two defaults: the D2H window's (512 MiB, where the
+JAX package's is 128 MB) and eager D2H's (off, where the JAX package's is
+on). The prefix differs from the JAX package's on
 purpose, so the two packages' settings never alias. Every knob the JAX
 package gives an ``override_*`` context manager has one here, with the
 same name and value encoding: it sets the variable for its block and
@@ -54,6 +52,10 @@ _ENV_BCAST_MAX_BYTES = _P + "BCAST_MAX_BYTES"
 _ENV_BCAST_READER_DEADLINE = _P + "BCAST_READER_DEADLINE_S"
 _ENV_SWARM_RESTORE = _P + "SWARM_RESTORE"
 _ENV_SWARM_CHUNK_DEADLINE = _P + "SWARM_CHUNK_DEADLINE_S"
+_ENV_SWARM_FANOUT = _P + "SWARM_FANOUT"
+_ENV_BCAST_REELECT_MAX = _P + "BCAST_REELECT_MAX"
+_ENV_CATALOG = _P + "CATALOG"
+_ENV_MAX_CHAIN_LEN = _P + "MAX_CHAIN_LEN"
 
 logger = logging.getLogger(__name__)
 
@@ -413,6 +415,33 @@ def get_swarm_chunk_deadline_s() -> float:
         return max(0.05, float(os.environ.get(_ENV_SWARM_CHUNK_DEADLINE, 30.0)))
     except ValueError:
         return 30.0
+
+
+def get_bcast_reelect_max() -> int:
+    """Reader re-elections per broadcast object (and per swarm chunk)
+    before a peer stops waiting and reads it from the origin itself
+    (default 1, floor 0)."""
+    return max(0, _get_int(_ENV_BCAST_REELECT_MAX, 1))
+
+
+def get_swarm_fanout() -> int:
+    """Concurrent chunk transfers per swarm object: this rank's origin
+    fetches plus the chunks it serves (default 8, floor 1)."""
+    return max(1, _get_int(_ENV_SWARM_FANOUT, 8))
+
+
+def is_catalog_enabled() -> bool:
+    """The bucket catalog (``catalog.py``). Off, a ``job=`` take is a
+    plain full take: no auto-base, no commit-time record, no chain-cache
+    refresh, and a ``job=`` restore appends no rollout record."""
+    return os.environ.get(_ENV_CATALOG, "1").lower() not in ("0", "false", "off")
+
+
+def get_max_chain_len() -> int:
+    """The depth at which a ``job=`` take without ``max_chain_len=``
+    refuses its auto-selected base and rebases to a full snapshot (default
+    16, floor 1)."""
+    return max(1, _get_int(_ENV_MAX_CHAIN_LEN, 16))
 
 
 # -- telemetry (the JAX package's knobs and defaults) ------------------------
@@ -964,6 +993,22 @@ def override_swarm_restore(enabled: bool):
 
 def override_swarm_chunk_deadline_s(value: float):
     return _override_env(_ENV_SWARM_CHUNK_DEADLINE, str(value))
+
+
+def override_swarm_fanout(value: int):
+    return _override_env(_ENV_SWARM_FANOUT, str(value))
+
+
+def override_bcast_reelect_max(value: int):
+    return _override_env(_ENV_BCAST_REELECT_MAX, str(value))
+
+
+def override_catalog(enabled: bool):
+    return _override_env(_ENV_CATALOG, "1" if enabled else "0")
+
+
+def override_max_chain_len(value: int):
+    return _override_env(_ENV_MAX_CHAIN_LEN, str(value))
 
 
 def override_recorder_capacity(value: int):

@@ -11,7 +11,14 @@ packable dtype, empty, one-element, odd-sized and misaligned members, a
 transposed view and a ~100 MB member (K3: 0-d, empty, odd widths at odd
 addresses, 3-D blocks, strided last dims); then times kernel, plain version
 and one library call at the main path's shapes, beside the copy's bound
-(2 x bytes / 3.35 TB/s).
+(2 x bytes / 3.35 TB/s). K3 is timed over a sweep of seven shapes ((a) a
+main-path rectangle, (b) one rank's reshard restore, (c) a rectangle of
+phase 14's restore into ``Shard(0)``, (d) phase 14's rank-4 hold, (e) the
+gather of a permuted attention tensor, (f) a permuted 5-D view, (g) a
+grain-2 rectangle), each byte-exact first, by host-issued launches and by
+replays of a CUDA graph of launches (device time; under 4 x the L2's
+bytes, also cold: launches rotate through fresh copies of the pairs),
+beside an empty launch.
 Phase 2 drives the main path on a transformer-shaped bf16 state
 (d_model 4096, d_ff 16384, ~``--gb`` GB): a sync take with batching on,
 verify, restore into zeroed CUDA tensors, read_object, then async_take
@@ -395,6 +402,34 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, n: int, replays: int = 5) -> float:
+    """Device time per call of ``fn(stream)``: ``n`` calls captured in one
+    CUDA graph (a ctypes launch is captured when it goes to the capturing
+    stream), replayed ``replays`` times between two CUDA events, so the
+    host's issue rate does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(side)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream()
+        for _ in range(n):
+            fn(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (n * replays)
+
+
 def _bound_ms(nbytes: int) -> float:
     """Least time for a copy of ``nbytes``: read once, written once."""
     return 2 * nbytes / HBM_BYTES_PER_S * 1e3
@@ -738,34 +773,177 @@ def reshard_rectangles(device, gb, gen):
     return pairs, keep
 
 
-def time_k3(device, gb, gen):
-    """K3 at one main-path rectangle (2048x8192 bf16 into rows of 32 KiB
-    pitch) and over all rectangles of one rank's reshard restore."""
+def k3_launcher(pairs):
+    """(descriptors, launch): one K3 launch on a given stream over a table
+    built once, so that a timing sees the kernel and not the table."""
     from torchsnapshot_tpu_torch import kernels
 
-    stream = torch.cuda.current_stream(device)
-    out = {}
-    src = torch.randn(2048, 8192, generator=gen, device=device).to(torch.bfloat16)
-    dst = torch.zeros(2048, 16384, device=device, dtype=torch.bfloat16)[:, 8192:]
-    whole, keep = reshard_rectangles(device, gb, gen)
-    for label, pairs in (("rectangle", [(src, dst)]), ("reshard_restore", whole)):
-        table, total = kernels.rect_table(pairs)
-        dev_table = kernels.upload_rect_table(table, device)
-        nbytes = sum(s.numel() * s.element_size() for s, _ in pairs)
-        reps = 50 if label == "rectangle" else 5
-        out[label] = {
-            "bytes": nbytes,
-            "rectangles": len(table),
-            "ms": _time_ms(lambda: kernels.launch_raw("copy_blocks", dev_table, len(table), total, stream), reps),
-            "wrapper_ms": _time_ms(lambda: kernels.copy_blocks(pairs), reps),
-            "plain_ms": _time_ms(lambda: kernels.copy_blocks_plain(pairs), reps),
-            "library_ms": _time_ms(lambda: [d.copy_(s) for s, d in pairs], reps),
-            "bound_ms": _bound_ms(nbytes),
-        }
-    del src, dst, whole, keep
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    table, total = kernels.rect_table(pairs)
+    return len(table), lambda s: kernels.launch_rects(table, total, s)
+
+
+def _rebased(v):
+    """A view of ``v``'s shape and strides over a new allocation just large
+    enough for it, at ``v``'s address modulo 16 bytes (so its grain stays)."""
+    lead = v.storage_offset() % max(1, 16 // v.element_size())
+    span = 1 + sum((n - 1) * st for n, st in zip(v.shape, v.stride()))
+    return torch.empty(lead + span, dtype=v.dtype, device=v.device).as_strided(v.shape, v.stride(), lead)
+
+
+def _l2_bytes(device):
+    return getattr(torch.cuda.get_device_properties(device), "L2_cache_size", 0) or (50 << 20)
+
+
+def k3_graph_columns(pairs, launch, n, device):
+    """Graph-replayed device times of K3 (``launch``) and of
+    ``Tensor.copy_`` over ``pairs``. ``graph_ms`` replays the same buffers,
+    so a shape whose bytes fit the L2 is read from it (warm L2). Where the
+    bytes read and written are under 4 x the L2, ``cold_graph_ms`` rotates
+    the launches through ``cold_copies`` fresh copies of the pairs, enough
+    that each launch finds its bytes evicted, as a caller with a freshly
+    restored shard does; larger shapes stream past the L2 by themselves
+    (``cold_graph_ms`` is then ``graph_ms``)."""
+    import itertools
+
+    def library(_stream, pairs=pairs):
+        for x, d in pairs:
+            d.copy_(x)
+
+    out = {"graph_ms": _graph_ms(launch, n), "library_graph_ms": _graph_ms(library, n)}
+    touched = 2 * sum(x.numel() * x.element_size() for x, _ in pairs)
+    if touched >= 4 * _l2_bytes(device):
+        out.update(cold_copies=0, cold_graph_ms=out["graph_ms"], library_cold_graph_ms=out["library_graph_ms"])
+        return out
+    k = -(-4 * _l2_bytes(device) // touched)
+    copies = [[(_rebased(x), _rebased(d)) for x, d in pairs] for _ in range(k)]
+    launches = itertools.cycle([k3_launcher(c)[1] for c in copies])
+    libraries = itertools.cycle([lambda s, c=c: library(s, c) for c in copies])
+    reps = k * -(-n // k)
+    out.update(
+        cold_copies=k,
+        cold_graph_ms=_graph_ms(lambda s: next(launches)(s), reps),
+        library_cold_graph_ms=_graph_ms(lambda s: next(libraries)(s), reps),
+    )
+    del copies
     return out
+
+
+def k3_sweep_shapes(device, gb, gen):
+    """K3's sweep, (label, pairs) one at a time: the main path's shapes and
+    the narrow-row and high-rank shapes of phase 4's attention width."""
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf16)
+
+    # (a) one main-path rectangle: 2048x8192 bf16 into rows of 32 KiB pitch.
+    src = rand(2048, 8192)
+    dst = torch.zeros(2048, 16384, device=device, dtype=bf16)
+    yield "rectangle", [(src, dst[:, 8192:])]
+    del src, dst
+    # (b) every rectangle of one rank's reshard restore of phase 3's state.
+    pairs, keep = reshard_rectangles(device, gb, gen)
+    yield "reshard_restore", pairs
+    del pairs, keep
+    # (c) one rectangle of phase 14's restore into Shard(0): 128 rows of 64 KiB.
+    shard = rand(KV_BATCH, KV_HEADS, KV_SEQ // 2, KV_HEAD_DIM)
+    target = torch.zeros(KV_BATCH // 2, KV_HEADS, KV_SEQ, KV_HEAD_DIM, device=device, dtype=bf16)
+    yield "kv_shard0", [(shard[: KV_BATCH // 2], target[:, :, : KV_SEQ // 2])]
+    # (d) phase 14's rank-4 hold: 128-byte rows, 4 MiB.
+    yield "rank4_hold", k3_rank4_pairs(shard, device)
+    del shard, target
+    # (e) kernels.gather of a permuted [8, 512, 32, 128] attention tensor.
+    x = rand(KV_BATCH, KV_SEQ, KV_HEADS, KV_HEAD_DIM)
+    yield "permuted_gather", [(x.transpose(1, 2), torch.empty(KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM, device=device, dtype=bf16))]
+    del x
+    # (f) a permuted 5-D view, [4, 8, 512, 32, 128] -> [8, 4, 32, 512, 128].
+    x = rand(4, KV_BATCH, KV_SEQ, KV_HEADS, KV_HEAD_DIM)
+    v = x.permute(1, 0, 3, 2, 4)
+    yield "permuted_5d", [(v, torch.empty(v.shape, device=device, dtype=bf16))]
+    del x, v
+    # (g) a grain-2 rectangle: bf16 rows at odd element offsets, 8 MiB.
+    src = rand(4096, 1026)
+    dst = torch.zeros(4096, 1025, device=device, dtype=bf16)
+    yield "grain2", [(src[:, 1:1025], dst[:, 1:])]
+
+
+def k3_check(copy, pairs):
+    """Largest byte difference between ``copy(pairs)`` and the plain
+    version, over the whole allocations the destination views lie in,
+    each filled first with the same random bytes (a stray write shows)."""
+    from torchsnapshot_tpu_torch import kernels
+
+    bases = {}
+    for _, d in pairs:
+        b = d._base if d._base is not None else d
+        bases[b.data_ptr()] = b
+    raws = [b.reshape(-1).view(torch.uint8) for b in bases.values()]
+    gen = torch.Generator(device=raws[0].device).manual_seed(1)
+    pattern = [torch.randint(0, 256, r.shape, generator=gen, device=r.device, dtype=torch.uint8) for r in raws]
+
+    def fill():
+        for r, p in zip(raws, pattern):
+            r.copy_(p)
+
+    fill()
+    copy(pairs)
+    torch.cuda.synchronize()
+    got = [r.clone() for r in raws]
+    fill()
+    kernels.copy_blocks_plain(pairs)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(g, r) for g, r in zip(got, raws))
+    del got, pattern
+    return err
+
+
+def k3_sweep(device, gb, gen, card):
+    """K3 at every sweep shape: byte-exact against the plain version, then
+    its time by host-issued launches (``ms``, the column kept before graph timing) and
+    graph-replayed, warm and cold L2 (:func:`k3_graph_columns`), the
+    wrapper, the plain version and ``Tensor.copy_`` (host-issued and
+    graph-replayed), beside an empty launch (the floor) and the byte bound.
+    Fails on any byte that differs. Returns {label: row}."""
+    from torchsnapshot_tpu_torch import kernels
+
+    floor = _graph_ms(kernels.launch_empty, 100)
+    rows = {}
+    for label, pairs in k3_sweep_shapes(device, gb, gen):
+        err = k3_check(kernels.copy_blocks, pairs)
+        if err != 0:
+            raise AssertionError(f"K3 disagrees with its plain version at {label}: {err}")
+        nbytes = sum(s_.numel() * s_.element_size() for s_, _ in pairs)
+        reps, n = (5, 5) if nbytes > (256 << 20) else (50, 20)
+        stream = torch.cuda.current_stream(device)
+        descs, launch = k3_launcher(pairs)
+        before = kernels.LAUNCHES["copy_blocks"]
+        wrapper_ms = _time_ms(lambda: kernels.copy_blocks(pairs), reps)
+        if kernels.LAUNCHES["copy_blocks"] - before != reps + 1:
+            raise AssertionError(f"K3 is not one launch per call at {label}")
+
+        def library(pairs=pairs):
+            for x, d in pairs:
+                d.copy_(x)
+
+        row = {
+            "bytes": nbytes,
+            "rectangles": len(pairs),
+            "descriptors": descs,
+            "max_abs_err": err,
+            "bound_ms": _bound_ms(nbytes),
+            "floor_graph_ms": floor,
+            "ms": _time_ms(lambda: launch(stream), reps),
+            "wrapper_ms": wrapper_ms,
+            "plain_ms": _time_ms(lambda: kernels.copy_blocks_plain(pairs), reps),
+            "library_ms": _time_ms(library, reps),
+            **k3_graph_columns(pairs, launch, n, device),
+        }
+        log(f"copy_blocks sweep ({label}) on {card}: {json.dumps(row)}")
+        rows[label] = row
+        del pairs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3191,7 +3369,7 @@ def check_kv_state(state, seed, device, what):
 
 def collapsed_rank(src, dst):
     """The dims K3 sees in one rectangle once adjacent dims that are
-    contiguous in both views merge (at most 3 make one descriptor)."""
+    contiguous in both views merge (at most 5 make one descriptor)."""
     from torchsnapshot_tpu_torch import kernels
 
     return len(kernels._collapse(src.shape, src.stride(), dst.stride(), src.element_size()))
@@ -3290,43 +3468,45 @@ def phase14_worker(rank, world_size, n_layers, seed, root, out_dir):
         json.dump(result, f)
 
 
+def k3_rank4_pairs(shard, device):
+    """The hold's pair: half the heads and half of head_dim of one saved
+    sequence shard into another corner of a whole cache tensor."""
+    whole = torch.zeros(KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM, device=device, dtype=shard.dtype)
+    half_h, half_d, half_s = KV_HEADS // 2, KV_HEAD_DIM // 2, KV_SEQ // 2
+    return [(shard[:, :half_h, :, :half_d], whole[:, half_h:, half_s:, half_d:])]
+
+
 def k3_rank4_hold(device, gen):
-    """K3 against its plain version on one rank-4 rectangle of the cache:
-    half the heads and half of head_dim of one saved sequence shard into
-    another corner of a whole cache tensor. No two adjacent dims are
-    contiguous in both views, so the table holds one descriptor per index
-    of the outer dim. Returns the error, descriptors and times."""
+    """K3 against its plain version on one rank-4 rectangle of the cache
+    (:func:`k3_rank4_pairs`). No two adjacent dims are contiguous in both
+    views, so it keeps four dims: one descriptor with three dims outside
+    its 128-byte row. Returns the error, descriptors and times."""
     from torchsnapshot_tpu_torch import kernels
 
     shard = torch.randn(KV_BATCH, KV_HEADS, KV_SEQ // 2, KV_HEAD_DIM, generator=gen, device=device).to(torch.bfloat16)
-    whole = torch.zeros(KV_BATCH, KV_HEADS, KV_SEQ, KV_HEAD_DIM, device=device, dtype=torch.bfloat16)
-    half_h, half_d, half_s = KV_HEADS // 2, KV_HEAD_DIM // 2, KV_SEQ // 2
-    pairs = [(shard[:, :half_h, :, :half_d], whole[:, half_h:, half_s:, half_d:])]
+    pairs = k3_rank4_pairs(shard, device)
     rank = collapsed_rank(*pairs[0])
     table, _ = kernels.rect_table(pairs)
-    if rank != 4 or len(table) < 2:
+    if rank != 4 or len(table) != 1:
         raise AssertionError(f"phase14: the hold's rectangle collapsed to {rank} dims, {len(table)} descriptors")
-    kernels.copy_blocks(pairs)
-    got = whole.clone()
-    whole.zero_()
-    kernels.copy_blocks_plain(pairs)
-    err = _max_abs_err(_bytes(got), _bytes(whole))
+    err = k3_check(kernels.copy_blocks, pairs)
     nbytes = pairs[0][0].numel() * pairs[0][0].element_size()
-    table, total = kernels.rect_table(pairs)
-    dev_table = kernels.upload_rect_table(table, device)
+    descs, launch = k3_launcher(pairs)
     stream = torch.cuda.current_stream(device)
     out = {
         "collapsed_rank": rank,
-        "descriptors": len(table),
+        "descriptors": descs,
         "bytes": nbytes,
         "max_abs_err": err,
-        "ms": _time_ms(lambda: kernels.launch_raw("copy_blocks", dev_table, len(table), total, stream), 50),
+        "ms": _time_ms(lambda: launch(stream), 50),
         "wrapper_ms": _time_ms(lambda: kernels.copy_blocks(pairs), 50),
         "plain_ms": _time_ms(lambda: kernels.copy_blocks_plain(pairs), 50),
         "library_ms": _time_ms(lambda: pairs[0][1].copy_(pairs[0][0]), 50),
+        "floor_graph_ms": _graph_ms(kernels.launch_empty, 100),
         "bound_ms": _bound_ms(nbytes),
+        **k3_graph_columns(pairs, launch, 20, device),
     }
-    del shard, whole, got, pairs, dev_table
+    del shard, pairs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -3454,6 +3634,8 @@ def main() -> int:
     if engine.get("lib") is None:
         raise AssertionError("the native I/O engine did not build or load")
     log(f"native I/O engine: ABI {engine['lib'].tss_io_version()}, {native._lib_path()}")
+    nvcc = subprocess.run([kernels._nvcc(), "--version"], capture_output=True, text=True).stdout.strip().splitlines()
+    log(f"nvcc: {nvcc[-1] if nvcc else '?'}; K3 takes up to {kernels.load_library().tss_copy_blocks_inline_max()} descriptors by value")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     errs = phase1(device, gen)
@@ -3477,7 +3659,7 @@ def main() -> int:
         del slab_layer, slab_members, state_tensors
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        k3_times = timed("K3 timing", lambda: time_k3(device, args.gb, gen))
+        k3_times = timed("K3 timing", lambda: k3_sweep(device, args.gb, gen, card))
         ranks = timed("phase3", lambda: phase3(args.phase3_gb, args.seed, root, card))
         per_phase["phase3"] = [r["launches"] for r in ranks]
         launches["phase4"], trainer = timed("phase4", lambda: phase4(args.seed, device, root, card))

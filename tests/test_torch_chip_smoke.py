@@ -211,7 +211,7 @@ def test_phase14_state_and_its_rank4_rectangle(monkeypatch):
     and the residuals ``[8, 512, 4096]`` fp32, 536,870,912 bytes each in
     all over 8 layers; its sequence-half reshard rectangles collapse to
     two dims (one K3 descriptor), the hold's half-heads, half-head_dim
-    block to four (one descriptor per batch index)."""
+    block to four (one descriptor, three dims outside its row)."""
     import torch
 
     monkeypatch.syspath_prepend(REPO)
@@ -231,4 +231,62 @@ def test_phase14_state_and_its_rank4_rectangle(monkeypatch):
     reshard = (shard[:4], target[:, :, 256:, :])
     assert chip_smoke.collapsed_rank(*reshard) == 2 and len(kernels.rect_table([reshard])[0]) == 1
     hold = (shard[:, :16, :, :64], whole[:, 16:, 256:, 64:])
-    assert chip_smoke.collapsed_rank(*hold) == 4 and len(kernels.rect_table([hold])[0]) == 8
+    assert chip_smoke.collapsed_rank(*hold) == 4 and len(kernels.rect_table([hold])[0]) == 1
+
+
+def test_k3_sweep_shapes_keep_their_ranks(monkeypatch):
+    """K3's sweep on the card runs the shapes ``PERF.md`` names: (c) two
+    dims of 64 KiB rows, (d) and (e) four dims of 128- and 256-byte rows,
+    (f) five dims, (g) grain 2 at odd element offsets; each one
+    descriptor. (b), one rank's 2 GB reshard, is left to the card."""
+    import torch
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from torchsnapshot_tpu_torch import kernels
+
+    monkeypatch.setattr(chip_smoke, "reshard_rectangles", lambda device, gb, gen: ([], []))
+    want = {
+        "rectangle": (2, 16384, 16), "reshard_restore": None, "kv_shard0": (2, 65536, 16),
+        "rank4_hold": (4, 128, 16), "permuted_gather": (4, 256, 16), "permuted_5d": (5, 256, 16),
+        "grain2": (2, 2048, 2),
+    }
+    got = {}
+    for label, pairs in chip_smoke.k3_sweep_shapes("cpu", 4.0, torch.Generator().manual_seed(0)):
+        if not pairs:
+            got[label] = None
+            continue
+        (src, dst), = pairs
+        table, total = kernels.rect_table(pairs)
+        assert len(table) == 1 and total == src.numel() * src.element_size()
+        got[label] = (chip_smoke.collapsed_rank(src, dst), int(table["row_bytes"][0]), int(table["grain"][0]))
+    assert got == want
+
+
+def test_cold_copies_keep_each_sweep_shape_as_one_descriptor(monkeypatch):
+    """The cold column's fresh copies of a sweep shape keep its strides,
+    its address modulo 16 and so its table (rows, dims, grain), and copy
+    the same elements as the original views."""
+    import torch
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from torchsnapshot_tpu_torch import kernels
+
+    monkeypatch.setattr(chip_smoke, "reshard_rectangles", lambda device, gb, gen: ([], []))
+    fields = ("rows", "row_bytes", "ndim", "grain", "size", "src_stride", "dst_stride", "nbytes")
+    for label, pairs in chip_smoke.k3_sweep_shapes("cpu", 4.0, torch.Generator().manual_seed(0)):
+        if not pairs or label == "permuted_5d":  # 5-D: 256 MiB read and written, past 4 x L2
+            continue
+        copies = [(chip_smoke._rebased(x), chip_smoke._rebased(d)) for x, d in pairs]
+        for (x, d), (x2, d2) in zip(pairs, copies):
+            assert (x2.shape, x2.stride(), d2.shape, d2.stride()) == (x.shape, x.stride(), d.shape, d.stride())
+            assert (x2.data_ptr() % 16, d2.data_ptr() % 16) == (x.data_ptr() % 16, d.data_ptr() % 16)
+            x2.copy_(x)
+        want, _ = kernels.rect_table(pairs)
+        got, _ = kernels.rect_table(copies)
+        for f in fields:
+            assert (got[f] == want[f]).all(), (label, f)
+        kernels.copy_blocks(copies)
+        for (x, _), (_, d2) in zip(pairs, copies):
+            assert torch.equal(d2, x), label

@@ -7,6 +7,7 @@ skip the JAX-importing ``tests/conftest.py``::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
 import os
 
 import pytest
@@ -181,6 +182,107 @@ def test_gather_makes_strided_views_contiguous(device):
     a = torch.randn(40, 30, device=device)
     g = kernels.gather(a[3:37, 5:21])
     assert g.is_contiguous() and torch.equal(g, a[3:37, 5:21])
+
+
+def _check_k3(pairs, descriptors=None):
+    """K3 on ``pairs`` in one launch, byte-exact against the plain version
+    on copies of the destinations' whole allocations."""
+    bases = {}
+    for _, d in pairs:
+        b = d._base if d._base is not None else d
+        bases[b.data_ptr()] = b
+    want = {k: b.clone() for k, b in bases.items()}
+    views = []
+    for s_, d in pairs:
+        b = d._base if d._base is not None else d
+        w = want[b.data_ptr()]
+        views.append((s_, w.as_strided(d.shape, d.stride(), d.storage_offset())))
+    kernels.copy_blocks_plain(views)
+    if descriptors is not None:
+        assert len(kernels.rect_table(pairs)[0]) == descriptors
+    before = kernels.LAUNCHES["copy_blocks"]
+    kernels.copy_blocks(pairs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["copy_blocks"] == before + 1
+    for k, b in bases.items():
+        assert torch.equal(_bytes(b), _bytes(want[k]))
+
+
+@pytest.mark.parametrize("strided_last", [False, True], ids=["row", "strided"])
+@pytest.mark.parametrize("rank", [4, 5, 6, 7])
+def test_copy_blocks_high_rank_views(device, rank, strided_last):
+    """A corner of a larger tensor that keeps ``rank`` dims: one
+    descriptor up to five dims outside the contiguous row, a sixth cut on
+    the outermost dim, a seventh on the two outermost."""
+    g = torch.Generator(device=device).manual_seed(rank)
+    shape = [3, 5, 4, 6, 7, 9, 33][-rank:]
+    big = torch.randn([n + 1 for n in shape], generator=g, device=device)
+    src = big[tuple(slice(1, None) for _ in shape)]
+    dst = torch.zeros([n + 2 for n in shape], device=device)[tuple(slice(0, n) for n in shape)]
+    if strided_last:
+        src, dst = src[..., ::2], dst[..., ::2]
+    cut = max(0, rank - (0 if strided_last else 1) - kernels.K3_MAX_DIMS)
+    _check_k3([(src, dst)], math.prod(src.shape[:cut]))
+
+
+@pytest.mark.parametrize("units", [33, 300], ids=["narrow", "wide"])
+@pytest.mark.parametrize("grain", [1, 2, 4, 8, 16])
+def test_copy_blocks_every_grain(device, grain, units):
+    """Rows of ``units`` grain units at a ``grain``-byte offset: K3's
+    grain is exactly ``grain``; narrow rows take the lane groups, wide
+    ones (at least 256 units) the segment walk."""
+    row = grain * units
+    src = torch.randint(0, 256, (64, row + 64), device=device, dtype=torch.uint8)
+    dst = torch.zeros(64, row + 96, device=device, dtype=torch.uint8)
+    pairs = [(src[:, grain:grain + row], dst[:, 32:32 + row])]
+    table, _ = kernels.rect_table(pairs)
+    assert table["grain"][0] == grain
+    _check_k3(pairs, 1)
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["inline", "uploaded"])
+def test_copy_blocks_tables_inline_and_uploaded(device, over):
+    """The largest table the kernel takes by value, and one descriptor
+    more, which goes through the reused pinned buffer."""
+    n = kernels.load_library().tss_copy_blocks_inline_max() + over
+    base = torch.randint(-1000, 1000, (n, 4, 24), device=device, dtype=torch.int16)
+    out = torch.zeros(n, 4, 40, device=device, dtype=torch.int16)
+    _check_k3([(base[i, :, 3:21], out[i, :, 8:26]) for i in range(n)], n)
+
+
+def test_uploaded_tables_back_to_back_on_two_streams(device):
+    """Uploaded tables reuse one pinned buffer: calls queued on two
+    streams behind a long copy each still copy their own pairs."""
+    n = kernels.load_library().tss_copy_blocks_inline_max() + 5
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    big = torch.randn(64 << 20, device=device)
+    sink = torch.empty_like(big)
+    outs = []
+    for i in range(6):
+        stream = streams[i % 2]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            sink.copy_(big)  # keeps the stream busy while the host goes on
+            src = torch.full((n, 3, 8), float(i), device=device)
+            dst = torch.zeros(n, 3, 16, device=device)
+            kernels.copy_blocks([(src[j], dst[j, :, 4:12]) for j in range(n)], stream)
+            outs.append((i, dst))
+    torch.cuda.synchronize()
+    for i, dst in outs:
+        assert (dst[:, :, 4:12] == i).all() and not dst[:, :, :4].any() and not dst[:, :, 12:].any()
+
+
+def test_gather_of_a_permuted_attention_tensor(device):
+    """``gather`` of ``x.transpose(1, 2)`` ([batch, seq, heads, head_dim]
+    to [batch, heads, seq, head_dim]): one descriptor, one launch."""
+    x = torch.randn(2, 64, 8, 128, device=device).to(torch.bfloat16)
+    v = x.transpose(1, 2)
+    assert len(kernels.rect_table([(v, torch.empty(v.shape, device=device, dtype=v.dtype))])[0]) == 1
+    before = kernels.LAUNCHES["copy_blocks"]
+    g = kernels.gather(v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["copy_blocks"] == before + 1
+    assert g.is_contiguous() and torch.equal(g, v.contiguous())
 
 
 def _two_rank_reshard(rank, world_size, root):

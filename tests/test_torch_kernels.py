@@ -11,13 +11,17 @@ CUDA kernels themselves are held against the plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import bisect
 import ctypes
+import math
 
 import jax
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from torchsnapshot_tpu import batcher as jbatcher
 from torchsnapshot_tpu.io_preparers.sharded_array import overlap as joverlap
@@ -204,33 +208,113 @@ def test_copy_blocks_plain_matches_reference_consumer(dtype, case):
     )
 
 
-def _emulate_copy_blocks(table, total, chunk=48):
+def _emulate_row_offsets(d, r):
+    """Source and destination byte offsets of row ``r``, as the kernel's
+    ``row_offsets`` finds them: fast divmods by the dims' sizes, innermost
+    first, plain division when the rectangle has 2**32 rows or more."""
+    so = dso = 0
+    nd = d["ndim"]
+    for k in range(nd):
+        if k + 1 == nd:
+            i = r
+        elif d["rows"] >= 1 << 32:
+            r, i = divmod(r, d["size"][k])
+        else:
+            assert r < 1 << 32
+            q = kernels.fast_div(r, d["mul"][k], d["shift"][k])
+            i, r = r - q * d["size"][k], q
+        so += i * d["src_stride"][k]
+        dso += i * d["dst_stride"][k]
+    return so, dso
+
+
+def _emulate_copies(d, items, g, seen):
+    """One thread's batch: every load first, then every store."""
+    loaded = []
+    for c, so, dso in items:
+        s = d["src"] + so + c * g
+        t = d["dst"] + dso + c * g
+        assert s % g == 0 and t % g == 0  # the kernel's T-sized accesses
+        loaded.append((t, ctypes.string_at(s, g)))
+    for t, data in loaded:
+        assert t not in seen  # each unit is copied once
+        seen.add(t)
+        ctypes.memmove(t, data, g)
+
+
+def _emulate_wide_rows(d, u0, u1, upr, g, threads, seen):
+    r0, c0 = divmod(u0, upr)
+    for tid in range(threads):
+        r, c, u = r0, c0 + tid, u0 + tid
+        if c >= upr:
+            c, r = c - upr, r + 1
+        while u < u1:
+            items = []
+            for _ in range(kernels.K3_UNROLL):
+                if u < u1:
+                    items.append((c, *_emulate_row_offsets(d, r)))
+                u, c = u + threads, c + threads
+                if c >= upr:  # rows hold at least ``threads`` units: one wrap at most
+                    c, r = c - upr, r + 1
+            _emulate_copies(d, items, g, seen)
+
+
+def _emulate_narrow_rows(d, u0, u1, upr, g, threads, seen):
+    lg = 5 if upr >= 32 else (upr - 1).bit_length()
+    lanes = 1 << lg
+    groups = threads >> lg
+    csteps = -(-upr // lanes)
+    rb = (u1 - 1) // upr
+    for tid in range(threads):
+        lane = tid & (lanes - 1)
+        r, j = u0 // upr + (tid >> lg), 0
+        while r <= rb:
+            items = []
+            for _ in range(kernels.K3_UNROLL):
+                if r > rb:
+                    break
+                c = lane + (j << lg)
+                if c < upr and u0 <= r * upr + c < u1:
+                    items.append((c, *_emulate_row_offsets(d, r)))
+                j += 1
+                if j == csteps:
+                    j, r = 0, r + groups
+            _emulate_copies(d, items, g, seen)
+
+
+def _emulate_copy_blocks(table, total, chunk=None, threads=kernels.K3_THREADS, sms=132):
     """Run K3's table as the kernel does (csrc/tss_kernels.cu), on host
-    memory: blocks of ``chunk`` bytes each binary-search their first
-    rectangle and copy their share in grain units, checking the alignment
-    the kernel's vector loads rely on."""
-    begins = table["begin"]
+    memory: ``ceil(total / chunk)`` blocks (``chunk`` by the wrapper's rule
+    for ``sms`` SMs unless given), each binary-searching its first
+    rectangle and copying its share in grain units, by lane groups with
+    fast-divmod row lookups for narrow rows and by streaming units across
+    row ends for wide ones, ``K3_UNROLL`` loads before their stores. Checks the alignment the
+    kernel's vector accesses rely on and that every unit of every
+    rectangle is copied exactly once."""
+    if chunk is None:
+        chunk = kernels.k3_chunk_bytes(total, sms)
+    assert chunk % 16 == 0
+    rects = [{k: (list(map(int, table[k][i])) if table[k].ndim > 1 else int(table[k][i]))
+              for k in table.dtype.names} for i in range(len(table))]
+    begins = [d["begin"] for d in rects]
+    seen = set()
     for lo in range(0, total, chunk):
         hi = min(lo + chunk, total)
-        i = max(int(np.searchsorted(begins, lo, side="right")) - 1, 0)
-        while i < len(table) and table["begin"][i] < hi:
-            d = {k: int(table[k][i]) for k in table.dtype.names}
+        i = max(bisect.bisect_right(begins, lo) - 1, 0)
+        while i < len(rects) and rects[i]["begin"] < hi:
+            d = rects[i]
             i += 1
-            x = max(lo - d["begin"], 0)
-            y = min(hi, d["begin"] + d["nbytes"]) - d["begin"]
-            if x >= y:
+            end = d["begin"] + d["nbytes"]
+            if lo >= end:
                 continue
+            x = max(lo - d["begin"], 0)
+            y = min(hi, end) - d["begin"]
             g = d["grain"]
             assert x % g == 0 and y % g == 0
             upr = d["row_bytes"] // g
-            plane = upr * d["rows"]
-            for u in range(x // g, y // g):
-                o, rem = divmod(u, plane)
-                r, c = divmod(rem, upr)
-                s = d["src"] + o * d["src_opitch"] + r * d["src_pitch"] + c * g
-                t = d["dst"] + o * d["dst_opitch"] + r * d["dst_pitch"] + c * g
-                assert s % g == 0 and t % g == 0
-                ctypes.memmove(t, s, g)
+            walk = _emulate_wide_rows if upr >= threads else _emulate_narrow_rows
+            walk(d, x // g, y // g, upr, g, threads, seen)
+    assert len(seen) == sum(d["nbytes"] // d["grain"] for d in rects)
 
 
 def _k3_view_pairs(seed):
@@ -274,22 +358,133 @@ def test_rect_table_collapses_contiguous_dims():
     table, total = kernels.rect_table([(a, b)])
     assert len(table) == 1 and total == a.numel() * 4
     assert table["rows"][0] == 1 and table["row_bytes"][0] == total and table["grain"][0] == 16
+    assert table["ndim"][0] == 0
     # The main path's reshard rectangle: half the columns of each row.
     src = torch.zeros(2048, 8192, dtype=torch.bfloat16)
     dst = torch.zeros(2048, 16384, dtype=torch.bfloat16)[:, 8192:]
     table, total = kernels.rect_table([(src, dst)])
-    assert len(table) == 1
+    assert len(table) == 1 and table["ndim"][0] == 1
     assert (table["rows"][0], table["row_bytes"][0]) == (2048, 16384)
-    assert (table["src_pitch"][0], table["dst_pitch"][0]) == (16384, 32768)
+    assert (table["src_stride"][0][0], table["dst_stride"][0][0]) == (16384, 32768)
     # A 4-D block merges where it can; one that no merge brings under
-    # three dims is cut into rectangles along its outermost dim.
+    # three dims is one descriptor of three dims outside its row.
     big = torch.zeros(3, 4, 5, 6)
     table, _ = kernels.rect_table([(big[:, :, :, :2], torch.zeros(3, 4, 5, 2))])
     assert len(table) == 1
     table, _ = kernels.rect_table([(big[:, :3, :, :2], torch.zeros(3, 3, 5, 2))])
     assert len(table) == 1
     table, _ = kernels.rect_table([(big[:, :3, :4, :2], torch.zeros(3, 3, 4, 2))])
-    assert len(table) == 3 and (table["rows"] == 4).all()
+    assert len(table) == 1 and table["ndim"][0] == 3 and table["rows"][0] == 36
+    assert list(table["size"][0]) == [4, 3, 3, 0, 0]
+
+
+def _rank_view(rank, strided_last, seed):
+    """A (source view, destination) pair whose dims no merge reduces: a
+    corner of a larger tensor, ``rank`` collapsed dims, the last one
+    strided on both sides when ``strided_last``."""
+    g = torch.Generator().manual_seed(seed)
+    shape = [2, 3, 2, 3, 2, 3, 4][-rank:]
+    big = torch.randn([n + 1 for n in shape], generator=g)
+    src = big[tuple(slice(1, None) for _ in shape)]
+    dst_base = torch.zeros([n + 2 for n in shape])
+    dst = dst_base[tuple(slice(0, n) for n in shape)]
+    if strided_last:
+        src = src[..., ::2]
+        dst = torch.zeros([n + 2 for n in shape])[tuple(slice(0, n) for n in shape)][..., 1::2]
+    return src, dst
+
+
+@pytest.mark.parametrize("strided_last", [False, True], ids=["row", "strided"])
+@pytest.mark.parametrize("rank", [4, 5, 6, 7])
+@pytest.mark.parametrize("threads", [kernels.K3_THREADS, 2])
+def test_rect_table_ranks_four_to_six_emulated(rank, strided_last, threads):
+    """Up to five collapsed dims outside the contiguous row (the row is one
+    element when the last dim is strided) make one descriptor; a sixth
+    cuts the view on its outermost dim, a seventh on its two outermost.
+    Emulated at the kernel's block size and at 2 threads, where every row
+    takes the segment walk."""
+    src, dst = _rank_view(rank, strided_last, seed=rank)
+    assert len(kernels._collapse(src.shape, src.stride(), dst.stride(), 4)) == rank
+    want = dst.clone()
+    want.copy_(src)
+    table, total = kernels.rect_table([(src, dst)])
+    outer = rank - (0 if strided_last else 1)
+    cut = max(0, outer - kernels.K3_MAX_DIMS)
+    assert len(table) == math.prod(src.shape[:cut])
+    assert (table["begin"] % 16 == 0).all()
+    assert (table["ndim"] == min(outer, kernels.K3_MAX_DIMS)).all()
+    _emulate_copy_blocks(table, total, chunk=48, threads=threads)
+    assert torch.equal(_bytes_of(dst), _bytes_of(want))
+
+
+@pytest.mark.parametrize("case", _K3_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [t for t, _ in _PACKABLE], ids=str)
+def test_copy_blocks_emulated_matches_reference_consumer(dtype, case):
+    """K3's table, run by the emulator, fills a target exactly as the JAX
+    package's consumer does (``np.copyto`` on its ``overlap``)."""
+    np_dtype = dict(_PACKABLE)[dtype]
+    src, dst, ov = _k3_inputs(np_dtype, case, seed=6)
+    want = dst.copy()
+    t_src, t_dst = _as_tensor(src), _as_tensor(dst)
+    if ov is not None:
+        src_sl, dst_sl = ov
+        np.copyto(want[dst_sl] if dst_sl else want, src[src_sl] if src_sl else src, casting="no")
+        table, total = kernels.rect_table([(t_src[ov[0]], t_dst[ov[1]])])
+        _emulate_copy_blocks(table, total)
+    np.testing.assert_array_equal(
+        _bytes_of(t_dst).numpy(), np.ascontiguousarray(want).reshape(-1).view(np.uint8)
+    )
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["at_capacity", "one_over"])
+def test_table_just_under_and_over_the_inline_parameter_size(over):
+    """The largest table that fits the kernel's parameters goes by value;
+    one descriptor more does not fit and is uploaded. Both tables run
+    right under the emulator."""
+    param_bytes = kernels.K3_PARAM_BYTES
+    capacity = kernels.k3_inline_capacity()
+    assert capacity == 151
+    n = capacity + over
+    base = torch.arange(4 * n * 24, dtype=torch.int16).reshape(n, 4, 24)
+    out = torch.zeros(n, 4, 40, dtype=torch.int16)
+    pairs = [(base[i, :, 3:21], out[i, :, 8:26]) for i in range(n)]
+    table, total = kernels.rect_table(pairs)
+    assert len(table) == n
+    fits = 24 + table.nbytes <= param_bytes
+    assert fits == (over == 0)
+    _emulate_copy_blocks(table, total)
+    for src, dst in pairs:
+        assert torch.equal(src, dst)
+
+
+@pytest.mark.parametrize(
+    "total, chunk, blocks",
+    [(0, 4096, 0), (4 << 20, 10592, 396), (32 << 30, 65536, 524288)],
+    ids=["0B", "4MiB", "32GiB"],
+)
+def test_k3_chunk_rule(total, chunk, blocks):
+    """About three blocks per SM of an H100 (132 SMs), the blocks the
+    kernel keeps resident, 16-byte aligned, in [4 KiB, 64 KiB]."""
+    got = kernels.k3_chunk_bytes(total, 132)
+    assert got == chunk and got % 16 == 0
+    assert -(-total // got) == blocks
+
+
+@settings(max_examples=2000, deadline=None)
+@given(n=st.integers(0, (1 << 32) - 1), d=st.integers(1, (1 << 32) - 1))
+def test_fast_divmod_matches_divmod(n, d):
+    mul, shift = kernels.fast_divmod_params(d)
+    assert 0 <= mul < 1 << 32 and 0 <= shift <= 32
+    q = kernels.fast_div(n, mul, shift)
+    assert (q, n - q * d) == divmod(n, d)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 255, 256, 257, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, (1 << 32) - 1])
+def test_fast_divmod_at_the_edges(d):
+    mul, shift = kernels.fast_divmod_params(d)
+    for n in {0, 1, d - 1, d, d + 1, (1 << 31) - 1, 1 << 31, (1 << 32) - 2, (1 << 32) - 1}:
+        if 0 <= n < 1 << 32:
+            assert kernels.fast_div(n, mul, shift) == n // d, (n, d)
 
 
 def test_copy_blocks_checks_its_pairs():

@@ -13,9 +13,23 @@ and the build that compiles them.
   piece's overlap with a target shard into that target, in place.
 
 Each is one launch of a multi-tensor byte copy over a descriptor table
-(``csrc/tss_kernels.cu`` has the design and the bound). A wrapper runs the
+(``csrc/tss_kernels.cu`` has the design and the bound: each byte read once
+and written once, 2 x bytes / 3.35 TB/s on an H100). A wrapper runs the
 plain version only for tensors on the CPU. For CUDA tensors it launches
-the kernel or raises; there is no fallback.
+the kernel or raises; there is no fallback, at any size.
+
+K3's table holds one descriptor per rectangle of a contiguous row and up
+to :data:`K3_MAX_DIMS` collapsed dims outside it (each outer dim's size,
+byte strides and fast-divmod multiplier and shift, computed here), and
+goes to the kernel by value as one ``__grid_constant__`` parameter when it
+fits (151 descriptors; the build needs CUDA 12.1 or later), else through a pinned buffer the
+wrapper reuses per device. The grid is sized to the card
+(:func:`k3_chunk_bytes`). Measured on an H100 against the earlier design
+(one descriptor per index of every dim beyond three, 64 KiB blocks, two
+64-bit divisions per narrow-row unit, a table uploaded from a new pinned
+tensor per call), it runs a 4 MiB rank-4 rectangle of 128-byte rows in
+half the device time and its wrapper in about a third of the host time,
+and is as fast or faster at the main path's shapes (``PERF.md``).
 
 The library is built at first use with ``nvcc`` into ``_build/`` beside
 this file (git-ignored), from ``csrc/`` alone, and loaded with ``ctypes``.
@@ -29,6 +43,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import struct
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,15 +93,12 @@ PACKABLE_DTYPES = frozenset(
 _DESC_DTYPE = np.dtype(
     [("src", "<u8"), ("dst", "<u8"), ("begin", "<u8"), ("nbytes", "<u8")]
 )
-# K3's rectangle (csrc/tss_kernels.cu: TssRectDesc).
+# K3's rectangle (csrc/tss_kernels.cu: TssRect): dims outside the row
+# innermost first, unused entries 0.
 _RECT_DTYPE = np.dtype(
-    [
-        (name, "<u8")
-        for name in (
-            "src", "dst", "begin", "nbytes", "row_bytes", "rows",
-            "src_pitch", "dst_pitch", "src_opitch", "dst_opitch", "grain",
-        )
-    ]
+    [(name, "<u8") for name in ("src", "dst", "begin", "nbytes", "row_bytes", "rows")]
+    + [(name, "<u8", (5,)) for name in ("size", "src_stride", "dst_stride")]
+    + [("mul", "<u4", (5,)), ("shift", "<u4", (5,)), ("ndim", "<u4"), ("grain", "<u4")]
 )
 
 
@@ -159,7 +171,7 @@ def load_library() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(_build())
-            for name in ("tss_pack_slab", "tss_fork_copy", "tss_copy_blocks"):
+            for name in ("tss_pack_slab", "tss_fork_copy"):
                 fn = getattr(lib, name)
                 fn.argtypes = [
                     ctypes.c_void_p,
@@ -168,13 +180,24 @@ def load_library() -> ctypes.CDLL:
                     ctypes.c_void_p,
                 ]
                 fn.restype = ctypes.c_int
-            lib.tss_desc_size.argtypes = []
-            lib.tss_desc_size.restype = ctypes.c_int
-            lib.tss_rect_desc_size.argtypes = []
-            lib.tss_rect_desc_size.restype = ctypes.c_int
+            lib.tss_copy_blocks.argtypes = [
+                ctypes.c_void_p,  # host table
+                ctypes.c_int,
+                ctypes.c_void_p,  # device table, or None to pass the table by value
+                ctypes.c_ulonglong,
+                ctypes.c_ulonglong,
+                ctypes.c_void_p,
+            ]
+            lib.tss_copy_blocks.restype = ctypes.c_int
+            lib.tss_empty.argtypes = [ctypes.c_void_p]
+            lib.tss_empty.restype = ctypes.c_int
+            for name in ("tss_desc_size", "tss_rect_desc_size", "tss_copy_blocks_inline_max"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = ctypes.c_int
             if (
                 lib.tss_desc_size() != _DESC_DTYPE.itemsize
                 or lib.tss_rect_desc_size() != _RECT_DTYPE.itemsize
+                or lib.tss_copy_blocks_inline_max() != k3_inline_capacity()
             ):
                 raise RuntimeError("descriptor layout mismatch with csrc/")
             _LIB = lib
@@ -356,13 +379,70 @@ def fork_copy(
 # ---------------------------------------------------------------------------
 
 _RECT_ALIGN = 16  # rectangles start 16-byte aligned in the virtual space
+# Collapsed dims one descriptor holds outside its contiguous row (csrc:
+# kMaxDims); a view that keeps more is cut on its outermost dims.
+K3_MAX_DIMS = 5
+K3_THREADS = 256  # threads per block (csrc: kK3Threads)
+K3_UNROLL = 4  # loads each thread issues before their stores (csrc: kUnroll)
+# Bytes of kernel parameters on sm_90 (csrc: kParamBytes; the build needs
+# CUDA 12.1 or later); the table header (total, chunk, count) takes 24.
+K3_PARAM_BYTES = 32764
+_K3_TABLE_HEADER = 24
+_RECT_STRUCT = struct.Struct(f"<6Q{3 * K3_MAX_DIMS}Q{2 * K3_MAX_DIMS}I2I")
+assert _RECT_STRUCT.size == _RECT_DTYPE.itemsize
+
+
+def k3_inline_capacity() -> int:
+    """Descriptors that go to K3 by value, as one kernel parameter of
+    :data:`K3_PARAM_BYTES` (151)."""
+    return (K3_PARAM_BYTES - _K3_TABLE_HEADER) // _RECT_DTYPE.itemsize
+
+
+# K3's chunk rule: blocks per SM it aims at (the kernel's resident blocks
+# per SM, csrc: kK3MinBlocks; tuned on the card against 2 and 4), and its
+# clamp.
+K3_BLOCKS_PER_SM = 3
+K3_CHUNK_MIN = 4096
+K3_CHUNK_MAX = 65536
+
+
+def k3_chunk_bytes(total: int, sms: int) -> int:
+    """K3's bytes per block for a copy of ``total`` bytes on a card of
+    ``sms`` SMs: ``K3_BLOCKS_PER_SM`` blocks per SM, 16-byte aligned,
+    clamped to [``K3_CHUNK_MIN``, ``K3_CHUNK_MAX``] (csrc/tss_kernels.cu
+    has why)."""
+    per_block = -(-int(total) // (K3_BLOCKS_PER_SM * int(sms))) if total > 0 else 0
+    return min(max(-(-per_block // 16) * 16, K3_CHUNK_MIN), K3_CHUNK_MAX)
+
+
+def fast_divmod_params(d: int) -> Tuple[int, int]:
+    """(mul, shift) with ``fast_div(n, mul, shift) == n // d`` for every
+    32-bit ``n`` and ``1 <= d < 2**32`` (the round-up method of Granlund
+    and Montgomery; csrc: fast_div)."""
+    shift = (int(d) - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def fast_div(n: int, mul: int, shift: int) -> int:
+    """The device's ``fast_div``: ``(umulhi(n, mul) + n) >> shift``, the sum
+    in 64 bits."""
+    return (((n * mul) >> 32) + n) >> shift
+
+
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def _sm_count(index: int) -> int:
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def _non_overlapping(t: torch.Tensor) -> bool:
     """No two elements of ``t`` share memory (gaps allowed)."""
-    dims = sorted(((n, s) for n, s in zip(t.shape, t.stride()) if n > 1), key=lambda d: d[1])
     extent = 1
-    for n, s in dims:
+    for s, n in sorted((s, n) for n, s in zip(t.shape, t.stride()) if n > 1):
         if s < extent:
             return False
         extent = s * n
@@ -373,20 +453,20 @@ def _collapse(shape, src_strides, dst_strides, itemsize: int) -> List[Tuple[int,
     """(size, src byte stride, dst byte stride) per dim, outermost first,
     without size-1 dims, with each dim merged into the next inner one where
     both sides are contiguous across the two."""
-    dims: List[Tuple[int, int, int]] = []
-    for n, ss, ds in zip(shape, src_strides, dst_strides):
+    merged: List[Tuple[int, int, int]] = []
+    for n, ss, ds in zip(reversed(shape), reversed(src_strides), reversed(dst_strides)):
         if n == 1:
             continue
-        dims.append((int(n), int(ss) * itemsize, int(ds) * itemsize))
-    merged: List[Tuple[int, int, int]] = []
-    for n, ss, ds in reversed(dims):
+        ss *= itemsize
+        ds *= itemsize
         if merged:
             mn, mss, mds = merged[-1]
             if ss == mn * mss and ds == mn * mds:
                 merged[-1] = (mn * n, mss, mds)
                 continue
-        merged.append((n, ss, ds))
-    return merged[::-1]
+        merged.append((int(n), int(ss), int(ds)))
+    merged.reverse()
+    return merged
 
 
 def _grain(*values: int) -> int:
@@ -399,38 +479,66 @@ def _grain(*values: int) -> int:
     return 1
 
 
+def _pair_rects(src: torch.Tensor, dst: torch.Tensor, begin: int) -> Tuple[bytes, int, int]:
+    """The descriptors of one non-empty pair from virtual offset ``begin``,
+    as table bytes; returns them, the end of the last rectangle and the
+    next free (aligned) offset."""
+    itemsize = src.element_size()
+    dims = _collapse(src.shape, src.stride(), dst.stride(), itemsize)
+    if dims and dims[-1][1] == itemsize and dims[-1][2] == itemsize:
+        row_bytes = dims.pop()[0] * itemsize
+    else:
+        row_bytes = itemsize
+    extra = dims[:-K3_MAX_DIMS]
+    dims = dims[-K3_MAX_DIMS:]
+    dims.reverse()  # innermost first, as the kernel walks them
+    s_ptr, d_ptr = src.data_ptr(), dst.data_ptr()
+    rows, acc = 1, s_ptr | d_ptr | row_bytes
+    sizes, s_strides, d_strides = [0] * K3_MAX_DIMS, [0] * K3_MAX_DIMS, [0] * K3_MAX_DIMS
+    for k, (n, ss, ds) in enumerate(dims):
+        rows *= n
+        acc |= ss | ds
+        sizes[k], s_strides[k], d_strides[k] = n, ss, ds
+    for _, ss, ds in extra:
+        acc |= ss | ds
+    mul, shift = [0] * K3_MAX_DIMS, [0] * K3_MAX_DIMS
+    if rows < 1 << 32:
+        for k in range(len(dims) - 1):  # the outermost dim needs no division
+            mul[k], shift[k] = fast_divmod_params(sizes[k])
+    nbytes = rows * row_bytes
+    step = -(-nbytes // _RECT_ALIGN) * _RECT_ALIGN
+    one = _RECT_STRUCT.pack(
+        s_ptr, d_ptr, begin, nbytes, row_bytes, rows, *sizes, *s_strides, *d_strides,
+        *mul, *shift, len(dims), _grain(acc),
+    )
+    if not extra:
+        return one, begin + nbytes, begin + step
+    # One descriptor per index of the dims beyond five, outermost first.
+    idx = np.indices([n for n, _, _ in extra], dtype=np.uint64).reshape(len(extra), -1)
+    count = idx.shape[1]
+    table = np.repeat(np.frombuffer(one, _RECT_DTYPE), count)
+    table["src"] += (idx * np.array([ss for _, ss, _ in extra], np.uint64)[:, None]).sum(0)
+    table["dst"] += (idx * np.array([ds for _, _, ds in extra], np.uint64)[:, None]).sum(0)
+    table["begin"] += np.arange(count, dtype=np.uint64) * np.uint64(step)
+    return table.tobytes(), begin + (count - 1) * step + nbytes, begin + count * step
+
+
 def rect_table(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Tuple[np.ndarray, int]:
     """K3's descriptor table for (source view, destination view) pairs of
-    equal shape and dtype: one row per rectangle of at most three dims,
-    begins 16-byte aligned in the virtual byte space. Returns the table and
-    the end of its last rectangle."""
-    rows: List[tuple] = []
-    begin = 0
+    equal shape and dtype: one row per rectangle of a contiguous row and up
+    to :data:`K3_MAX_DIMS` collapsed dims outside it (a pair that keeps more
+    is cut on its outermost dims), begins 16-byte aligned in the virtual byte space.
+    Returns the table and the end of its last rectangle."""
+    parts: List[bytes] = []
+    begin = end = 0
     for src, dst in pairs:
         if src.numel() == 0:
             continue
-        itemsize = src.element_size()
-        dims = _collapse(src.shape, src.stride(), dst.stride(), itemsize)
-        if dims and dims[-1][1] == itemsize and dims[-1][2] == itemsize:
-            row_bytes = dims[-1][0] * itemsize
-            dims = dims[:-1]
-        else:
-            row_bytes = itemsize
-        rows_n, sp, dp = dims[-1] if dims else (1, 0, 0)
-        outer, sop, dop = dims[-2] if len(dims) >= 2 else (1, 0, 0)
-        extra = dims[:-2]
-        for idx in np.ndindex(*[n for n, _, _ in extra]):
-            s_off = sum(i * ss for i, (_, ss, _) in zip(idx, extra))
-            d_off = sum(i * ds for i, (_, _, ds) in zip(idx, extra))
-            s_ptr = src.data_ptr() + s_off
-            d_ptr = dst.data_ptr() + d_off
-            nbytes = outer * rows_n * row_bytes
-            grain = _grain(s_ptr, d_ptr, row_bytes, sp, dp, sop, dop)
-            rows.append((s_ptr, d_ptr, begin, nbytes, row_bytes, rows_n, sp, dp, sop, dop, grain))
-            begin += -(-nbytes // _RECT_ALIGN) * _RECT_ALIGN
-    table = np.array(rows, dtype=_RECT_DTYPE)
-    end = int(table["begin"][-1] + table["nbytes"][-1]) if len(rows) else 0
-    return table, end
+        part, end, begin = _pair_rects(src, dst, begin)
+        parts.append(part)
+    if not parts:
+        return np.zeros(0, dtype=_RECT_DTYPE), 0
+    return np.frombuffer(b"".join(parts), dtype=_RECT_DTYPE), end
 
 
 def copy_blocks_plain(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> None:
@@ -451,9 +559,75 @@ def _check_pairs(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.de
     return _single_device([t for pair in pairs for t in pair])
 
 
-def upload_rect_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy K3's table to ``device`` on the current stream."""
-    return torch.from_numpy(table.view(np.uint8)).pin_memory().to(device, non_blocking=True)
+class _PinnedTable:
+    """A device's reusable pinned buffer for K3 tables too large to pass
+    by value; ``copied`` marks the end of the last copy out of it."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.host: Optional[torch.Tensor] = None
+        self.copied: Optional[torch.cuda.Event] = None
+
+
+_PINNED_TABLES: Dict[int, _PinnedTable] = {}
+_PINNED_TABLES_LOCK = threading.Lock()
+
+
+def upload_rect_table(
+    table: np.ndarray, device: torch.device, stream: Optional[torch.cuda.Stream] = None
+) -> torch.Tensor:
+    """Copy K3's table to ``device`` on ``stream`` (default: the current
+    stream) through the device's reused pinned buffer, for a table that
+    cannot go by value (:func:`launch_rects`). The buffer is rewritten only
+    once the previous copy out of it has run."""
+    stream = stream or torch.cuda.current_stream(device)
+    data = np.ascontiguousarray(table).view(np.uint8)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _PINNED_TABLES_LOCK:
+        slot = _PINNED_TABLES.setdefault(index, _PinnedTable())
+    with slot.lock:
+        if slot.copied is not None:
+            slot.copied.synchronize()
+        if slot.host is None or slot.host.numel() < data.nbytes:
+            slot.host = torch.empty(max(data.nbytes, 1 << 16), dtype=torch.uint8, pin_memory=True)
+        slot.host.numpy()[: data.nbytes] = data
+        with torch.cuda.stream(stream):
+            out = torch.empty(data.nbytes, dtype=torch.uint8, device=device)
+            out.copy_(slot.host[: data.nbytes], non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(stream)
+    return out
+
+
+# tss_copy_blocks launched nothing: the table must come from device memory
+# (more descriptors than the library takes by value, or a rectangle of
+# 2**32 rows or of 2**31 units a row or more, which the kernel that counts
+# in 64 bits handles).
+_K3_NEEDS_DEVICE_TABLE = -1
+
+
+def launch_rects(table: np.ndarray, total: int, stream: torch.cuda.Stream) -> None:
+    """One K3 launch over a built table on ``stream``: by value, or, where
+    ``tss_copy_blocks`` refuses that, from a device copy of the table
+    (:func:`upload_rect_table`). Not counted: the wrapper counts; this is
+    also the timing entry point."""
+    lib = load_library()
+    data = table.tobytes()
+    chunk = k3_chunk_bytes(total, _sm_count(stream.device_index))
+    rc = lib.tss_copy_blocks(data, len(table), None, total, chunk, stream.cuda_stream)
+    if rc == _K3_NEEDS_DEVICE_TABLE:
+        device_table = upload_rect_table(table, stream.device, stream)
+        rc = lib.tss_copy_blocks(data, len(table), device_table.data_ptr(), total, chunk, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"copy_blocks kernel launch failed: CUDA error {rc}")
+
+
+def launch_empty(stream: torch.cuda.Stream) -> None:
+    """One launch of an empty kernel on ``stream``: the floor under a
+    kernel's time, for timing only."""
+    rc = load_library().tss_empty(stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 def copy_blocks(
@@ -463,8 +637,10 @@ def copy_blocks(
     """K3. Copies each source view into its destination view (equal shape
     and dtype, any strides, one device). CPU pairs take
     :func:`copy_blocks_plain`; CUDA pairs are copied by ONE
-    ``tss_copy_blocks`` launch on ``stream`` (default: the current stream).
-    A destination that overlaps itself raises."""
+    ``tss_copy_blocks`` launch on ``stream`` (default: the current stream),
+    its table passed by value, or uploaded first when it exceeds the
+    library's inline capacity (or holds a rectangle of 2**32 rows or
+    more). A destination that overlaps itself raises."""
     if not pairs:
         return
     device = _check_pairs(pairs)
@@ -476,10 +652,7 @@ def copy_blocks(
     table, total = rect_table(pairs)
     if total == 0:
         return
-    stream = stream or torch.cuda.current_stream(device)
-    with torch.cuda.stream(stream):
-        dev_table = upload_rect_table(table, device)
-        launch_raw("copy_blocks", dev_table, len(table), total, stream)
+    launch_rects(table, total, stream or torch.cuda.current_stream(device))
     _count("copy_blocks")
 
 

@@ -693,6 +693,27 @@ def test_traced_async_take_d2h_spans_cover_the_transfers(device, tmp_path, monke
         assert abs(v - snapshot_mod.LAST_TAKE_PHASES[k]) < 1e-5, k
 
 
+def test_pinned_allocations_are_spans_of_a_cuda_take(device, tmp_path):
+    """Each D2H transfer's pinned allocation is a ``stage.pin_alloc`` span
+    inside its ``stage.d2h``, with the tensor's bytes; it joins no drain
+    stat."""
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.engine.intervals import measure, merge_intervals
+
+    g = torch.Generator(device=device).manual_seed(0)
+    state = {"w": torch.randn(1024, 512, generator=g, device=device), "b": torch.randn(512, generator=g, device=device)}
+    tm = telemetry.Telemetry()
+    tts.Snapshot.take(str(tmp_path / "s"), {"m": tts.StateDict(**state)}, _telemetry=tm)
+    pins = tm.spans(name="stage.pin_alloc")
+    assert sorted(s.attrs["nbytes"] for s in pins) == sorted(t.numel() * t.element_size() for t in state.values())
+    d2hs = tm.spans(name="stage.d2h")
+    assert all(any(d.ts <= p.ts and p.ts + p.dur <= d.ts + d.dur for d in d2hs) for p in pins)
+    stats = snapshot_mod.LAST_SYNC_DRAIN_STATS
+    assert "stage_pin_alloc_s" not in stats and stats["stage_d2h_s"] > 0
+    assert measure(merge_intervals([(p.ts, p.ts + p.dur) for p in pins])) < stats["stage_d2h_s"]
+
+
 def _robust_state(device):
     """Phase 10's state at a small size: many small bf16 layers (slabbed by
     K1) and a few larger ones."""

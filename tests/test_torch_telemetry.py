@@ -52,6 +52,15 @@ PHASES_PORT_ONLY = {
     "stage_until_capture_point",
     "rng_restore",
 }
+# Port-only spans a session records only where they happen, so the sets
+# compared leave them out:
+# - host.gil_wait: the port's interpreter-lock probe, which an explicit
+#   session runs, records a span only for a wake late by more than the
+#   switch interval;
+# - stage.pin_alloc: the D2H lanes' pinned allocations, none on the CPU.
+SPANS_PORT_ONLY_WHEN_SEEN = {"host.gil_wait", "stage.pin_alloc"}
+# The probe's counter, which every probed pipeline creates at its start.
+METRICS_PORT_ONLY = {"host.gil_wait_s"}
 
 
 @pytest.fixture(autouse=True)
@@ -109,8 +118,8 @@ def test_span_and_metric_names_match_jax(tmp_path, op):
     jspans, jmetrics = _names(_run("jax", op, str(tmp_path)))
     tspans, tmetrics = _names(_run("port", op, str(tmp_path)))
     assert jspans - tspans == (PHASES_JAX_ONLY if op != "restore" else set())
-    assert tspans - jspans == (PHASES_PORT_ONLY if op != "restore" else set())
-    assert tmetrics == jmetrics
+    assert tspans - jspans - SPANS_PORT_ONLY_WHEN_SEEN == (PHASES_PORT_ONLY if op != "restore" else set())
+    assert tmetrics == jmetrics | METRICS_PORT_ONLY
 
 
 def test_chrome_trace_reads_through_jax(tmp_path, monkeypatch):

@@ -8,7 +8,9 @@ tensor with ``non_blocking=True``, records an event, and waits for that
 event *on the lane thread* before it hands the host tensor on. Nothing
 downstream (hasher, writer) can therefore see a buffer whose copy is still
 in flight. Pinned buffers come from PyTorch's caching host allocator,
-which pools them across transfers. A byte window bounds the transfers in
+which pools them across transfers; a miss of its cache calls
+``cudaHostAlloc``, so each allocation is timed as a ``stage.pin_alloc``
+span (:func:`pinned_empty`). A byte window bounds the transfers in
 flight (``TSS_TORCH_D2H_WINDOW_BYTES``, over ``TSS_TORCH_D2H_LANES``
 threads); every byte of it belongs to a staging reservation already
 debited against the pipeline's memory budget, except the eager copies an
@@ -103,9 +105,12 @@ class StageTimes:
     """Thread-safe record of the staging sub-stream intervals (d2h,
     serialize, hash), called from the event loop and from lane, staging and
     hash threads alike. The session is captured at construction, since
-    those threads do not inherit the activating context."""
+    those threads do not inherit the activating context. A kind of
+    ``SPAN_KINDS`` (the pinned allocations, inside ``stage.d2h``) is a
+    span alone: it joins no sub-stream, so no drain stat."""
 
     KINDS = ("d2h", "serialize", "hash")
+    SPAN_KINDS = ("pin_alloc",)
 
     def __init__(self, tm: Optional[Any] = None) -> None:
         self._tm = tm
@@ -124,8 +129,9 @@ class StageTimes:
         """One interval of ``kind``; its span is ``stage.<kind>`` unless
         ``span`` names another (a parallel hash chunk is a
         ``stage.hash_chunk`` in the hash sub-stream)."""
-        with self._lock:
-            self._intervals[kind].append((t0, t1))
+        if kind not in self.SPAN_KINDS:
+            with self._lock:
+                self._intervals[kind].append((t0, t1))
         tm = self._tm
         if tm is not None:
             tm.add_span(span or f"stage.{kind}", "stage", t0, t1 - t0, {"path": path, "nbytes": nbytes})
@@ -136,6 +142,19 @@ class StageTimes:
     def intervals(self) -> Dict[str, List[Tuple[float, float]]]:
         with self._lock:
             return {k: list(v) for k, v in self._intervals.items()}
+
+
+def pinned_empty(
+    shape: Sequence[int], dtype: torch.dtype, times: Optional[StageTimes] = None, path: str = ""
+) -> torch.Tensor:
+    """An uninitialised pinned host tensor from PyTorch's caching host
+    allocator; with ``times``, its allocation is a ``stage.pin_alloc``
+    span of ``path`` with its ``nbytes``."""
+    t0 = time.monotonic()
+    host = torch.empty(shape, dtype=dtype, pin_memory=True)
+    if times is not None:
+        times.record("pin_alloc", t0, time.monotonic(), path=path, nbytes=host.numel() * host.element_size())
+    return host
 
 
 class TransferLanes:
@@ -165,7 +184,7 @@ class TransferLanes:
         device: torch.device,
         nbytes: int,
         wait: Optional[torch.cuda.Event],
-        enqueue: Callable[[torch.cuda.Stream], torch.Tensor],
+        enqueue: Callable[[torch.cuda.Stream, Callable[..., torch.Tensor]], torch.Tensor],
         sources: Sequence[torch.Tensor],
         times: Optional[StageTimes] = None,
         path: str = "",
@@ -178,7 +197,7 @@ class TransferLanes:
             with torch.cuda.stream(stream):
                 if wait is not None:
                     stream.wait_event(wait)
-                host = enqueue(stream)
+                host = enqueue(stream, lambda shape, dtype: pinned_empty(shape, dtype, times, path))
                 done = torch.cuda.Event()
                 done.record(stream)
             for t in sources:
@@ -195,10 +214,10 @@ class TransferLanes:
             self._release(nbytes)
 
     @staticmethod
-    def _copy_out(src: torch.Tensor) -> Callable[[torch.cuda.Stream], torch.Tensor]:
-        def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
+    def _copy_out(src: torch.Tensor) -> Callable[..., torch.Tensor]:
+        def enqueue(stream: torch.cuda.Stream, pinned: Callable[..., torch.Tensor]) -> torch.Tensor:
             dense = src if src.is_contiguous() else kernels.gather(src, stream)
-            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host = pinned(src.shape, src.dtype)
             host.copy_(dense, non_blocking=True)
             return host
 
@@ -247,8 +266,8 @@ class TransferLanes:
         ``fill(stream, host)``, which enqueues on the lane's copy stream the
         device work and the copies into ``host``."""
 
-        def enqueue(stream: torch.cuda.Stream) -> torch.Tensor:
-            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        def enqueue(stream: torch.cuda.Stream, pinned: Callable[..., torch.Tensor]) -> torch.Tensor:
+            host = pinned((nbytes,), torch.uint8)
             fill(stream, host)
             return host
 

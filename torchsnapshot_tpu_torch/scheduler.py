@@ -38,8 +38,12 @@ Telemetry: the engine records one interval per node (and per streamed
 chunk), which is both the drain statistics and, with a session active,
 the ``scheduler.stage`` / ``scheduler.io`` / ``scheduler.stream_chunk`` /
 ``scheduler.read_io`` / ``scheduler.consume`` spans; the staging
-sub-streams (``stage.d2h``, ``stage.serialize``, ``stage.hash``) come from
-the pipeline's :class:`~.d2h.StageTimes`. A write pipeline feeds a
+sub-streams (``stage.d2h``, ``stage.serialize``, ``stage.hash``) and the
+pinned allocations (``stage.pin_alloc``) come from the pipeline's
+:class:`~.d2h.StageTimes`. For a session that asked for it, each pipeline
+runs the interpreter-lock probe (``telemetry.hostprobe``, ``host.gil_wait``
+spans) from its first run to its end, aborts included; an async take's
+probe so covers its capture and its whole drain. A write pipeline feeds a
 :class:`~.telemetry.ProgressTracker` (``PendingSnapshot.progress()``,
 the ``progress.*`` gauges, the fleet beacons and the stall watchdog) and
 ends with the ``scheduler.*`` counters; :meth:`PendingIOWork.telemetry_io_summary`
@@ -60,6 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import d2h, hashing, stream_select, telemetry
+from .telemetry import hostprobe
 from .engine import GraphExecutor, Node
 from .engine.intervals import clip_merged, measure, merge_intervals, stream_stats
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
@@ -205,6 +210,7 @@ class _WritePipeline:
         # its commit thread, and staging and hashing on executor threads.
         self._tm = telemetry.get_active()
         self.times = d2h.StageTimes(tm=self._tm)
+        self._probe: Optional[hostprobe.HostProbe] = None
         # Live progress: totals start as the staging-cost estimates and
         # converge on the staged bytes.
         self.progress = telemetry.ProgressTracker()
@@ -510,14 +516,24 @@ class _WritePipeline:
         if hasher is not None:
             self.checksums[req.path] = await hasher.finalize()
 
+    def _start_probe(self) -> None:
+        if self._probe is None:
+            self._probe = hostprobe.start_for(self._tm)
+
+    def _stop_probe(self) -> None:
+        if self._probe is not None:
+            self._probe.stop()
+
     async def run_until_staged(self) -> None:
         """Run until every non-deferred request's bytes are held privately
         (the capture point of an async take)."""
+        self._start_probe()
         t0 = time.monotonic()
         try:
             await self._engine.run(until=lambda: self._engine.unfinished_in(_STAGE_POOLS) == 0)
         except BaseException:
             self.pools.shutdown()
+            self._stop_probe()
             # The engine swept its reservations: a ledger leak raises here,
             # chained onto the failure.
             self._engine.assert_balanced("write pipeline abort")
@@ -527,6 +543,7 @@ class _WritePipeline:
         self._publish_progress()
 
     async def run_to_completion(self) -> None:
+        self._start_probe()
         t0 = time.monotonic()
         try:
             self._engine.release_deferred()
@@ -547,6 +564,7 @@ class _WritePipeline:
             raise
         finally:
             self.pools.shutdown()
+            self._stop_probe()
             self.windows.append((t0, time.monotonic()))
         # Every debit (admissions, re-costs) credited back at close.
         self._engine.assert_balanced("write pipeline close")
@@ -837,11 +855,15 @@ async def execute_read_reqs(
                 ),
             )
         )
+    probe = hostprobe.start_for(telemetry.get_active())
     try:
         await engine.run()
     except BaseException:
         engine.assert_balanced("read pipeline abort")
         raise
+    finally:
+        if probe is not None:
+            probe.stop()
     engine.assert_balanced("read pipeline close")
     telemetry.counter_add("scheduler.bytes_read", totals["bytes_read"])
     telemetry.gauge_max("scheduler.budget_hwm_bytes", engine.budget.high_water_bytes)

@@ -192,10 +192,11 @@ def _begin_telemetry(
 ) -> Tuple[Optional[telemetry.Telemetry], Optional[telemetry.Telemetry]]:
     """A session for one operation: ``_telemetry=`` wins, else one is made
     when a trace is asked for or artifacts are on (the artifact needs the
-    metrics). Returns (session, the previously active session)."""
+    metrics). Only a traced one runs the interpreter-lock probe. Returns
+    (session, the previously active session)."""
     tm = explicit
     if tm is None and (knobs.get_trace_path() or knobs.is_telemetry_artifacts_enabled()):
-        tm = telemetry.Telemetry()
+        tm = telemetry.Telemetry(probe_host=bool(knobs.get_trace_path()))
     prev = telemetry.activate(tm) if tm is not None else None
     return tm, prev
 

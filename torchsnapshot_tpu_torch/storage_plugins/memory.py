@@ -57,8 +57,10 @@ class MemoryStoragePlugin(StoragePlugin):
         self.objects: Dict[str, bytes] = {}
 
     async def write(self, write_io: WriteIO) -> None:
-        data = bytes(memoryview(write_io.buf).cast("B"))
-        with telemetry.span("storage.write", cat="storage", plugin="memory", path=write_io.path, nbytes=len(data)):
+        # The span times the copy into ``bytes``, which is the write.
+        with telemetry.span("storage.write", cat="storage", plugin="memory", path=write_io.path) as sp:
+            data = bytes(memoryview(write_io.buf).cast("B"))
+            sp.set_attrs(nbytes=len(data))
             self.objects[write_io.path] = data
         telemetry.counter_add("storage.memory.write_bytes", len(data))
 

@@ -172,13 +172,16 @@ class Telemetry:
 
     Holds a bounded :class:`TraceBuffer` and a
     :class:`~.metrics.MetricsRegistry`; exporters live in ``export.py``.
+    ``probe_host``: the pipelines that record into this session run the
+    interpreter-lock probe (``hostprobe.py``) while they run.
     """
 
-    def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
+    def __init__(self, capacity: int = DEFAULT_CAPACITY, probe_host: bool = True) -> None:
         from .metrics import MetricsRegistry
 
         self.buffer = TraceBuffer(capacity)
         self.metrics = MetricsRegistry()
+        self.probe_host = probe_host
         # Export time base: span ts are monotonic; the exporter rebases on
         # this so traces start near 0.
         self.t0 = time.monotonic()

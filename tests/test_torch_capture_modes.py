@@ -470,7 +470,9 @@ KNOBS = {
     "D2H_LANES": (_INT, _same(lambda k: k.get_d2h_lanes())),
     "D2H_WINDOW_BYTES": (_INT, _same(lambda k: k.get_d2h_window_bytes())),
     "HASH_CHUNK_BYTES": (_INT, _same(lambda k: k.get_hash_chunk_bytes())),
-    "HASH_WORKERS": (_INT, _same(lambda k: k.get_hash_workers())),
+    # The port's take whose caller waits has a width of its own (below).
+    "HASH_WORKERS": (_INT, (lambda k: (k.get_hash_workers(), k.get_hash_workers()),
+                            lambda k: (k.get_hash_workers(), k.get_hash_workers(caller_waits=True)))),
     "QOS": (_BOOL, _same(lambda k: k.is_qos_enabled())),
     "QOS_POLL_S": (_FLOAT, _same(lambda k: k.get_qos_poll_s())),
     "QOS_MAX_PAUSE_S": (_FLOAT, _same(lambda k: k.get_qos_max_pause_s())),
@@ -514,6 +516,11 @@ DEFAULT_DIFFERS = {
     "ASYNC_EAGER_D2H": ("off, where the JAX package's is on", ()),
     "BCAST_RESTORE": ("auto is off on every storage", ("", "auto")),
     "SWARM_RESTORE": ("auto is off on every storage", ("", "auto")),
+    "HASH_WORKERS": (
+        "a take whose caller waits hashes on max(staging width, usable CPUs / local world size - 2) "
+        "threads, the cores its caller leaves idle; a racing drain keeps the staging width, as the JAX package",
+        (),
+    ),
 }
 
 

@@ -336,3 +336,268 @@ def test_copies_let_go_of_the_lock_on_the_plugins_pool(monkeypatch):
     assert any(ours < plain / 4 for ours, plain in rounds), rounds
     assert all(p.objects["w"] == src and p.objects["s"] == src for p in stores)
     assert threads and all(name.startswith("tss-memory") for name in threads), threads
+
+
+# ---------------------------------------------------------------------------
+# Recycling: a dropped object's arrays fill the next copies of their size
+# ---------------------------------------------------------------------------
+
+RECYCLED_BYTES, FRESH = "storage.memory.recycled_bytes", "storage.memory.fresh_bytes"
+
+
+@pytest.fixture
+def pool(monkeypatch):
+    """A pool of this test's own, in place of the process's."""
+    own = memory.BufferPool()
+    monkeypatch.setattr(memory, "RECYCLED", own)
+    yield own
+    own.release()
+
+
+def _parts(plugin, path):
+    return list(plugin.objects[path].parts)
+
+
+@pytest.mark.parametrize("how", ["write", "stream"])
+def test_a_put_after_a_same_size_delete_reuses_its_buffers(pool, how):
+    plugin = memory.MemoryStoragePlugin()
+    first, second = _data(3 * CHUNK + 12345, seed=7), _data(3 * CHUNK + 12345, seed=8)
+    # A stream's 12345-byte tail is an inline ``bytes``: new, never pooled.
+    big = _copied_off_the_lock(how, len(first))
+    with _Session() as s:
+        _run(_put(plugin, "a", first, how))
+        assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (0, len(first))
+    old = [id(p) for p in _parts(plugin, "a") if isinstance(p, np.ndarray)]
+    _run(plugin.delete("a"))
+    assert pool.nbytes == big
+    with _Session() as s:
+        _run(_put(plugin, "b", second, how))
+        assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (big, len(second) - big)
+        span = s.tm.spans(name="storage.write" if how == "write" else "storage.write_stream")[-1]
+        assert span.attrs["recycled"] == big
+    assert sorted(id(p) for p in _parts(plugin, "b") if isinstance(p, np.ndarray)) == sorted(old)
+    assert pool.nbytes == 0
+    # Every byte is the new object's.
+    assert plugin.objects["b"] == second and bytes(_run(_get(plugin, "b"))) == second
+    _run(plugin.close())
+
+
+def test_an_overwrite_recycles_what_it_replaces(pool):
+    plugin = memory.MemoryStoragePlugin()
+    _run(_put(plugin, "a", _data(T + 1, seed=1), "write"))
+    old = id(plugin.objects["a"].parts[0])
+    _run(_put(plugin, "a", _data(2 * T, seed=2), "write"))
+    assert pool.nbytes == T + 1
+    with _Session() as s:
+        _run(_put(plugin, "b", _data(T + 1, seed=3), "write"))
+        assert s.counter(RECYCLED_BYTES) == T + 1
+    assert id(_parts(plugin, "b")[0]) == old and plugin.objects["b"] == _data(T + 1, seed=3)
+    _run(plugin.close())
+
+
+def _whole_read(plugin, path):
+    """A read without ``into``: a view of the stored array."""
+    return _run(_get(plugin, path))
+
+
+def _pieces_view(plugin, path):
+    """Views of the parts, as ``Chunks.pieces`` gives them, the object
+    itself let go."""
+    return plugin.objects[path].pieces(1, len(plugin.objects[path]) - 1)
+
+
+def _held_object(plugin, path):
+    """The stored object itself, kept by a caller."""
+    return plugin.objects[path]
+
+
+@pytest.mark.parametrize("hold", [_whole_read, _pieces_view, _held_object], ids=["read", "pieces", "object"])
+def test_a_buffer_someone_still_references_is_not_recycled(pool, hold):
+    plugin = memory.MemoryStoragePlugin()
+    data = _data(CHUNK, seed=9)
+    _run(_put(plugin, "a", data, "write"))
+    held = hold(plugin, "a")
+    _run(plugin.delete("a"))
+    assert pool.nbytes == 0
+    with _Session() as s:
+        for i in range(3):
+            _run(_put(plugin, f"b{i}", _data(CHUNK, seed=10 + i), "write"))
+        assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (0, 3 * CHUNK)
+    # The holder still reads the deleted object's bytes.
+    seen = b"".join(bytes(v) for v in held) if isinstance(held, list) else bytes(held)
+    assert seen == (data[1:-1] if isinstance(held, list) else data)
+    _run(plugin.close())
+
+
+def test_inline_objects_are_never_pooled(pool):
+    """An inline ``bytes`` counts as a new buffer, and never returns."""
+    plugin = memory.MemoryStoragePlugin()
+    for _ in range(2):
+        with _Session() as s:
+            _run(_put(plugin, "s", _data(T - 1), "write"))
+            _run(_put(plugin, "c", _data(3 * CHUNK + 12345), "stream"))
+            fresh = s.counter(FRESH)
+        _run(plugin.delete("s"))
+        _run(plugin.delete("c"))
+        # The stream's 12345-byte tail was an inline ``bytes``.
+        assert pool.nbytes == 3 * CHUNK
+    # The second round's chunks were the first's.
+    assert fresh == T - 1 + 12345
+    _run(plugin.close())
+
+
+def test_the_pool_is_shared_across_roots_and_outlives_close(pool):
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+
+    a, b = url_to_storage_plugin("memory://recycle/1"), url_to_storage_plugin("memory://recycle/2")
+    assert a is not b
+    try:
+        _run(_put(a, "x", _data(3 * CHUNK, seed=1), "stream"))
+        _run(a.delete("x"))
+        _run(a.close())
+        with _Session() as s:
+            _run(_put(b, "x", _data(3 * CHUNK, seed=2), "stream"))
+            assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (3 * CHUNK, 0)
+        assert b.objects["x"] == _data(3 * CHUNK, seed=2)
+        _run(b.close())
+    finally:
+        memory.SHARED_ROOTS.pop("recycle/1", None)
+        memory.SHARED_ROOTS.pop("recycle/2", None)
+
+
+def test_the_pool_never_holds_more_than_one_store_held(pool):
+    """Bound by the most one store held; an array given beyond it frees the
+    oldest kept, so sizes no longer written age out."""
+    small, large = memory.MemoryStoragePlugin(), memory.MemoryStoragePlugin()
+    for i in range(4):
+        _run(_put(small, f"o{i}", _data(T + 1, seed=i), "write"))
+    assert pool.bound == 4 * (T + 1)
+    for i in range(4):
+        _run(small.delete(f"o{i}"))
+    assert pool.nbytes == pool.bound == 4 * (T + 1)
+    # Another size: it draws nothing, and what it drops frees the oldest.
+    for i in range(2):
+        _run(_put(large, f"o{i}", _data(2 * T, seed=i), "write"))
+    assert pool.bound == 4 * (T + 1)
+    for i in range(2):
+        _run(large.delete(f"o{i}"))
+        assert pool.nbytes <= pool.bound
+    assert pool.nbytes == 4 * T
+    # An array larger than the bound is never kept.
+    _run(_put(large, "huge", _data(5 * T), "write"))
+    assert pool.bound == 5 * T
+    _run(large.delete("huge"))
+    assert pool.nbytes == 5 * T
+    with _Session() as s:
+        _run(_put(large, "again", _data(5 * T), "write"))
+        _run(_put(small, "gone", _data(T + 1), "write"))
+        assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (5 * T, T + 1)
+    pool.bound = 2 * T
+    _run(large.delete("again"))
+    assert pool.nbytes == 0
+    _run(small.close())
+    _run(large.close())
+
+
+def test_releasing_empties_the_pool(pool):
+    plugin = memory.MemoryStoragePlugin()
+    _run(_put(plugin, "a", _data(2 * CHUNK), "stream"))
+    _run(plugin.delete("a"))
+    assert memory.recycled_bytes() == 2 * CHUNK
+    assert memory.release_recycled_buffers() == 2 * CHUNK
+    assert memory.recycled_bytes() == 0
+    with _Session() as s:
+        _run(_put(plugin, "b", _data(2 * CHUNK), "stream"))
+        assert (s.counter(RECYCLED_BYTES), s.counter(FRESH)) == (0, 2 * CHUNK)
+    _run(plugin.close())
+
+
+def test_stores_on_many_threads_never_share_a_buffer(pool):
+    """Twelve threads, each with a store and an event loop, put and delete
+    objects of one size at a short switch interval: every object keeps its
+    own bytes, no two live objects share an array, and the pool stays in
+    its bound."""
+    import sys
+
+    n_threads, rounds = 12, 20
+    stores = [memory.MemoryStoragePlugin() for _ in range(n_threads)]
+    errors = []
+
+    def work(k):
+        plugin = stores[k]
+
+        async def go():
+            for r in range(rounds):
+                data = bytes([(k * rounds + r) % 251]) * T
+                await _put(plugin, f"o{r % 3}", data, "write")
+                await asyncio.sleep(0)
+                if plugin.objects[f"o{r % 3}"] != data:
+                    errors.append((k, r))
+                if r % 2:
+                    await plugin.delete(f"o{r % 3}")
+                assert pool.nbytes <= pool.bound
+            await plugin.close()
+
+        try:
+            asyncio.run(go())
+        except BaseException as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    live = [id(p) for st in stores for obj in st.objects.values() for p in obj.parts]
+    assert live and len(live) == len(set(live))
+
+
+def test_the_staging_budget_counts_recycled_buffers_as_available(pool, monkeypatch):
+    """The pool's pages are filled by the next snapshot's copies in place of
+    new ones, so a take into the store, whose budget reads ``MemAvailable``,
+    adds them back; another operation (a restore) finds no page there."""
+    from torchsnapshot_tpu_torch import scheduler
+
+    from torchsnapshot_tpu_torch.utils import knobs
+
+    monkeypatch.setattr(scheduler, "_mem_available_bytes", lambda: 10 << 30)
+    monkeypatch.setattr(knobs, "_local_world_size", 1)
+    monkeypatch.delenv("TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES", raising=False)
+    plugin = memory.MemoryStoragePlugin()
+    before = scheduler.get_process_memory_budget_bytes(writes_to=plugin)
+    _run(_put(plugin, "a", _data(2 * CHUNK), "stream"))
+    _run(plugin.delete("a"))
+    assert pool.nbytes == 2 * CHUNK
+    assert scheduler.get_process_memory_budget_bytes(writes_to=plugin) - before == pytest.approx(2 * CHUNK * 0.6, abs=1)
+    assert scheduler.get_process_memory_budget_bytes() == before
+    _run(plugin.close())
+
+
+def test_a_restore_gives_the_recycled_buffers_back(pool):
+    """A restore's pages come on top of a take's peak: it empties the pool
+    before it allocates, and restores byte for byte."""
+    import torch
+
+    import torchsnapshot_tpu_torch as tts
+
+    w = torch.arange(3 * T // 4, dtype=torch.float32)
+    app = {"m": tts.StateDict(w=w)}
+    tts.Snapshot.take("memory://recycle/r1", app)
+    tts.Snapshot.take("memory://recycle/r2", app)
+    store = memory.SHARED_ROOTS["recycle/r1"]
+    try:
+        for path in _run(store.list_prefix("")):
+            _run(store.delete(path))
+        assert pool.nbytes == w.numel() * 4
+        out = tts.StateDict(w=torch.zeros_like(w))
+        tts.Snapshot("memory://recycle/r2").restore({"m": out}, device="cpu")
+        assert pool.nbytes == 0 and torch.equal(out["w"], w)
+    finally:
+        memory.SHARED_ROOTS.pop("recycle/r1", None)
+        memory.SHARED_ROOTS.pop("recycle/r2", None)

@@ -487,9 +487,10 @@ class ChunkHasher:
     independent job on ``executor``; ``finalize()`` gathers the per-chunk
     digests in order and combines them into a sidecar record.
 
-    At most ``max_inflight`` chunk jobs (default twice the hash pool's
-    width) are dispatched and unfinished at once (``feed`` awaits past
-    that), which bounds the staged views the hash backlog keeps alive to
+    At most ``max_inflight`` chunk jobs (a write pipeline passes twice its
+    hash pool's width; default twice ``knobs.get_hash_workers()``) are
+    dispatched and unfinished at once (``feed`` awaits past that), which
+    bounds the staged views the hash backlog keeps alive to
     ``max_inflight x grain`` bytes."""
 
     def __init__(
@@ -610,11 +611,13 @@ def make_stream_hasher(
     executor,
     times: Optional[Any] = None,
     path: str = "",
+    max_inflight: Optional[int] = None,
 ):
     """The stream-side hasher of one storage object: chunk-parallel at a
-    positive grain, the serial v1 fold at grain 0."""
+    positive grain (``max_inflight``: :class:`ChunkHasher`'s), the serial v1
+    fold at grain 0."""
     if grain > 0:
-        return ChunkHasher(grain, want_sha, loop, executor, times=times, path=path)
+        return ChunkHasher(grain, want_sha, loop, executor, max_inflight, times=times, path=path)
     return SerialStreamHasher(want_sha, loop, executor, times=times, path=path)
 
 
@@ -627,6 +630,7 @@ async def hash_buffer(
     want_whole_sha: bool = False,
     times: Optional[Any] = None,
     path: str = "",
+    max_inflight: Optional[int] = None,
 ):
     """Digest one whole buffer: chunk-parallel on ``executor`` above one
     grain, the single-job serial fold otherwise. Gives the same record as
@@ -635,7 +639,8 @@ async def hash_buffer(
     (one job beside the chunk jobs), for an incremental take whose base
     recorded v1 identities. ``times`` (a ``d2h.StageTimes``, passed in
     because executor threads do not inherit the session) records each job
-    as a ``stage.hash`` or ``stage.hash_chunk`` span of ``path``."""
+    as a ``stage.hash`` or ``stage.hash_chunk`` span of ``path``.
+    ``max_inflight``: :class:`ChunkHasher`'s."""
     mv = memoryview(mv).cast("B")
     if grain <= 0 or mv.nbytes <= grain:
         return await loop.run_in_executor(executor, serial_digest, mv, want_sha, times, path)
@@ -650,7 +655,7 @@ async def hash_buffer(
             return out
 
         whole = loop.run_in_executor(executor, whole_sha)
-    hasher = ChunkHasher(grain, want_sha, loop, executor, times=times, path=path)
+    hasher = ChunkHasher(grain, want_sha, loop, executor, max_inflight, times=times, path=path)
     try:
         await hasher.feed(mv)
         rec = await hasher.finalize()

@@ -68,6 +68,7 @@ from .telemetry import hostprobe
 from .engine import GraphExecutor, Node
 from .engine.intervals import clip_merged, measure, merge_intervals, stream_stats
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from .storage_plugins import memory as memory_store
 from .storage_plugins.cloud_retry import CollectiveProgress, is_transient_os_error, retry_transient
 from .utils import knobs
 
@@ -116,17 +117,23 @@ def _mem_available_bytes() -> int:
     raise RuntimeError("/proc/meminfo has no MemAvailable line")
 
 
-def get_process_memory_budget_bytes(coordinator: Any = None) -> int:
+def get_process_memory_budget_bytes(coordinator: Any = None, writes_to: Optional[StoragePlugin] = None) -> int:
     """Host bytes one rank's pipeline may hold staged at once:
-    ``min(0.6 x MemAvailable / local world size, 32 GiB)``, or
-    ``TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES`` verbatim. The local world
-    size is derived (and cached, for the I/O caps) even when the budget is
-    overridden, so every rank runs the same collective."""
+    ``min(0.6 x available / local world size, 32 GiB)``, or
+    ``TSS_TORCH_PER_RANK_MEMORY_BUDGET_BYTES`` verbatim. Available is
+    ``MemAvailable``, and for a take that ``writes_to`` the memory store
+    also the store's recycled buffers, which its copies fill instead of
+    new pages (any other operation's pages are new). The local world size
+    is derived (and cached, for the I/O caps and the hash width) even when
+    the budget is overridden, so every rank runs the same collective."""
     local_world_size = derive_local_world_size(coordinator)
     override = knobs.get_memory_budget_override_bytes()
     if override is not None:
         return override
-    budget = int(_mem_available_bytes() * _AVAILABLE_MEMORY_MULTIPLIER / local_world_size)
+    available = _mem_available_bytes()
+    if isinstance(writes_to, memory_store.MemoryStoragePlugin):
+        available += memory_store.recycled_bytes()
+    budget = int(available * _AVAILABLE_MEMORY_MULTIPLIER / local_world_size)
     return min(budget, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
 
 
@@ -142,9 +149,11 @@ def _chunk_size_bucket(nbytes: int) -> str:
 
 
 class PipelinePools:
-    """Thread pools of one operation, created on first use."""
+    """Thread pools of one operation, created on first use; the hash pool
+    ``hash_workers`` wide."""
 
-    def __init__(self) -> None:
+    def __init__(self, hash_workers: int) -> None:
+        self.hash_workers = hash_workers
         self._staging: Optional[ThreadPoolExecutor] = None
         self._hash: Optional[ThreadPoolExecutor] = None
         self._lanes: Optional[d2h.TransferLanes] = None
@@ -156,7 +165,7 @@ class PipelinePools:
 
     def hash_executor(self) -> ThreadPoolExecutor:
         if self._hash is None:
-            self._hash = ThreadPoolExecutor(knobs.get_hash_workers(), thread_name_prefix="tss-hash")
+            self._hash = ThreadPoolExecutor(self.hash_workers, thread_name_prefix="tss-hash")
         return self._hash
 
     def transfer_lanes(self) -> d2h.TransferLanes:
@@ -179,10 +188,13 @@ class _WritePipeline:
         memory_budget_bytes: int,
         rank: int,
         base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
+        hash_workers: Optional[int] = None,
     ) -> None:
         self.storage = storage
         self.rank = rank
-        self.pools = PipelinePools()
+        self.pools = PipelinePools(hash_workers or knobs.get_hash_workers())
+        # Chunk jobs in flight per hashed object: twice the pool's width.
+        self._hash_inflight = 2 * self.pools.hash_workers
         self.checksums: Dict[str, object] = {}
         self._write_reqs = write_reqs
         # Resolved once: a deferred background drain must not re-read knobs
@@ -394,6 +406,7 @@ class _WritePipeline:
             digest = await hashing.hash_buffer(
                 memoryview(buf), self._grain, self._want_sha, loop, self.pools.hash_executor(),
                 want_whole_sha=self._base_needs_whole_sha, times=self.times, path=path,
+                max_inflight=self._hash_inflight,
             )
             self.checksums[path] = digest
             if not await self._link_from_base(path, digest):
@@ -425,7 +438,8 @@ class _WritePipeline:
             return
         digest = asyncio.ensure_future(
             hashing.hash_buffer(
-                mv, self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=path
+                mv, self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=path,
+                max_inflight=self._hash_inflight,
             )
         )
         try:
@@ -444,7 +458,8 @@ class _WritePipeline:
         hasher = None
         if self._checksums_on:
             hasher = hashing.make_stream_hasher(
-                self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=req.path
+                self._grain, self._want_sha, loop, self.pools.hash_executor(), times=self.times, path=req.path,
+                max_inflight=self._hash_inflight,
             )
         totals = {"bytes": 0, "chunks": 0}
         stream = await self.storage.write_stream(req.path)
@@ -583,6 +598,7 @@ class _WritePipeline:
         for stats in (self.drain_stats, self.pipeline_stats):
             stats["bytes_deduped"] = self.bytes_deduped
             stats["objects_linked"] = self.objects_linked
+            stats["hash_workers"] = self.pools.hash_workers
         self._publish_progress()
         telemetry.gauge_max("scheduler.budget_hwm_bytes", self._engine.budget.high_water_bytes)
         telemetry.counter_add("scheduler.bytes_staged", self.bytes_staged)
@@ -630,7 +646,8 @@ class PendingIOWork:
         """Stream overlap of the drain (the run after the capture point):
         ``wall_s``, ``stage_busy_s``, ``io_busy_s``, ``overlap_s``,
         ``idle_s``, the ``stage_<kind>_s`` sub-streams, and the dedup
-        counts; derived from the intervals the trace's spans record."""
+        counts; derived from the intervals the trace's spans record. Also
+        ``hash_workers``, the hash pool's width."""
         return dict(self._pipeline.drain_stats)
 
     @property
@@ -680,14 +697,16 @@ def sync_execute_write_reqs(
     event_loop: asyncio.AbstractEventLoop,
     base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
     on_built: Optional[Callable[[_WritePipeline], None]] = None,
+    hash_workers: Optional[int] = None,
 ) -> PendingIOWork:
     """Run the write pipeline to its capture point; the returned handle
     finishes the rest (deferred staging and every write). ``base_loader``
     returns an incremental take's base as ``(root, {path: record})``, or
     None to write everything. ``on_built`` runs on the pipeline before it
-    starts (an async take's eager D2H)."""
+    starts (an async take's eager D2H). ``hash_workers``: the hash pool's
+    width (default ``knobs.get_hash_workers()``)."""
     return event_loop.run_until_complete(
-        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank, base_loader, on_built)
+        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank, base_loader, on_built, hash_workers)
     )
 
 
@@ -698,9 +717,10 @@ async def execute_write_reqs(
     rank: int,
     base_loader: Optional[Callable[[], Optional[Tuple[str, Dict[str, Any]]]]] = None,
     on_built: Optional[Callable[[_WritePipeline], None]] = None,
+    hash_workers: Optional[int] = None,
 ) -> PendingIOWork:
     """:func:`sync_execute_write_reqs` on the running event loop."""
-    pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank, base_loader)
+    pipeline = _WritePipeline(write_reqs, storage, memory_budget_bytes, rank, base_loader, hash_workers)
     if on_built is not None:
         on_built(pipeline)
     await pipeline.run_until_staged()

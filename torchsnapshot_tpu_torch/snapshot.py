@@ -152,6 +152,7 @@ from .serialization import (
 )
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
+from .storage_plugins import memory as memory_store
 from .storage_plugins.cache import find_read_cache
 from .take_plan import (
     CachedPlan,
@@ -177,8 +178,9 @@ LAST_TAKE_PHASES: Dict[str, float] = {}
 LAST_TAKE_CACHE: Dict[str, bool] = {}
 # Stream stats of this process's last sync take, over its whole pipeline
 # (the staging before the capture point and the drain; keys as
-# PendingSnapshot.drain_stats): derived from the engine's intervals, which
-# are the trace's scheduler.stage and scheduler.io spans.
+# PendingSnapshot.drain_stats, ``hash_workers`` included): derived from the
+# engine's intervals, which are the trace's scheduler.stage and
+# scheduler.io spans.
 LAST_SYNC_DRAIN_STATS: Dict[str, float] = {}
 # This process's last restore: wall seconds, the read pipelines' totals
 # (bytes_read, read_wall_s, requests), the broadcast and swarm records
@@ -896,7 +898,9 @@ class Snapshot:
             )
         # A plan-cache hit skips the hostname gather: the take that stored
         # the plan derived (and cached) the local world size.
-        memory_budget = scheduler.get_process_memory_budget_bytes(None if plan.cache_hit else coord)
+        memory_budget = scheduler.get_process_memory_budget_bytes(
+            None if plan.cache_hit else coord, writes_to=storage
+        )
         _count_take_objects(len(plan.flattened), write_reqs)
         phase("plan")
         phase_out[0] = "write"
@@ -929,8 +933,15 @@ class Snapshot:
                 prepare_timings["d2h_hint"] = prepare_timings.get("d2h_hint", 0.0) + time.monotonic() - t_hint
             phase("d2h_hint")
 
+        # Where each pipeline learns which case it is: a take whose caller
+        # waits for the commit hashes on the cores the caller leaves idle;
+        # an async take's drain races the caller's steps, so it keeps the
+        # staging width. The local world size is the one the budget above
+        # derived.
+        hash_workers = knobs.get_hash_workers(caller_waits=not is_async)
         pending = sync_execute_write_reqs(
-            write_reqs, storage, memory_budget, rank, event_loop, base_loader, on_built=eager_d2h
+            write_reqs, storage, memory_budget, rank, event_loop, base_loader, on_built=eager_d2h,
+            hash_workers=hash_workers,
         )
         phase("stage_until_capture_point")
         # Out-of-band sub-spans: they decompose the capture, prepare and
@@ -1077,6 +1088,10 @@ class Snapshot:
         rank = coord.get_rank()
         world = coord.get_world_size()
         barrier = self._barrier(coord, "restore", self.path)
+        # The memory store's recycled buffers wait for the next take's
+        # copies, which would otherwise need new pages; a restore's own
+        # pages come on top of a take's peak, so it gives them back first.
+        memory_store.release_recycled_buffers()
         # Before the plugin: its O_DIRECT width reads the local world size.
         memory_budget = scheduler.get_process_memory_budget_bytes(coord)
         event_loop = asyncio.new_event_loop()

@@ -711,11 +711,17 @@ def get_d2h_window_bytes() -> int:
     return max(0, _get_int(_ENV_D2H_WINDOW, 512 * 1024 * 1024))
 
 
-def get_hash_workers() -> int:
-    """Width of the hash pool (default: the staging width)."""
+def get_hash_workers(caller_waits: bool = False) -> int:
+    """Width of a pipeline's hash pool: ``TSS_TORCH_HASH_WORKERS`` when set.
+    Else, for a take whose caller waits for its commit, the usable CPUs over
+    the ranks sharing this host less two (for the event loop, the transfer
+    lanes and the storage copies), and at least the staging width; else,
+    for a drain that races the caller's own work, the staging width."""
     val = os.environ.get(_ENV_HASH_WORKERS)
     if val is not None:
         return max(1, int(val))
+    if caller_waits:
+        return max(get_staging_threads(), len(os.sched_getaffinity(0)) // get_local_world_size() - 2)
     return get_staging_threads()
 
 
